@@ -1,0 +1,182 @@
+"""Execution plans: per-layer dispatch decisions resolved once, not per call.
+
+PyTorch-port counterpart of ``repro/api/plan.py``. A :class:`LayerPlan`
+freezes a layer's kind, route, (Pa, Pw), conv geometry and band size;
+:func:`build_plan` produces the model-wide :class:`ExecutionPlan`, which
+also owns the backend.
+
+This slice ports the ``dense`` and ``serve_packed`` modes. The conv band
+size is sized against one H100 thread block's shared memory
+(:data:`repro_torch.kernels.bitserial_conv.SMEM_BUDGET`), where the
+reference sizes it against the TPU's VMEM.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.api.backend import Backend, resolve_backend
+from repro_torch.core.policy import LayerPrecision, PrecisionPolicy
+
+# Routes: the closed set of execution strategies a layer can resolve to.
+DENSE = "dense"              # float matmul / conv (DPNN-equivalent baseline)
+PACKED = "packed"            # paper-faithful bit-serial packed planes
+
+# Execution-mode names -> routes.
+MODE_ROUTES = {
+    "dense": DENSE,
+    "serve_packed": PACKED,
+}
+
+# Modes of the reference that later slices bring.
+_UNPORTED_MODES = {"fake_quant": "ROADMAP A.12", "serve_int8": "ROADMAP A.5"}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """Everything apply-time dispatch needs for ONE layer, resolved once.
+
+    ``conv_tile`` is the resolved output-rows-per-band of the conv kernel,
+    filled in by :meth:`ExecutionPlan.conv_tile` from the layer's
+    activation geometry (recorded in ``conv_tile_geom``). ``w_group`` /
+    ``w_group_counts`` are the pack-time per-filter-group weight plane
+    counts (``None`` = none recorded).
+    """
+
+    name: str
+    kind: str                      # "linear" | "conv"
+    route: str                     # DENSE | PACKED
+    precision: LayerPrecision = LayerPrecision()
+    dynamic_a: bool = False
+    kernel: int | None = None
+    stride: int | None = None
+    conv_tile: int | None = None
+    conv_tile_geom: tuple | None = None   # (h, w, c) it was sized for
+    w_group: int = 16
+    w_group_counts: tuple | None = None
+
+    @property
+    def a_bits(self) -> int:
+        return self.precision.a_bits
+
+    @property
+    def w_bits(self) -> int:
+        return self.precision.w_bits
+
+
+@dataclasses.dataclass
+class ExecutionPlan:
+    """Model-wide execution plan: resolved LayerPlans + the backend.
+
+    ``layers`` maps ``(name, kind)`` to a resolved :class:`LayerPlan`;
+    names not pre-resolved by :func:`build_plan` resolve on first use.
+    """
+
+    mode: str
+    policy: PrecisionPolicy
+    backend: Backend
+    layers: dict = dataclasses.field(default_factory=dict)
+
+    def layer(self, name: str = "", kind: str = "linear",
+              kernel: int | None = None, stride: int | None = None
+              ) -> LayerPlan:
+        key = (name, kind)
+        lp = self.layers.get(key)
+        if lp is None:
+            lp = self._resolve(name, kind, kernel, stride)
+            self.layers[key] = lp
+        elif kernel is not None and (lp.kernel, lp.stride) != (kernel, stride):
+            raise ValueError(
+                f"layer {name!r} resolved with conv geometry "
+                f"{(lp.kernel, lp.stride)} but called with {(kernel, stride)}")
+        return lp
+
+    def conv_tile(self, lp: LayerPlan, h: int, w: int, c: int) -> int:
+        """Rows per band of the conv kernel for layer ``lp``, resolved from
+        the activation geometry against the shared-memory budget and frozen
+        into the stored LayerPlan for that geometry."""
+        geom = (h, w, c)
+        if lp.conv_tile is not None and lp.conv_tile_geom == geom:
+            return lp.conv_tile
+        rpb = conv_rows_per_band(h, w, c, kernel=lp.kernel, stride=lp.stride)
+        self.layers[(lp.name, lp.kind)] = dataclasses.replace(
+            lp, conv_tile=rpb, conv_tile_geom=geom)
+        return rpb
+
+    def record_weight_groups(self, named_params: dict) -> None:
+        """Freeze pack-time per-filter-group weight plane counts into plans.
+
+        ``named_params`` maps layer names to their PACKED param dicts
+        (``{"w_packed": uint8 [Pw, K/8, N], ...}``). For every resolved
+        layer with a matching packed tensor the OR-tree counts are computed
+        once and stored as a tuple of Python ints on the LayerPlan. A no-op
+        when ``policy.w_group`` is 0.
+        """
+        from repro_torch.core import bitpack, weightgroups
+        if not self.policy.w_group:
+            return
+        for (name, kind), lp in list(self.layers.items()):
+            p = named_params.get(name)
+            wp = p.get("w_packed") if isinstance(p, dict) else None
+            if wp is None or wp.ndim != 3:
+                continue
+            w_bits = wp.shape[0]
+            counts = weightgroups.weight_group_counts(
+                bitpack.unpack_weights(wp, w_bits), w_bits, lp.w_group)
+            self.layers[(name, kind)] = dataclasses.replace(
+                lp, w_group_counts=tuple(int(c) for c in counts.tolist()))
+
+    def _resolve(self, name, kind, kernel=None, stride=None) -> LayerPlan:
+        if self.mode in _UNPORTED_MODES:
+            raise NotImplementedError(
+                f"mode {self.mode!r} is not ported yet "
+                f"({_UNPORTED_MODES[self.mode]})")
+        try:
+            route = MODE_ROUTES[self.mode]
+        except KeyError:
+            raise ValueError(f"unknown execution mode {self.mode!r}; "
+                             f"expected one of {sorted(MODE_ROUTES)}") from None
+        return LayerPlan(
+            name=name, kind=kind, route=route,
+            precision=self.policy.lookup(name),
+            dynamic_a=self.policy.dynamic_a,
+            w_group=self.policy.w_group or 16,
+            kernel=kernel, stride=stride)
+
+
+def conv_rows_per_band(h: int, w: int, c: int, *, kernel: int,
+                       stride: int) -> int:
+    """Band size of the conv kernel: starts from one band covering the
+    whole map and halves it until one block's shared memory
+    (:func:`repro_torch.kernels.bitserial_conv.conv_smem_bytes`) fits the
+    budget; floors at one output row per band."""
+    from repro_torch.kernels.bitserial_conv import SMEM_BUDGET, conv_smem_bytes
+    rpb = -(-h // stride)
+    while rpb > 1 and conv_smem_bytes(h, w, c, kernel=kernel, stride=stride,
+                                      rows_per_band=rpb) > SMEM_BUDGET:
+        rpb = -(-rpb // 2)
+    return rpb
+
+
+def build_plan(cfg, policy: PrecisionPolicy | None = None,
+               mode: str = "dense", backend="torch_ref") -> ExecutionPlan:
+    """Compile the per-layer plans for a model config.
+
+    ``cfg`` may be a :class:`repro_torch.models.cnn.CNNConfig` (pre-resolves
+    each conv with its kernel/stride plus the FC head) or None (everything
+    resolves on first use). ``backend`` is a Backend object or registered
+    name.
+    """
+    policy = policy if policy is not None else PrecisionPolicy()
+    plan = ExecutionPlan(mode=mode, policy=policy,
+                         backend=resolve_backend(backend))
+    if cfg is None:
+        return plan
+    if not hasattr(cfg, "convs"):
+        raise NotImplementedError(
+            f"{getattr(cfg, 'name', cfg)!r}: only CNN configs are ported "
+            f"yet (LM: ROADMAP A.6)")
+    for c in cfg.convs:
+        plan.layer(c.name, kind="conv", kernel=c.kernel, stride=c.stride)
+    for i in range(len(cfg.fcs)):
+        plan.layer(f"fc{i}", kind="linear")
+    return plan

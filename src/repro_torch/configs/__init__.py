@@ -1,0 +1,22 @@
+"""Architecture registry of the PyTorch port.
+
+Each module exposes ``config()`` (the published configuration) and
+``smoke_config()`` (a reduced same-family configuration for CPU tests).
+This slice ports the paper CNN only; the LM configurations come with the
+LM slice (ROADMAP A.6).
+"""
+from __future__ import annotations
+
+from repro_torch.configs import paper_cnn
+
+_ARCHS = {"paper_cnn": paper_cnn}
+
+
+def get(name: str, smoke: bool = False):
+    mod_name = name.replace("-", "_").replace(".", "_")
+    try:
+        mod = _ARCHS[mod_name]
+    except KeyError:
+        raise KeyError(f"architecture {name!r} is not ported yet; ported: "
+                       f"{sorted(_ARCHS)}") from None
+    return mod.smoke_config() if smoke else mod.config()

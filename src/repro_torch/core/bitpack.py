@@ -1,0 +1,80 @@
+"""Bit-interleaved packed weight storage.
+
+PyTorch-port counterpart of ``repro/core/bitpack.py``; the layout is kept
+byte for byte, so a tensor packed by either package loads in the other:
+uint8 ``[Pw, ceil(K/8), N]``, plane-major, bit i of byte j holds reduction
+row 8j+i, K zero-padded to a multiple of 8.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quantize as q
+
+
+def pack_bits_along_axis(bits01: torch.Tensor, axis: int) -> torch.Tensor:
+    """Pack a {0,1}-valued tensor 8-per-uint8 along ``axis``.
+
+    The axis length must be a multiple of 8. Bit i of byte j holds element
+    8*j + i (little-endian within the byte).
+    """
+    axis = axis % bits01.ndim
+    n = bits01.shape[axis]
+    if n % 8:
+        raise ValueError(f"pack axis length {n} not a multiple of 8")
+    shape = list(bits01.shape)
+    shape[axis:axis + 1] = [n // 8, 8]
+    grouped = bits01.to(torch.int32).reshape(shape)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device=bits01.device)
+    bshape = [1] * grouped.ndim
+    bshape[axis + 1] = 8
+    return torch.sum(grouped * weights.reshape(bshape),
+                     dim=axis + 1).to(torch.uint8)
+
+
+def unpack_bits_along_axis(packed: torch.Tensor, axis: int) -> torch.Tensor:
+    """Inverse of pack_bits_along_axis: uint8 -> {0,1} with 8x axis length."""
+    axis = axis % packed.ndim
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bshape = [1] * (packed.ndim + 1)
+    bshape[axis + 1] = 8
+    bits = torch.bitwise_and(
+        packed.unsqueeze(axis + 1) >> shifts.reshape(bshape), 1)
+    shape = list(packed.shape)
+    shape[axis] = shape[axis] * 8
+    return bits.reshape(shape).to(torch.uint8)
+
+
+def pack_weights(wq: torch.Tensor, bits: int) -> torch.Tensor:
+    """Bit-interleave a quantized weight matrix.
+
+    wq: int [K, N] signed 2's-complement values of ``bits`` precision.
+    Returns uint8 [bits, ceil(K/8), N]; K not a multiple of 8 is zero-padded
+    (zero reduction rows contribute nothing to the product).
+    """
+    k = wq.shape[0]
+    if k % 8:
+        wq = F.pad(wq, (0, 0, 0, (-k) % 8))
+    planes = q.bit_planes(wq, bits)              # [bits, K8, N] in {0,1}
+    return pack_bits_along_axis(planes, axis=1)  # [bits, K8//8, N]
+
+
+def unpack_weights(packed: torch.Tensor, bits: int,
+                   k: int | None = None) -> torch.Tensor:
+    """Reconstruct signed int32 [K, N] from the packed plane representation.
+
+    ``k`` trims the zero rows added by pack_weights for K % 8 != 0.
+    """
+    planes = unpack_bits_along_axis(packed, axis=1).to(torch.int32)
+    w = q.plane_weights(bits, packed.device)
+    w = w.reshape((bits,) + (1,) * (planes.ndim - 1))
+    out = torch.sum(planes * w, dim=0, dtype=torch.int32)
+    return out if k is None else out[:k]
+
+
+def packed_nbytes(shape_kn: tuple[int, int], bits: int) -> int:
+    """Bytes used by the packed representation, including the zero rows
+    pack_weights adds for K % 8 != 0."""
+    k, n = shape_kn
+    return bits * -(-k // 8) * n

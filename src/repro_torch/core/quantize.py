@@ -1,0 +1,85 @@
+"""Fixed-point quantization with 2's-complement bit-plane decomposition.
+
+PyTorch-port counterpart of ``repro/core/quantize.py``. A P-bit signed
+2's-complement value obeys
+
+    x_q = -2^(P-1) * b_{P-1} + sum_{p=0}^{P-2} 2^p * b_p
+
+(the SIP's MSB negation block). Every float step here is one IEEE
+float32 elementwise op in the same order as the reference: the scale is
+``absmax / qmax`` and the grid is ``round(x / scale)``, both true
+divisions, rounded half to even (``torch.round``), so the port's
+quantized operands equal the reference's bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def qmax(bits: int) -> int:
+    return (1 << (bits - 1)) - 1
+
+
+def qmin(bits: int) -> int:
+    return -(1 << (bits - 1))
+
+
+def _dims(x: torch.Tensor, axis) -> tuple:
+    if axis is None:
+        return tuple(range(x.ndim))
+    return tuple(a % x.ndim for a in ((axis,) if isinstance(axis, int) else axis))
+
+
+def compute_scale(x: torch.Tensor, bits: int, axis=None,
+                  keepdims: bool = True) -> torch.Tensor:
+    """Symmetric absmax scale so that max|x| maps to qmax(bits)."""
+    absmax = torch.amax(x.abs(), dim=_dims(x, axis), keepdim=keepdims)
+    absmax = torch.clamp(absmax, min=torch.finfo(torch.float32).tiny)
+    return (absmax / qmax(bits)).to(torch.float32)
+
+
+def quantize(x: torch.Tensor, bits: int, scale: torch.Tensor | None = None,
+             axis=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize to signed ``bits``-bit integers (stored as int32).
+
+    Returns (x_q, scale). Symmetric, round-half-to-even, clipped to the
+    signed range.
+    """
+    if scale is None:
+        scale = compute_scale(x, bits, axis=axis)
+    xq = torch.clamp(torch.round(x / scale), qmin(bits), qmax(bits))
+    return xq.to(torch.int32), scale
+
+
+def to_twos_complement(xq: torch.Tensor, bits: int) -> torch.Tensor:
+    """Map signed ints to their unsigned 2's-complement bit pattern (P bits)."""
+    return torch.bitwise_and(xq, (1 << bits) - 1)
+
+
+def bit_planes(xq: torch.Tensor, bits: int) -> torch.Tensor:
+    """Decompose signed ints into ``bits`` 2's-complement bit planes.
+
+    Returns uint8 of shape (bits,) + xq.shape with values in {0, 1}; plane p
+    holds bit p, and ``xq == sum_p plane_weights(bits)[p] * planes[p]``.
+    """
+    tc = to_twos_complement(xq.to(torch.int32), bits)
+    shifts = torch.arange(bits, dtype=torch.int32, device=xq.device)
+    shifts = shifts.reshape((bits,) + (1,) * xq.ndim)
+    return torch.bitwise_and(tc[None] >> shifts, 1).to(torch.uint8)
+
+
+def plane_weights(bits: int, device=None) -> torch.Tensor:
+    """Signed weight of each 2's-complement bit plane (int32: P<=16 fits)."""
+    w = 1 << torch.arange(bits, dtype=torch.int32, device=device)
+    w[bits - 1] = -w[bits - 1]
+    return w
+
+
+def effective_bits(xq: torch.Tensor, axis=None,
+                   keepdims: bool = False) -> torch.Tensor:
+    """Per-group effective precision: bits needed for max|group| + sign,
+    ``ceil(log2(max|x| + 1)) + 1`` in float32 as the reference computes it.
+    Zero groups need 1 bit."""
+    m = torch.amax(xq.abs(), dim=_dims(xq, axis), keepdim=keepdims)
+    nbits = torch.ceil(torch.log2(m.to(torch.float32) + 1.0)).to(torch.int32)
+    return torch.clamp(nbits + 1, min=1)

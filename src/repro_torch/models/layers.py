@@ -1,0 +1,114 @@
+"""The Loom linear and conv layers, dispatched through execution plans.
+
+PyTorch-port counterpart of ``repro/models/layers.py`` (the dense and
+packed routes). Every linear and conv asks the model's
+:class:`~repro_torch.api.plan.ExecutionPlan` for its resolved
+:class:`~repro_torch.api.plan.LayerPlan` and jumps to that route's
+handler. Activations stay NHWC, as in the reference; weights keep the 2-D
+[k*k*Cin, Cout] matrix layout with rows in (di, dj, c) order, so packing
+is shared between convs and FC layers.
+
+The ``serve_packed`` route needs :func:`convert_linear_for_serving` run
+once over the dense params (the paper's offline weight packing step).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.api import plan as planlib
+from repro_torch.core import bitpack, quantize as q
+from repro_torch.kernels import ops
+
+
+def linear_init(d_in: int, d_out: int, generator: torch.Generator,
+                dtype=torch.float32) -> dict:
+    """{"w": [d_in, d_out]} drawn from N(0, 1/d_in) with ``generator``."""
+    w = torch.randn((d_in, d_out), generator=generator,
+                    dtype=torch.float32) * d_in ** -0.5
+    return {"w": w.to(dtype)}
+
+
+def _not_ported(lp: planlib.LayerPlan) -> None:
+    if lp.dynamic_a:
+        raise NotImplementedError(
+            f"{lp.name}: dynamic activation trimming is not ported yet "
+            f"(ROADMAP A.8, kernels K3/K5)")
+
+
+def _linear_dense(p, x, lp, be):
+    return x @ p["w"].to(x.dtype)
+
+
+def _token_quant_axis(x) -> int | None:
+    """Activation-quant axis of the serving linears: token-shaped inputs
+    ([B, D] / [B, S, D]) get one scale per row, so a row's grid never
+    depends on what it is batched with; conv-as-im2col patch tensors
+    ([B, Ho, Wo, k*k*C]) keep one scale for the whole tensor."""
+    return -1 if x.ndim <= 3 else None
+
+
+def _linear_packed(p, x, lp, be):
+    # The weight precision is the packed tensor's plane count; the plan
+    # sets the activation precision.
+    _not_ported(lp)
+    return ops.loom_linear_serve(
+        x, p["w_packed"], p["w_scale"], a_bits=lp.a_bits,
+        w_bits=p["w_packed"].shape[0], backend=be,
+        w_counts=lp.w_group_counts, w_group=lp.w_group,
+        a_axis=_token_quant_axis(x))
+
+
+_LINEAR_ROUTES = {
+    planlib.DENSE: _linear_dense,
+    planlib.PACKED: _linear_packed,
+}
+
+
+def linear_apply(p: dict, x: torch.Tensor, plan: planlib.ExecutionPlan,
+                 layer_name: str = "") -> torch.Tensor:
+    """Dispatch a linear through its resolved LayerPlan."""
+    lp = plan.layer(layer_name, kind="linear")
+    return _LINEAR_ROUTES[lp.route](p, x, lp, plan.backend)
+
+
+def _conv_dense(p, x, kernel, stride, lp, plan):
+    # "same" padding (pad = k//2, Ho = ceil(H/stride)) on the NHWC map.
+    w4 = p["w"].to(x.dtype).reshape(kernel, kernel, x.shape[-1], -1)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1),
+                 stride=stride, padding=kernel // 2)
+    return y.permute(0, 2, 3, 1)
+
+
+def _conv_packed(p, x, kernel, stride, lp, plan):
+    _not_ported(lp)
+    tile = plan.conv_tile(lp, x.shape[1], x.shape[2], x.shape[3])
+    return ops.loom_conv_serve(
+        x, p["w_packed"], p["w_scale"], kernel=kernel, stride=stride,
+        a_bits=lp.a_bits, backend=plan.backend, conv_tile=tile,
+        w_counts=lp.w_group_counts, w_group=lp.w_group)
+
+
+_CONV_ROUTES = {
+    planlib.DENSE: _conv_dense,
+    planlib.PACKED: _conv_packed,
+}
+
+
+def conv_apply(p: dict, x: torch.Tensor, kernel: int, stride: int,
+               plan: planlib.ExecutionPlan,
+               layer_name: str = "") -> torch.Tensor:
+    """Dispatch a "same"-padded NHWC convolution through its LayerPlan."""
+    lp = plan.layer(layer_name, kind="conv", kernel=kernel, stride=stride)
+    return _CONV_ROUTES[lp.route](p, x, kernel, stride, lp, plan)
+
+
+def convert_linear_for_serving(p: dict, prec, mode: str) -> dict:
+    """Offline weight packing for one linear or conv: per-tensor quantize
+    to ``prec.w_bits`` and pack the planes (``serve_packed``)."""
+    if mode != "serve_packed":
+        raise NotImplementedError(f"serving conversion for {mode!r} is not "
+                                  f"ported yet (ROADMAP A.5)")
+    wq, w_scale = q.quantize(p["w"].to(torch.float32), prec.w_bits)
+    return {"w_packed": bitpack.pack_weights(wq, prec.w_bits),
+            "w_scale": w_scale.to(torch.float32)}
