@@ -37,9 +37,10 @@ class LayerPlan:
 
     ``conv_tile`` is the resolved output-rows-per-band of the conv kernel,
     filled in by :meth:`ExecutionPlan.conv_tile` from the layer's
-    activation geometry (recorded in ``conv_tile_geom``). ``w_group`` /
-    ``w_group_counts`` are the pack-time per-filter-group weight plane
-    counts (``None`` = none recorded).
+    activation geometry (recorded in ``conv_tile_geom``). ``dynamic_a``
+    trims activation planes per group of ``group_size`` rows or windows at
+    run time. ``w_group`` / ``w_group_counts`` are the pack-time
+    per-filter-group weight plane counts (``None`` = none recorded).
     """
 
     name: str
@@ -47,6 +48,7 @@ class LayerPlan:
     route: str                     # DENSE | PACKED
     precision: LayerPrecision = LayerPrecision()
     dynamic_a: bool = False
+    group_size: int = 256
     kernel: int | None = None
     stride: int | None = None
     conv_tile: int | None = None
@@ -122,8 +124,18 @@ class ExecutionPlan:
             w_bits = wp.shape[0]
             counts = weightgroups.weight_group_counts(
                 bitpack.unpack_weights(wp, w_bits), w_bits, lp.w_group)
-            self.layers[(name, kind)] = dataclasses.replace(
-                lp, w_group_counts=tuple(int(c) for c in counts.tolist()))
+            self.set_weight_counts(name, kind, counts.tolist())
+
+    def set_weight_counts(self, name: str, kind: str, counts,
+                          w_group: int | None = None) -> LayerPlan:
+        """Attach per-filter-group plane counts (as Python ints) to one
+        resolved layer, and optionally its group size."""
+        lp = self.layers[(name, kind)]
+        lp = dataclasses.replace(
+            lp, w_group_counts=tuple(int(c) for c in counts),
+            w_group=lp.w_group if w_group is None else w_group)
+        self.layers[(name, kind)] = lp
+        return lp
 
     def _resolve(self, name, kind, kernel=None, stride=None) -> LayerPlan:
         if self.mode in _UNPORTED_MODES:
@@ -139,6 +151,7 @@ class ExecutionPlan:
             name=name, kind=kind, route=route,
             precision=self.policy.lookup(name),
             dynamic_a=self.policy.dynamic_a,
+            group_size=self.policy.group_size,
             w_group=self.policy.w_group or 16,
             kernel=kernel, stride=stride)
 
@@ -158,13 +171,13 @@ def conv_rows_per_band(h: int, w: int, c: int, *, kernel: int,
 
 
 def build_plan(cfg, policy: PrecisionPolicy | None = None,
-               mode: str = "dense", backend="torch_ref") -> ExecutionPlan:
+               mode: str = "dense", backend="cuda") -> ExecutionPlan:
     """Compile the per-layer plans for a model config.
 
     ``cfg`` may be a :class:`repro_torch.models.cnn.CNNConfig` (pre-resolves
     each conv with its kernel/stride plus the FC head) or None (everything
     resolves on first use). ``backend`` is a Backend object or registered
-    name.
+    name; the default ``cuda`` takes the plain versions on CPU tensors.
     """
     policy = policy if policy is not None else PrecisionPolicy()
     plan = ExecutionPlan(mode=mode, policy=policy,

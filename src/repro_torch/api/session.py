@@ -56,7 +56,7 @@ def _convert_tree(params: dict, policy: PrecisionPolicy, mode: str) -> dict:
 
 
 def compile(cfg, policy: Optional[PrecisionPolicy] = None,
-            mode: str = "dense", backend="torch_ref", *, params=None,
+            mode: str = "dense", backend="cuda", *, params=None,
             generator: torch.Generator | None = None,
             device="cuda") -> ServingSession:
     """Compile a CNN for serving: plans + params on ``device``.
@@ -65,7 +65,9 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
     numpy arrays (:func:`repro_torch.interop.params_from_numpy`); dense
     layers are packed here when ``mode`` is a serving mode. Omitted ->
     drawn from ``generator`` (seed 0 when None). ``backend``: registered
-    name or Backend object. ``device="cuda"`` without a card raises.
+    name or Backend object; the default ``cuda`` launches the kernels on
+    the card and takes their plain versions with ``device="cpu"``.
+    ``device="cuda"`` without a card raises.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -83,3 +83,29 @@ def effective_bits(xq: torch.Tensor, axis=None,
     m = torch.amax(xq.abs(), dim=_dims(xq, axis), keepdim=keepdims)
     nbits = torch.ceil(torch.log2(m.to(torch.float32) + 1.0)).to(torch.int32)
     return torch.clamp(nbits + 1, min=1)
+
+
+def group_planes(xq: torch.Tensor, bits: int,
+                 plane_width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decompose into ceil(bits/plane_width) planes of ``plane_width`` bits.
+
+    The low planes are unsigned, in [0, 2^w - 1]; the top plane is signed
+    at its own width (the value sign-extended first), the MSB negation at
+    plane granularity. Returns (planes int32 of shape (n_planes,) +
+    xq.shape, shifts int32 (n_planes,)), and
+    ``xq == sum_p shifts[p] * planes[p]``.
+    """
+    n_planes = -(-bits // plane_width)
+    padded_bits = n_planes * plane_width
+    tc = to_twos_complement(xq.to(torch.int32), bits)
+    sign = (tc >> (bits - 1)) & 1
+    ext_mask = ((1 << padded_bits) - 1) ^ ((1 << bits) - 1)
+    tc = torch.where(sign == 1, tc | ext_mask, tc)
+    shifts = torch.arange(n_planes, dtype=torch.int32,
+                          device=xq.device) * plane_width
+    planes = (tc[None] >> shifts.reshape((n_planes,) + (1,) * xq.ndim)) \
+        & ((1 << plane_width) - 1)
+    top = planes[n_planes - 1]
+    planes[n_planes - 1] = torch.where(top >= 1 << (plane_width - 1),
+                                       top - (1 << plane_width), top)
+    return planes, (1 << shifts).to(torch.int32)

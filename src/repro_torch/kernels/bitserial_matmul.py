@@ -1,11 +1,15 @@
-"""K1: bit-serial matmul over packed weight planes, as a Hopper kernel.
+"""K1 and K3: bit-serial matmul over packed planes, as Hopper kernels.
 
-Port of ``repro/kernels/bitserial_matmul.py::bitserial_matmul``. The
-kernel is ``csrc/bitserial_matmul.cu``; its plain PyTorch version is the
-oracle :func:`repro_torch.kernels.ref.bitserial_matmul_ref`.
+Ports of ``repro/kernels/bitserial_matmul.py::bitserial_matmul`` (K1) and
+``::bitserial_matmul_dynamic`` (K3, the same with a plane count per group
+of ``bn`` columns). Both kernels are in ``csrc/bitserial_matmul.cu``;
+their plain PyTorch versions are the oracles
+:func:`repro_torch.kernels.ref.bitserial_matmul_ref` and
+:func:`~repro_torch.kernels.ref.bitserial_matmul_dynamic_ref`.
 
-``bitserial_matmul.launches`` counts the kernel's launches (the plain
-route on CPU tensors does not count).
+``bitserial_matmul.launches`` and ``bitserial_matmul_dynamic.launches``
+count each kernel's launches (the plain route on CPU tensors does not
+count).
 """
 from __future__ import annotations
 
@@ -15,13 +19,16 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import (
+    bitserial_matmul_dynamic_ref as bitserial_matmul_dynamic_plain)
 from repro_torch.kernels.ref import bitserial_matmul_ref as bitserial_matmul_plain
 
 
 @functools.cache
-def _launcher():
-    fn = _build.load("bitserial_matmul").bitserial_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _launcher(entry: str, n_pointers: int, n_ints: int):
+    fn = getattr(_build.load("bitserial_matmul"), entry)
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -41,6 +48,34 @@ def _check(x: torch.Tensor, w_packed: torch.Tensor, w_bits: int) -> None:
         raise ValueError(f"x on {x.device}, w_packed on {w_packed.device}")
 
 
+def _launch(entry: str, kernel_fn, x: torch.Tensor, w_packed: torch.Tensor,
+            extra: tuple, ints: tuple) -> torch.Tensor:
+    """Check the CUDA operands, allocate the output and launch ``entry`` on
+    the current stream: (x, w_packed, *extra, out, M, K, N, *ints,
+    stream) is the C signature."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not all(t.is_contiguous() for t in (x, w_packed, *extra)):
+        raise ValueError(f"{kernel_fn.__name__} needs contiguous operands")
+    m, k = x.shape
+    n = w_packed.shape[2]
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out
+    if -(-m // 64) > 65535:   # one block row per 64 rows (BM)
+        raise ValueError(f"M={m} exceeds the kernel's grid")
+    with torch.cuda.device(x.device):
+        err = _launcher(entry, 3 + len(extra), 3 + len(ints))(
+            x.data_ptr(), w_packed.data_ptr(), *(t.data_ptr() for t in extra),
+            out.data_ptr(), m, k, n, *ints,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{kernel_fn.__name__} launch failed: CUDA error "
+                           f"{err}")
+    kernel_fn.launches += 1
+    return out
+
+
 def bitserial_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
                      w_bits: int) -> torch.Tensor:
     """x: int8 [M, K]; w_packed: uint8 [Pw, K/8, N] -> int32 [M, N].
@@ -52,25 +87,37 @@ def bitserial_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
     _check(x, w_packed, w_bits)
     if x.device.type == "cpu":
         return bitserial_matmul_plain(x, w_packed, w_bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not (x.is_contiguous() and w_packed.is_contiguous()):
-        raise ValueError("bitserial_matmul needs contiguous operands")
-    m, k = x.shape
-    n = w_packed.shape[2]
-    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
-    if out.numel() == 0:
-        return out
-    if -(-m // 64) > 65535:   # one block row per 64 rows (BM)
-        raise ValueError(f"M={m} exceeds the kernel's grid")
-    with torch.cuda.device(x.device):
-        err = _launcher()(x.data_ptr(), w_packed.data_ptr(), out.data_ptr(),
-                          m, k, n, w_bits,
-                          torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"bitserial_matmul launch failed: CUDA error {err}")
-    bitserial_matmul.launches += 1
-    return out
+    return _launch("bitserial_matmul_launch", bitserial_matmul, x, w_packed,
+                   (), (w_bits,))
 
 
 bitserial_matmul.launches = 0
+
+
+def bitserial_matmul_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
+                             counts: torch.Tensor, *, w_bits: int,
+                             bn: int) -> torch.Tensor:
+    """x: int8 [M, K]; w_packed: uint8 [Pw, K/8, N]; counts: int32
+    [ceil(N/bn)], each in [1, Pw] -> int32 [M, N].
+
+    Column group j (columns [j*bn, (j+1)*bn), the last one may be ragged)
+    uses only its first counts[j] planes, plane counts[j]-1 negated. A
+    CUDA tensor launches the kernel on the current stream (no
+    synchronisation); a CPU tensor takes the plain version.
+    """
+    _check(x, w_packed, w_bits)
+    n = w_packed.shape[2]
+    if bn < 1 or counts.dtype != torch.int32 or \
+            tuple(counts.shape) != (-(-n // bn),):
+        raise ValueError(f"counts must be int32 [ceil(N/bn)] = "
+                         f"[{-(-n // max(bn, 1))}] at bn={bn}, got "
+                         f"{counts.dtype} {tuple(counts.shape)}")
+    if counts.device != x.device:
+        raise ValueError(f"x on {x.device}, counts on {counts.device}")
+    if x.device.type == "cpu":
+        return bitserial_matmul_dynamic_plain(x, w_packed, counts, w_bits, bn)
+    return _launch("bitserial_matmul_dynamic_launch", bitserial_matmul_dynamic,
+                   x, w_packed, (counts,), (w_bits, bn))
+
+
+bitserial_matmul_dynamic.launches = 0

@@ -1,9 +1,10 @@
 """Serving-path orchestration around the backend op surface.
 
-PyTorch-port counterpart of ``repro/kernels/ops.py`` (the static serving
-linear and conv). These functions own the numeric steps that are the same
-on every backend -- activation quantization, K padding against the packed
-layout, and the final dequantizing cast -- and hand the integer core to a
+PyTorch-port counterpart of ``repro/kernels/ops.py`` (the serving linear
+and conv, static and with runtime activation trimming). These functions
+own the numeric steps that are the same on every backend -- activation
+quantization, K padding against the packed layout, the OR-tree plane
+counts, and the final dequantizing cast -- and hand the integer core to a
 :class:`~repro_torch.api.backend.Backend`. The float steps keep the
 reference's exact order, so the logits match it bit for bit.
 """
@@ -12,8 +13,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.api.backend import resolve_backend
-from repro_torch.core import quantize as q
+from repro_torch.api.backend import (dense_weights, resolve_backend,
+                                     sum_int8_subplanes)
+from repro_torch.core import bitpack, dynamic, quantize as q
 
 
 def loom_linear_serve(x: torch.Tensor, w_packed: torch.Tensor,
@@ -42,6 +44,57 @@ def loom_linear_serve(x: torch.Tensor, w_packed: torch.Tensor,
     return out if x.ndim == 2 else out.reshape(*lead, -1)
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def loom_linear_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
+                              w_scale: torch.Tensor, *, a_bits: int,
+                              w_bits: int, group_size: int = 256,
+                              backend=None, w_counts=None, w_group: int = 16,
+                              a_axis: int | None = -1) -> torch.Tensor:
+    """Serving linear with runtime activation-plane trimming; bit-identical
+    to :func:`loom_linear_serve`.
+
+    The activations are quantized on the static path's grid, then each
+    group of ``group_size`` rows runs only its OR-tree count of activation
+    planes. The matmul is transposed so that the activations become the
+    plane-serial packed operand of ``matmul_planes_dynamic``:
+
+        y.T[N, Mp] = Wq.T[N, K8] @ Xq[K8, Mp]
+
+    with ``Xq`` packed at Pa at run time and rows zero-padded to Mp, a
+    multiple of the group. The dense weights ride int8; Pw > 8 splits them
+    into 7-bit subplanes whose shifted partials sum exactly. ``w_counts``
+    composes static weight-group trimming in by truncating the dense
+    weights per filter group first.
+    """
+    be = resolve_backend(backend)
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    x2 = x if x.ndim == 2 else x.reshape(-1, k)
+    k8 = w_packed.shape[1] * 8
+    if k8 != k:
+        x2 = F.pad(x2, (0, k8 - k))
+    a_bits = min(a_bits, 8)
+    xq, x_scale = q.quantize(x2, a_bits, axis=a_axis)
+    m = xq.shape[0]
+    # A group is group_size rows; a small batch is one 8-row-aligned group.
+    g = min(group_size, _round_up(m, 8))
+    mp = _round_up(m, g)
+    if mp != m:
+        xq = F.pad(xq, (0, 0, 0, mp - m))     # zero rows: the 1-bit floor
+    counts = dynamic.serve_group_counts(xq, g, a_bits)          # [mp / g]
+    x_packed = bitpack.pack_weights(xq.T, a_bits)               # [Pa, K8/8, mp]
+    yt = sum_int8_subplanes(
+        dense_weights(w_packed, w_bits, w_counts, w_group), w_bits,
+        lambda plane: be.matmul_planes_dynamic(
+            plane.T.contiguous(), x_packed, counts, w_bits=a_bits, bn=g))
+    y = yt.T[:m]
+    out = (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
+    return out if x.ndim == 2 else out.reshape(*lead, -1)
+
+
 def conv_accum_fits_f32(kkc: int, a_bits: int, w_bits: int) -> bool:
     """True when every partial sum of the integer conv is <= 2^24 in
     magnitude, i.e. exactly representable in a float32 mantissa."""
@@ -66,4 +119,33 @@ def loom_conv_serve(x: torch.Tensor, w_packed: torch.Tensor,
     y = be.conv_planes(xq.to(torch.int8), w_packed, kernel=kernel,
                        stride=stride, w_bits=w_bits, conv_tile=conv_tile,
                        w_counts=w_counts, w_group=w_group)
+    return (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
+
+
+def loom_conv_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
+                            w_scale: torch.Tensor, *, kernel: int, stride: int,
+                            a_bits: int, group_size: int = 256, backend=None,
+                            conv_tile: int | None = None, w_counts=None,
+                            w_group: int = 16) -> torch.Tensor:
+    """Serving conv with runtime activation-plane trimming; bit-identical
+    to :func:`loom_conv_serve`.
+
+    The activations are quantized on the static path's per-tensor grid;
+    the OR-tree (:func:`repro_torch.core.dynamic.conv_window_group_counts`)
+    gives each group of ``group_size`` output windows its plane count, and
+    ``conv_planes_dynamic`` runs only that many activation planes. A small
+    map is one 8-window-aligned group. ``w_counts`` composes static
+    weight-group trimming in.
+    """
+    be = resolve_backend(backend)
+    w_bits = w_packed.shape[0]
+    a_bits = min(a_bits, 8)  # int8 kernel ABI, as in loom_conv_serve
+    xq, x_scale = q.quantize(x.to(torch.float32), a_bits)
+    nwin = -(-x.shape[1] // stride) * -(-x.shape[2] // stride)
+    gsz = min(group_size, _round_up(nwin, 8))
+    counts = dynamic.conv_window_group_counts(xq, kernel, stride, gsz, a_bits)
+    y = be.conv_planes_dynamic(xq.to(torch.int8), w_packed, counts,
+                               kernel=kernel, stride=stride, w_bits=w_bits,
+                               group_size=gsz, conv_tile=conv_tile,
+                               w_counts=w_counts, w_group=w_group)
     return (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bitpack
+from repro_torch.core.weightgroups import truncate_columns_grouped, truncate_signed
 
 
 def _exact_dtype(device: torch.device) -> torch.dtype:
@@ -37,6 +38,25 @@ def bitserial_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
     return _narrow(x.to(dt) @ wq.to(dt))
 
 
+def bitserial_matmul_dynamic_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                                 plane_counts, w_bits: int,
+                                 bn: int) -> torch.Tensor:
+    """K3's plain version: column group j (columns [j*bn, (j+1)*bn), the
+    last one may be ragged) uses only its first ``plane_counts[j]`` planes,
+    plane count-1 negated. That is 2's-complement truncation of the
+    unpacked column at its count, which is how it is computed here.
+    Counts must lie in [1, Pw]."""
+    dt = _exact_dtype(x.device)
+    wq = truncate_columns_grouped(bitpack.unpack_weights(w_packed, w_bits),
+                                  plane_counts, bn)
+    return _narrow(x.to(dt) @ wq.to(dt))
+
+
+# Static per-filter-group weight trimming on the linear path is the same
+# function with the pack-time counts and bn = the filter group.
+bitserial_matmul_wgroup_ref = bitserial_matmul_dynamic_ref
+
+
 def conv_window_slices(xp: torch.Tensor, kernel: int, stride: int, ho: int,
                        wo: int) -> list:
     """The k*k window-offset strided slices of a PADDED NHWC map, in the
@@ -51,6 +71,48 @@ def conv_window_slices(xp: torch.Tensor, kernel: int, stride: int, ho: int,
     return out
 
 
+def _conv_walk(xp: torch.Tensor, w3: torch.Tensor, kernel: int, stride: int,
+               ho: int, wo: int, cmap: torch.Tensor | None) -> torch.Tensor:
+    """Exact conv of a PADDED int map ``xp`` [B, Hp, Wp, C] (int32 when
+    ``cmap`` is given, else the exact dtype) with ``w3`` [k*k, C, N]: one
+    slab per window offset. ``cmap`` [B, Ho, Wo, 1] truncates each window's
+    activations at its plane count first."""
+    acc = torch.zeros((xp.shape[0], ho, wo, w3.shape[-1]), dtype=w3.dtype,
+                      device=xp.device)
+    for sl, wslab in zip(conv_window_slices(xp, kernel, stride, ho, wo), w3):
+        if cmap is not None:
+            sl = truncate_signed(sl, cmap).to(w3.dtype)
+        acc += sl @ wslab
+    return acc
+
+
+def _conv_exact(x: torch.Tensor, wq: torch.Tensor, *, kernel: int,
+                stride: int, counts=None, group_size: int = 256
+                ) -> torch.Tensor:
+    """Exact "same"-padded conv of int x [B, H, W, C] with int weights
+    [>= k*k*C, N] (rows past k*k*C are the K8 pad and are not read).
+    ``counts`` [B, G]: window p of image b has its activations truncated at
+    counts[b, p // group_size]."""
+    b, h, w, c = x.shape
+    dt = _exact_dtype(x.device)
+    w3 = wq[:kernel * kernel * c].to(dt).reshape(kernel * kernel, c, -1)
+    pad = kernel // 2
+    ho, wo = -(-h // stride), -(-w // stride)
+    xp = F.pad(x.to(dt if counts is None else torch.int32),
+               (0, 0, pad, pad, pad, pad))
+    return _narrow(_conv_walk(xp, w3, kernel, stride, ho, wo,
+                              _window_counts(counts, group_size, b, ho, wo)))
+
+
+def _window_counts(counts, group_size: int, b: int, ho: int, wo: int):
+    """[B, G] group counts -> [B, Ho, Wo, 1] per-window counts (row-major
+    windows, group p // group_size), or None."""
+    if counts is None:
+        return None
+    cmap = torch.repeat_interleave(counts.to(torch.int32), group_size, dim=1)
+    return cmap[:, :ho * wo].reshape(b, ho, wo, 1)
+
+
 def bitserial_conv_ref(x: torch.Tensor, w_packed: torch.Tensor, *,
                        kernel: int, stride: int = 1,
                        w_bits: int) -> torch.Tensor:
@@ -60,14 +122,71 @@ def bitserial_conv_ref(x: torch.Tensor, w_packed: torch.Tensor, *,
     Returns int32 [B, Ho, Wo, N]: the k*k window walk, one [C, N] weight
     slab per window offset, summed exactly.
     """
+    wq = bitpack.unpack_weights(w_packed, w_bits)
+    return _conv_exact(x, wq, kernel=kernel, stride=stride)
+
+
+def bitserial_conv_wgroup_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                              counts, *, kernel: int, stride: int = 1,
+                              w_bits: int, w_group: int = 16) -> torch.Tensor:
+    """K4's plain version: filter group g (``w_group`` output channels, the
+    last one may be ragged) uses only its first counts[g] weight planes,
+    plane count-1 negated: its weights truncated at that width. For
+    pack-time OR-tree counts this equals :func:`bitserial_conv_ref`."""
+    wq = truncate_columns_grouped(bitpack.unpack_weights(w_packed, w_bits),
+                                  counts, w_group)
+    return _conv_exact(x, wq, kernel=kernel, stride=stride)
+
+
+def conv_dynamic_dense_ref(x: torch.Tensor, wq: torch.Tensor, counts, *,
+                           kernel: int, stride: int = 1,
+                           group_size: int = 256) -> torch.Tensor:
+    """K5's plain version: the "same" conv of int x [B, H, W, C] with dense
+    int weights wq [K8, N] (K8 = k*k*C rounded up to 8; the pad rows are not
+    read), window p of image b using only the first counts[b, p //
+    group_size] activation planes, plane count-1 negated: its activations
+    truncated at that width. counts: int [B, ceil(Ho*Wo/group_size)], each
+    in [1, 8]. Returns int32 [B, Ho, Wo, N]."""
+    return _conv_exact(x, wq, kernel=kernel, stride=stride, counts=counts,
+                       group_size=group_size)
+
+
+def bitserial_conv_dynamic_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                               counts, *, kernel: int, stride: int = 1,
+                               w_bits: int,
+                               group_size: int = 256) -> torch.Tensor:
+    """:func:`conv_dynamic_dense_ref` over packed weights, the reference's
+    signature. For the OR-tree's own counts it equals
+    :func:`bitserial_conv_ref`."""
+    return conv_dynamic_dense_ref(x, bitpack.unpack_weights(w_packed, w_bits),
+                                  counts, kernel=kernel, stride=stride,
+                                  group_size=group_size)
+
+
+def bitserial_conv_dynamic_banded_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                                      counts, *, kernel: int, stride: int = 1,
+                                      w_bits: int, group_size: int = 256,
+                                      rows_per_band: int | None = None
+                                      ) -> torch.Tensor:
+    """Band-local oracle of K5's decomposition: each band of
+    ``rows_per_band`` output rows (None = one band) is computed from only
+    its own input row band, halo included, each window truncated at its
+    group's count. K5 bands as K2 does, by output rows, where the
+    reference's kernel bands by window group; both decompositions equal
+    :func:`bitserial_conv_dynamic_ref` for any counts."""
     b, h, w, c = x.shape
     dt = _exact_dtype(x.device)
-    wq = bitpack.unpack_weights(w_packed, w_bits, k=kernel * kernel * c)
-    w3 = wq.to(dt).reshape(kernel * kernel, c, -1)
+    wq = bitpack.unpack_weights(w_packed, w_bits)
+    w3 = wq[:kernel * kernel * c].to(dt).reshape(kernel * kernel, c, -1)
     pad = kernel // 2
     ho, wo = -(-h // stride), -(-w // stride)
-    xp = F.pad(x.to(dt), (0, 0, pad, pad, pad, pad))
-    acc = torch.zeros((b, ho, wo, w3.shape[-1]), dtype=dt, device=x.device)
-    for sl, wslab in zip(conv_window_slices(xp, kernel, stride, ho, wo), w3):
-        acc += sl @ wslab
-    return _narrow(acc)
+    rpb = ho if rows_per_band is None else max(1, min(rows_per_band, ho))
+    cmap = _window_counts(counts, group_size, b, ho, wo)
+    xp = F.pad(x.to(torch.int32), (0, 0, pad, pad, pad, pad))
+    bands = []
+    for r0 in range(0, ho, rpb):
+        rows = min(rpb, ho - r0)
+        band = xp[:, r0 * stride:r0 * stride + (rows - 1) * stride + kernel]
+        bands.append(_conv_walk(band, w3, kernel, stride, rows, wo,
+                                cmap[:, r0:r0 + rows]))
+    return _narrow(torch.cat(bands, dim=1))

@@ -29,13 +29,6 @@ def linear_init(d_in: int, d_out: int, generator: torch.Generator,
     return {"w": w.to(dtype)}
 
 
-def _not_ported(lp: planlib.LayerPlan) -> None:
-    if lp.dynamic_a:
-        raise NotImplementedError(
-            f"{lp.name}: dynamic activation trimming is not ported yet "
-            f"(ROADMAP A.8, kernels K3/K5)")
-
-
 def _linear_dense(p, x, lp, be):
     return x @ p["w"].to(x.dtype)
 
@@ -50,8 +43,15 @@ def _token_quant_axis(x) -> int | None:
 
 def _linear_packed(p, x, lp, be):
     # The weight precision is the packed tensor's plane count; the plan
-    # sets the activation precision.
-    _not_ported(lp)
+    # sets the activation precision. ``dynamic_a`` trims activation planes
+    # per group of rows at run time; pack-time weight-group counts trim
+    # weight planes on both routes.
+    if lp.dynamic_a:
+        return ops.loom_linear_serve_dynamic(
+            x, p["w_packed"], p["w_scale"], a_bits=lp.a_bits,
+            w_bits=p["w_packed"].shape[0], group_size=lp.group_size,
+            backend=be, w_counts=lp.w_group_counts, w_group=lp.w_group,
+            a_axis=_token_quant_axis(x))
     return ops.loom_linear_serve(
         x, p["w_packed"], p["w_scale"], a_bits=lp.a_bits,
         w_bits=p["w_packed"].shape[0], backend=be,
@@ -81,8 +81,14 @@ def _conv_dense(p, x, kernel, stride, lp, plan):
 
 
 def _conv_packed(p, x, kernel, stride, lp, plan):
-    _not_ported(lp)
+    # ``dynamic_a`` trims activation planes per group of output windows;
+    # its kernel bands the map as the static one does, with the same band.
     tile = plan.conv_tile(lp, x.shape[1], x.shape[2], x.shape[3])
+    if lp.dynamic_a:
+        return ops.loom_conv_serve_dynamic(
+            x, p["w_packed"], p["w_scale"], kernel=kernel, stride=stride,
+            a_bits=lp.a_bits, group_size=lp.group_size, backend=plan.backend,
+            conv_tile=tile, w_counts=lp.w_group_counts, w_group=lp.w_group)
     return ops.loom_conv_serve(
         x, p["w_packed"], p["w_scale"], kernel=kernel, stride=stride,
         a_bits=lp.a_bits, backend=plan.backend, conv_tile=tile,

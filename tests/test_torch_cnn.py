@@ -178,7 +178,11 @@ def test_unported_modes_and_options_raise():
     for mode in ("serve_int8", "fake_quant"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             repro_torch.compile(cfg, mode=mode, device="cpu")
-    sess = repro_torch.compile(cfg, uniform_policy(8, 8, dynamic_a=True),
-                               mode="serve_packed", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        sess.classify(np.zeros((1, 16, 16, 3), np.float32))
+    # dynamic_a is ported: it serves, and equals the static path.
+    x = np.random.default_rng(0).normal(size=(1, 16, 16, 3)).astype(np.float32)
+    out = {dyn: repro_torch.compile(cfg, uniform_policy(8, 8, dynamic_a=dyn),
+                                    mode="serve_packed",
+                                    device="cpu").classify(x)
+           for dyn in (False, True)}
+    assert out[True].shape == (1, 10)
+    assert torch.equal(out[True], out[False])

@@ -164,26 +164,31 @@ def test_conv_accum_fits_f32_matches_jax():
 
 
 def test_backend_surface():
-    assert backend.resolve_backend(None).name == "torch_ref"
+    assert backend.resolve_backend(None).name == "cuda"
     cuda = backend.resolve_backend("cuda")
     assert backend.resolve_backend(cuda) is cuda
     with pytest.raises(KeyError):
         backend.resolve_backend("pallas_tpu")
     x = torch.zeros((2, 8), dtype=torch.int8)
     wp = torch.zeros((8, 1, 4), dtype=torch.uint8)
+    xc = x.reshape(1, 1, 2, 8)
+    wc = _t(np.zeros((8, 9, 4), np.uint8))
     for be in ("torch_ref", "cuda"):
         b = backend.resolve_backend(be)
-        # All-full counts keep the static path; a trimmed count needs K3/K4.
-        assert b.matmul_planes(x, wp, w_bits=8, w_counts=(8,)).shape == (2, 4)
-        with pytest.raises(NotImplementedError, match="A.8"):
-            b.matmul_planes(x, wp, w_bits=8, w_counts=(7,))
-        with pytest.raises(NotImplementedError, match="A.8"):
-            b.conv_planes(x.reshape(1, 1, 2, 8), _t(np.zeros((8, 9, 4),
-                                                             np.uint8)),
-                          kernel=3, stride=1, w_bits=8, w_counts=(4,))
-        for op in ("matmul_planes_dynamic", "conv_planes_dynamic",
-                   "dynamic_quant", "attention"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # All-full counts keep the static path; a trimmed count takes K3/K4.
+        for counts in ((8,), (7,)):
+            assert b.matmul_planes(x, wp, w_bits=8,
+                                   w_counts=counts).shape == (2, 4)
+            assert b.conv_planes(xc, wc, kernel=3, stride=1, w_bits=8,
+                                 w_counts=counts).shape == (1, 1, 2, 4)
+        assert b.matmul_planes_dynamic(
+            x, wp, torch.tensor([3, 8], dtype=torch.int32), w_bits=8,
+            bn=2).shape == (2, 4)
+        assert b.conv_planes_dynamic(
+            xc, wc, torch.ones((1, 1), dtype=torch.int32), kernel=3, stride=1,
+            w_bits=8, group_size=8).shape == (1, 1, 2, 4)
+        for op, item in (("dynamic_quant", "A.8"), ("attention", "queue B")):
+            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
                 getattr(b, op)()
 
 
