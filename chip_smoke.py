@@ -16,18 +16,30 @@ mode="serve_packed", backend="cuda")``, batch 256, random weights):
             and K3 on an FC whose pack-time counts fall below Pw, K1/K2 on
             the rest.
 
+The LM, qwen3-1.7b at full width and depth (``repro_torch.compile(qwen3,
+uniform_policy(8, 8), mode="serve_packed")``, random weights from seed 0,
+B = 2 prompts of S = 512 tokens from seed 1, 32 greedy tokens): K1 on every
+linear, 7 per layer and the head. And the op entry points of K6 and K7,
+``ops.quantize_activations`` and ``ops.attention``, on the LM's own layer-0
+operands (the "ops" path).
+
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. device  -- the card's name, count and nvidia-smi power limit; no CUDA
               device means exit 1.
 2. build   -- compile every kernel from ``src/repro_torch/kernels/csrc``
               (one nvcc per source, in parallel) and print ptxas usage.
-3. kernels -- K1-K5 against their plain versions on the card, exact
-              (``torch.equal``), at the paths' shapes (batch 256) and at
-              ragged, banded, strided and K-padded shapes; K3-K5 with
-              random plane counts (forced truncation) and full counts.
-4. serve   -- each path serves REQUESTS batches of BATCH images with the
-              launch counts reset just before; the counts must show the
+3. kernels -- K1-K6 against their plain versions on the card, exact
+              (``torch.equal``), at the paths' shapes and at ragged, banded,
+              strided and K-padded shapes; K3-K5 with random plane counts
+              (forced truncation) and full counts; K6 with zero, 2e-38 and
+              subnormal groups. K7 within K7_TOL of its plain version taken
+              in float32 from the same inputs (bf16: one bf16 ulp, 2^-7 of
+              the value, plus 1e-4; f32: 2e-5, the JAX tests' own) at
+              [1, 16, S, 128] bf16, S = 4096 causal and windowed, S = 1000
+              non-causal, and f32 [2, 2, 256, 64].
+4. serve   -- each CNN path serves REQUESTS batches of BATCH images with
+              the launch counts reset just before; the counts must show the
               path's kernels and no other. Static: logits equal a
               ``torch_ref`` session's on the same card and a CPU session's
               on a small batch; LATENCY_SAMPLES requests one at a time
@@ -36,19 +48,35 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               session's and a ``torch_ref`` D session's. W: logits equal
               the same weights served untrimmed (``w_group=0``).
               Composition: D on W's weights equals the static logits.
+   lm      -- ``generate`` of LM_GEN tokens with the counts reset just
+              before (K1 197 times per prefill and per decode step, nothing
+              else); prefill and every decode step's logits equal a
+              ``torch_ref`` session's bit for bit, and the tokens too;
+              ``dynamic_a`` prefill (K3) equals the static one; prefill ms,
+              decode ms/token (a loop of its own after the checks),
+              tokens/s and peak memory. Then the ops path on layer 0's
+              operands as one ``prefill`` hands them on: K6 on the FFN's
+              inputs equals its plain version, K7 on the head-repeated
+              q/k/v is within K7_TOL of the port's ``chunked_attention`` in
+              float32.
 5. timing  -- each kernel at the operands its path gave it (CUDA events),
               beside its plain version, one PyTorch library call
               computing the same function, and its bound: the larger of
-              bytes / 3.35 TB/s and operations / 1979 TOP/s (H100 SXM
-              int8 peak).
-6. profile -- per path: the PyTorch operators one request dispatches on
-              the host, device time by kernel over a few requests
-              (torch.profiler), and the device's idle share of the path's
-              median request latency.
+              bytes / 3.35 TB/s and operations over the H100 SXM peak of
+              their type (int8 1979 TOP/s, bf16 989 TFLOP/s, f32 67
+              TFLOP/s). K1 at the LM's shapes (layer 0 and the head, in
+              prefill and decode). K7 also at [1, 16, 4096, 128] (causal,
+              windowed) and [1, 16, 32768, 128] causal, the last held
+              against the port's ``chunked_attention`` in float32.
+6. profile -- per CNN path and for the LM's prefill and decode step: the
+              PyTorch operators one request dispatches on the host, device
+              time by kernel (torch.profiler), and the device's idle share
+              of the unprofiled median request time.
 
 The second-to-last line is one JSON object ``{"kernels": [...]}`` with per
--request totals (ms per classify of BATCH images) on each kernel's path;
-the last line is ``{"ok": true, "device": {...}}``.
+-request totals (ms per request of its path: a classify of BATCH images,
+or one pass of the ops path) on each kernel's path; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -79,15 +107,34 @@ from repro_torch.kernels.bitserial_conv import (  # noqa: E402
 from repro_torch.kernels.bitserial_matmul import (  # noqa: E402
     bitserial_matmul, bitserial_matmul_dynamic, bitserial_matmul_dynamic_plain,
     bitserial_matmul_plain)
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.dynamic_quant import (  # noqa: E402
+    dynamic_quant, dynamic_quant_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.ops import conv_accum_fits_f32  # noqa: E402
-from repro_torch.models import cnn  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import cnn, layers as L, model as M  # noqa: E402
 
 BATCH = 256
 REQUESTS = 8
 LATENCY_SAMPLES = 100
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 CSRC = "src/repro_torch/kernels/csrc"
+LM_BATCH, LM_PROMPT, LM_GEN = 2, 512, 32
+# K7 against its plain version taken in float32 from the same inputs (bf16
+# widens exactly): (atol, rtol) by input dtype. The kernel works in float32
+# and rounds a bf16 output once, by at most half a bf16 ulp (2^-8 of the
+# value): bf16 is held to one ulp, 2^-7, plus 1e-4 for float32 sums taken
+# in another order. A tile of keys dropped, or rows left unwritten, moves
+# outputs of magnitude 0.01-0.1 by more. float32: the JAX tests' 2e-5.
+K7_TOL = {torch.bfloat16: (1e-4, 2 ** -7), torch.float32: (2e-5, 2e-5)}
+# The JAX tests' bf16 tolerance (atol = rtol), for the library yardstick:
+# scaled_dot_product_attention rounds its bf16 probabilities.
+SDPA_TOL = 0.05
 
 # Each kernel's wrapper, plain version and the path whose run its JSON
 # entry reports.
@@ -112,6 +159,14 @@ KERNELS = {
         fn=bitserial_conv_dynamic, plain=bitserial_conv_dynamic_plain,
         path="D", source=f"{CSRC}/bitserial_conv.cu",
         replaces="src/repro/kernels/bitserial_conv.py:405"),
+    "dynamic_quant": dict(
+        fn=dynamic_quant, plain=dynamic_quant_plain, path="ops",
+        source=f"{CSRC}/dynamic_quant.cu",
+        replaces="src/repro/kernels/dynamic_quant.py:41"),
+    "flash_attention": dict(
+        fn=flash_attention, plain=flash_attention_plain, path="ops",
+        source=f"{CSRC}/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:73"),
 }
 
 
@@ -134,8 +189,46 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+def max_err(a, b):
+    """Largest absolute difference (int for integer outputs); tuples of
+    outputs elementwise."""
+    if isinstance(a, tuple):
+        return max(max_err(x, y) for x, y in zip(a, b))
+    if a.is_floating_point():
+        return float((a.float() - b.float()).abs().max().item())
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def within(got: torch.Tensor, want: torch.Tensor, atol: float,
+           rtol: float) -> bool:
+    """|got - want| <= atol + rtol |want| everywhere, in float32."""
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+def k7_plain32(q_, k_, v_, **kw) -> torch.Tensor:
+    """K7's plain version in float32 from the same inputs."""
+    return flash_attention_plain(q_.float(), k_.float(), v_.float(), **kw)
+
+
+def k7_hold(errs: dict, got: torch.Tensor, want: torch.Tensor,
+            what: str) -> float:
+    """K7's output ``got`` within K7_TOL of ``want`` (float32); returns
+    the max abs err."""
+    atol, rtol = K7_TOL[got.dtype]
+    err = max_err(got, want)
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    check(want.dtype == torch.float32 and within(got, want, atol, rtol),
+          f"flash_attention {what}: outside atol {atol} + rtol {rtol} of the "
+          f"float32 plain version (max abs err {err:.3g}; within the JAX "
+          f"tests' 0.05: {within(got, want, SDPA_TOL, SDPA_TOL)})")
+    return err
 
 
 def operands(x_shape, k: int, n: int, w_bits: int, seed: int,
@@ -217,7 +310,7 @@ def phase_build() -> None:
 
 def _hold(errs: dict, name: str, got, want, what: str) -> None:
     errs[name] = max(errs[name], max_err(got, want))
-    check(torch.equal(got, want), f"{name} {what} differs from plain")
+    check(same(got, want), f"{name} {what} differs from plain")
 
 
 def phase_kernels(errs: dict) -> None:
@@ -342,6 +435,79 @@ def phase_kernels(errs: dict) -> None:
           f"oracle) in {cases} cases (conv1-3 at B={BATCH}, groups "
           f"256/256/64; k 1/5, stride 2, C=3 K-padding; random and full "
           f"counts; one band and 3-row bands)")
+
+    # K6: qwen3's hidden and FFN widths at 1024 rows, the CNN's fc0 input,
+    # a ragged M, bits 4 and 8; rows scaled over six decades so the
+    # effective bits vary; then the groups that subnormal flushing decides.
+    cases = 0
+    for m, k in [(1024, 2048), (1024, 6144), (BATCH, 2048), (1000, 2048)]:
+        g = torch.Generator().manual_seed(m + k)
+        x = torch.randn((m, k), generator=g) * 10.0 ** (
+            torch.rand((m, 1), generator=g) * 6 - 3)
+        x = x.cuda()
+        for bits in (4, 8):
+            got = dynamic_quant(x, group_size=256, bits=bits)
+            torch.cuda.synchronize()
+            _hold(errs, "dynamic_quant", got,
+                  dynamic_quant_plain(x, 256, bits), f"[{m}, {k}] bits={bits}")
+            cases += 1
+    x = edge_groups().cuda()
+    for bits in (2, 4, 8):
+        got = dynamic_quant(x, group_size=256, bits=bits)
+        torch.cuda.synchronize()
+        _hold(errs, "dynamic_quant", got, dynamic_quant_plain(x, 256, bits),
+              f"edge groups bits={bits}")
+        cases += 1
+    print(f"[kernels] K6 dynamic_quant == plain (xq, scale, eff) in {cases} "
+          f"cases ([1024, 2048], [1024, 6144], [{BATCH}, 2048], ragged "
+          f"[1000, 2048]; bits 4/8; zero, 2e-38, subnormal and mixed "
+          f"flushed groups at bits 2/4/8)")
+
+
+def phase_k7(errs: dict) -> None:
+    """K7 within K7_TOL of its plain version in float32."""
+    cases = 0
+    for shape, dtype, causal, window in [
+            ((1, 16, 4096, 128), torch.bfloat16, True, None),
+            ((1, 16, 4096, 128), torch.bfloat16, True, 1024),
+            ((1, 16, 1000, 128), torch.bfloat16, False, None),
+            ((2, 2, 256, 64), torch.float32, True, None),
+            ((2, 2, 256, 64), torch.float32, False, None),
+            ((1, 2, 100, 256), torch.float32, True, 17)]:
+        q_, k_, v_ = qkv(shape, dtype, seed=shape[2] + (window or 0))
+        got = flash_attention(q_, k_, v_, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype, f"flash_attention returned {got.dtype}")
+        k7_hold(errs, got, k7_plain32(q_, k_, v_, causal=causal,
+                                      window=window),
+                f"{shape} {dtype} causal={causal} window={window}")
+        cases += 1
+        del q_, k_, v_, got
+    print(f"[kernels] K7 flash_attention within K7_TOL of the float32 plain "
+          f"version (bf16: 1e-4 + 2^-7 |want|, f32: 2e-5 + 2e-5 |want|) in "
+          f"{cases} cases ([1, 16, 4096, 128] bf16 causal and window 1024, "
+          f"[1, 16, 1000, 128] bf16 non-causal, [2, 2, 256, 64] f32, "
+          f"[1, 2, 100, 256] f32 window 17); max abs err "
+          f"{errs['flash_attention']:.3g}")
+
+
+def edge_groups() -> torch.Tensor:
+    """[4, 1024] f32: normal values, and in group 0 of each row a group
+    that subnormal flushing decides: all zeros; all +-2e-38; a subnormal
+    among zeros; 1e-36 among zeros and subnormals (its scale flushes at
+    8 bits: 0 / 0 and x / 0 in one group)."""
+    x = torch.randn((4, 1024), generator=torch.Generator().manual_seed(7))
+    x[:, :256] = 0.0
+    x[1, :256] = 2e-38
+    x[1, :256:2] = -2e-38
+    x[2, 3] = 1e-39
+    x[3, 3], x[3, 4], x[3, 9] = 1e-36, 1e-38, -3e-39
+    return x
+
+
+def qkv(shape, dtype, seed: int) -> list:
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).cuda() for _ in range(3)]
 
 
 def skewed_params(cfg):
@@ -513,6 +679,204 @@ def phase_serve() -> dict:
     return dict(runs=runs, launches=all_launches)
 
 
+def lm_step_launches(label: str, launches: dict, expect: dict) -> None:
+    for name in KERNELS:
+        check(launches[name] == expect.get(name, 0),
+              f"LM {label}: {name} launched {launches[name]} times, expected "
+              f"{expect.get(name, 0)}")
+
+
+def lm_layer0_operands(sess, tokens) -> dict:
+    """Layer 0's operands as one ``sess.prefill`` hands them on: the
+    head-repeated q/k/v that ``chunked_attention`` gets ([B, S, H, D]) and
+    the FFN's two inputs (the up projection's [B, S, d] and the down
+    projection's [B, S, d_ff])."""
+    seen = {}
+    chunked, linear = attn.chunked_attention, L.linear_apply
+
+    def chunked_attention(q_, k_, v_, **kw):
+        seen.setdefault("qkv", (q_, k_, v_))
+        return chunked(q_, k_, v_, **kw)
+
+    def linear_apply(p, x, plan, layer_name=""):
+        seen.setdefault(layer_name, x)
+        return linear(p, x, plan, layer_name)
+    attn.chunked_attention, L.linear_apply = chunked_attention, linear_apply
+    try:
+        with torch.inference_mode():
+            sess.prefill(tokens, sess.init_cache(*tokens.shape))
+    finally:
+        attn.chunked_attention, L.linear_apply = chunked, linear
+    q_, k_, v_ = seen["qkv"]
+    return dict(q=q_, k=k_, v=v_, ffn_in=seen["ffn_up"],
+                down_in=seen["ffn_down"])
+
+
+def lm_ops_path(o: dict) -> tuple:
+    """The ops path: K6 through ``ops.quantize_activations`` on the FFN's
+    two inputs, K7 through ``ops.attention`` on q/k/v as [B, H, S, D]."""
+    with torch.inference_mode():
+        quant = [ops.quantize_activations(
+            o[key], group_size=min(256, o[key].shape[-1]), bits=8)
+            for key in ("ffn_in", "down_in")]
+        out = ops.attention(*(o[key].transpose(1, 2).contiguous()
+                              for key in ("q", "k", "v")), causal=True)
+    return quant, out
+
+
+def phase_lm(errs: dict) -> dict:
+    cfg = configs.get("qwen3-1.7b")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    sessions = {be: repro_torch.compile(cfg, uniform_policy(8, 8),
+                                        mode="serve_packed", backend=be,
+                                        params=params, device="cuda")
+                for be in ("cuda", "torch_ref")}
+    dyn = repro_torch.compile(cfg, uniform_policy(8, 8, dynamic_a=True),
+                              mode="serve_packed", backend="cuda",
+                              params=params, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    sess = sessions["cuda"]
+    n_lin = 7 * cfg.n_layers + 1
+    max_seq = LM_PROMPT + LM_GEN
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; random bf16 weights (seed 0) "
+          f"packed at (Pa, Pw) = (8, 8) for cuda, torch_ref and dynamic_a "
+          f"sessions in {time.perf_counter() - t0:.1f} s; prompts "
+          f"{LM_BATCH} x {LM_PROMPT} (seed 1), cache {max_seq} slots")
+    sess.generate(tokens, 2, max_seq=max_seq)                 # warm-up
+    torch.cuda.synchronize()
+
+    # The main path: generate, with the counts reset just before.
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = sess.generate(tokens, LM_GEN, max_seq=max_seq)
+    gen_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    lm_step_launches("generate", launches,
+                     {"bitserial_matmul": n_lin * LM_GEN})
+    check(gen.shape == (LM_BATCH, LM_GEN) and gen.min() >= 0
+          and gen.max() < cfg.vocab, f"generate returned {gen.shape}")
+    print(f"[lm] generate {LM_GEN} tokens x {LM_BATCH}: {gen_s * 1e3:.1f} ms "
+          f"(host clock, one transfer at the end), peak device memory "
+          f"{peak / 2**20:.1f} MiB; launches {launches}")
+
+    # cuda == torch_ref, step by step.
+    ref = sessions["torch_ref"]
+    logits = {}
+    caches = {}
+    for be, s_ in sessions.items():
+        caches[be] = s_.init_cache(LM_BATCH, max_seq)
+        reset_launches()
+        logits[be], caches[be] = s_.prefill(tokens, caches[be])
+        torch.cuda.synchronize()
+        if be == "cuda":
+            lm_step_launches("prefill", read_launches(),
+                             {"bitserial_matmul": n_lin})
+    y = logits["cuda"]
+    check(y.shape == (LM_BATCH, 1, cfg.vocab) and y.dtype == torch.bfloat16
+          and bool(torch.isfinite(y).all()), f"prefill logits {tuple(y.shape)}")
+    check(torch.equal(y, logits["torch_ref"]),
+          "LM prefill logits: cuda differs from torch_ref")
+    tok = torch.argmax(y[:, 0], dim=-1)
+    check(torch.equal(tok.to(torch.int32).cpu(),
+                      torch.from_numpy(gen[:, 0])),
+          "LM prefill token differs from generate's")
+    for i in range(LM_GEN - 1):
+        step = {}
+        for be, s_ in sessions.items():
+            reset_launches()
+            step[be], caches[be] = s_.decode(tok, LM_PROMPT + i, caches[be])
+            torch.cuda.synchronize()
+            if be == "cuda":
+                lm_step_launches(f"decode {i}", read_launches(),
+                                 {"bitserial_matmul": n_lin})
+        check(torch.equal(step["cuda"], step["torch_ref"]),
+              f"LM decode step {i} logits: cuda differs from torch_ref")
+        tok = torch.argmax(step["cuda"], dim=-1)
+        check(torch.equal(tok.to(torch.int32).cpu(),
+                          torch.from_numpy(gen[:, i + 1])),
+              f"LM decode step {i} token differs from generate's")
+    print(f"[lm] cuda == torch_ref on the card: prefill logits and all "
+          f"{LM_GEN - 1} decode steps' logits bit for bit, tokens identical; "
+          f"K1 launched {n_lin} times per prefill and per decode step, "
+          f"nothing else")
+
+    # The timed steps: the cuda session alone, generate's work (its
+    # tokens fed back) with a synchronize around each step.
+    gen_dev = torch.from_numpy(gen).cuda()
+    prefill_s, decode_s = [], []
+    for _ in range(3):
+        cache = sess.init_cache(LM_BATCH, max_seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = sess.prefill(tokens, cache)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        for i in range(LM_GEN - 1):
+            t0 = time.perf_counter()
+            _, cache = sess.decode(gen_dev[:, i], LM_PROMPT + i, cache)
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+    prefill_med = sorted(prefill_s)[len(prefill_s) // 2]
+    decode_med = sorted(decode_s)[len(decode_s) // 2]
+    print(f"[lm] prefill {LM_BATCH} x {LM_PROMPT}: median "
+          f"{prefill_med * 1e3:.3f} ms of {len(prefill_s)} "
+          f"({LM_BATCH * LM_PROMPT / prefill_med:.0f} prompt tokens/s); "
+          f"decode: median {decode_med * 1e3:.3f} ms/step of "
+          f"{len(decode_s)} (min {min(decode_s) * 1e3:.3f}, max "
+          f"{max(decode_s) * 1e3:.3f}), {LM_BATCH / decode_med:.1f} tokens/s "
+          f"at batch {LM_BATCH} (host clock to synchronize); generate's "
+          f"window less the median prefill: "
+          f"{(gen_s - prefill_med) * 1e3 / (LM_GEN - 1):.3f} ms/step")
+
+    # dynamic_a prefill == static, through K3.
+    reset_launches()
+    ydyn, _ = dyn.prefill(tokens, dyn.init_cache(LM_BATCH, max_seq))
+    torch.cuda.synchronize()
+    lm_step_launches("dynamic_a prefill", read_launches(),
+                     {"bitserial_matmul_dynamic": n_lin})
+    check(torch.equal(ydyn, y), "LM dynamic_a prefill differs from static")
+    print(f"[lm] dynamic_a prefill == static prefill bit for bit (K3 "
+          f"launched {n_lin} times)")
+    del dyn, ref, sessions["torch_ref"], caches
+
+    # The ops path on layer 0's operands, counts reset just before.
+    o = lm_layer0_operands(sess, tokens)
+    reset_launches()
+    quant, out = lm_ops_path(o)
+    torch.cuda.synchronize()
+    ops_launches = read_launches()
+    lm_step_launches("ops path", ops_launches,
+                     {"dynamic_quant": 2, "flash_attention": 1})
+    for key, got in zip(("ffn_in", "down_in"), quant):
+        x2 = o[key].reshape(-1, o[key].shape[-1]).float()
+        want = dynamic_quant_plain(x2, min(256, x2.shape[-1]), 8)
+        check(same(tuple(t.reshape(want[i].shape) for i, t in enumerate(got)),
+                   want), f"K6 on layer 0's {key} differs from plain")
+    with torch.inference_mode():
+        want = attn.chunked_attention(*(o[key].float()
+                                        for key in ("q", "k", "v")),
+                                      causal=True)
+    k7_hold(errs, out.transpose(1, 2), want,
+            "on layer 0's q/k/v against chunked_attention")
+    print(f"[lm] ops path: K6 on layer 0's FFN inputs {tuple(o['ffn_in'].shape)}"
+          f" and {tuple(o['down_in'].shape)} == plain; K7 on layer 0's "
+          f"head-repeated q/k/v {tuple(o['q'].shape)} within K7_TOL of "
+          f"chunked_attention in float32; launches "
+          f"{ {k: v for k, v in ops_launches.items() if v} }")
+    return dict(sess=sess, tokens=tokens, prefill_s=prefill_med,
+                decode_s=decode_med, operands=o, gen_launches=launches,
+                ops_launches=ops_launches, n_lin=n_lin, max_seq=max_seq)
+
+
 def _packed_bytes(wp: torch.Tensor, counts, bn: int) -> int:
     """Bytes of the packed operand that the counts need: column j reads
     min(count, Pw) planes of K/8 bytes."""
@@ -524,12 +888,36 @@ def _packed_bytes(wp: torch.Tensor, counts, bn: int) -> int:
     return int(per_col.sum().item()) * k8
 
 
-def _library(name: str, args: tuple, kw: dict, out: torch.Tensor):
-    """One PyTorch call computing the same function, checked equal to the
+def _sdpa(q_, k_, v_, causal: bool, window):
+    """F.scaled_dot_product_attention over the same function as K7 (a
+    boolean mask for a window), or None when it has no such call."""
+    s_, d = q_.shape[2], q_.shape[3]
+    mask = None
+    if window is not None:
+        i = torch.arange(s_, device=q_.device)
+        mask = (i[None, :] > i[:, None] - window)
+        if causal:
+            mask &= i[None, :] <= i[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=mask, is_causal=causal and mask is None,
+        scale=d ** -0.5)
+
+
+def _library(name: str, args: tuple, kw: dict, out):
+    """One PyTorch call computing the same function, checked against the
     kernel's output ``out``: torch._int_mm for K1/K3 (on the untrimmed
-    operand), an fp32 cuDNN conv (exact: every partial sum fits a float32 mantissa)
-    for K2/K4/K5; None where it does not apply."""
+    operand), an fp32 cuDNN conv (exact: every partial sum fits a float32
+    mantissa) for K2/K4/K5, scaled_dot_product_attention for K7 (within
+    SDPA_TOL); None where there is none (K6: no single PyTorch call
+    quantizes per group and reports effective bits)."""
     x = args[0]
+    if name == "dynamic_quant":
+        return None
+    if name == "flash_attention":
+        lib = _sdpa(*args, kw.get("causal", True), kw.get("window"))
+        check(within(lib(), out, SDPA_TOL, SDPA_TOL),
+              "scaled_dot_product_attention disagrees with flash_attention")
+        return lib
     if name in ("bitserial_matmul", "bitserial_matmul_dynamic"):
         wp = args[1]
         if wp.shape[0] > 8:
@@ -565,11 +953,33 @@ def _library(name: str, args: tuple, kw: dict, out: torch.Tensor):
     return conv
 
 
-def _work(name: str, args: tuple, kw: dict, out: torch.Tensor) -> tuple:
-    """(bytes, operations) of one call: each input read once (packed
-    planes only up to the counts), the int32 output written once; one
-    multiply-add (2 operations) per term."""
+def _attention_pairs(s_: int, causal: bool, window) -> int:
+    """(query, key) pairs that the mask keeps: row i sees keys
+    [max(0, i - w + 1), i] causal, [max(0, i - w + 1), S) otherwise."""
+    i = torch.arange(s_, dtype=torch.int64)
+    hi = i + 1 if causal else torch.full_like(i, s_)
+    lo = (i - window + 1).clamp(min=0) if window is not None else 0 * i
+    return int((hi - lo).sum())
+
+
+def _work(name: str, args: tuple, kw: dict, out) -> tuple:
+    """(bytes, operations, peak operations/s) of one call: each input read
+    once (packed planes only up to the counts), each output written once.
+    Integer kernels: one multiply-add (2 operations) per term at the int8
+    peak. K6: four float32 operations per value (abs, max, divide, round).
+    K7: two multiply-adds per (query, key) pair and dimension, counted
+    over the pairs the mask keeps, at the peak of the inputs' type."""
     x = args[0]
+    if name == "dynamic_quant":
+        nbytes = x.numel() * 4 + sum(t.numel() * t.element_size()
+                                     for t in out)
+        return nbytes, 4 * x.numel(), F32_FLOPS
+    if name == "flash_attention":
+        b, h, s_, d = x.shape
+        nbytes = 4 * x.numel() * x.element_size()
+        pairs = _attention_pairs(s_, kw.get("causal", True), kw.get("window"))
+        peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+        return nbytes, 4 * d * pairs * b * h, peak
     if name.startswith("bitserial_matmul"):
         counts = args[2] if name.endswith("dynamic") else None
         nbytes = x.numel() + _packed_bytes(args[1], counts, kw.get("bn", 1))
@@ -584,58 +994,139 @@ def _work(name: str, args: tuple, kw: dict, out: torch.Tensor) -> tuple:
                                                kw.get("w_group", 16))
     if len(args) > 2:
         nbytes += args[2].numel() * 4                  # the counts
-    return nbytes + out.numel() * 4, 2 * out.numel() * depth
+    return nbytes + out.numel() * 4, 2 * out.numel() * depth, INT8_OPS_PER_S
+
+
+def time_call(name: str, args: tuple, kw: dict, label: str, errs: dict,
+              plain_iters: int = 10) -> dict:
+    """Kernel, plain and library ms of one recorded call, its bound, and
+    its agreement with the plain version (K7: in float32); prints one
+    line."""
+    spec = KERNELS[name]
+    plain_kw = {k: v for k, v in kw.items() if k != "rows_per_band"}
+
+    def kernel():
+        return spec["fn"](*args, **kw)
+
+    def plain():
+        return spec["plain"](*args, **plain_kw)
+    out = kernel()
+    if name == "flash_attention":
+        k7_hold(errs, out, k7_plain32(*args, **plain_kw), f"at {label}")
+    else:
+        _hold(errs, name, out, plain(), f"at {label}")
+    nbytes, ops_, peak = _work(name, args, kw, out)
+    lib = _library(name, args, kw, out)
+    t_kernel, t_plain = cuda_ms(kernel), cuda_ms(plain, iters=plain_iters)
+    t_lib = cuda_ms(lib) if lib is not None else None
+    bound = max(nbytes / HBM_BYTES_PER_S, ops_ / peak) * 1e3
+    shapes = " ".join(f"{tuple(a.shape)}" for a in args)
+    opts = " ".join(f"{k}={v}" for k, v in kw.items())
+    print(f"[timing] {label} {name} {shapes} {opts}: kernel {t_kernel:.4f} "
+          f"ms, plain {t_plain:.4f} ms, library "
+          f"{'n/a' if t_lib is None else f'{t_lib:.4f} ms'}, bound "
+          f"{bound:.5f} ms ({nbytes} B, {ops_} op, "
+          f"{'bytes' if nbytes / HBM_BYTES_PER_S >= ops_ / peak else 'operations'})")
+    return dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
+                bytes_s=nbytes / HBM_BYTES_PER_S, ops_s=ops_ / peak)
 
 
 def phase_timing(runs: dict, errs: dict) -> dict:
     """Per (kernel, path): kernel, plain and library ms and the bound,
-    summed over the kernel's calls in one request of that path."""
+    summed over the kernel's calls in one request of that path (``runs``:
+    path -> a callable that serves one request)."""
     rows = {}
-    for path, (sess, x, _) in runs.items():
+    for path, run in runs.items():
         with recorded_calls() as calls:
-            sess.classify(x)
+            run()
         torch.cuda.synchronize()
         for i, (name, args, kw) in enumerate(calls):
-            spec = KERNELS[name]
-            plain_kw = {k: v for k, v in kw.items() if k != "rows_per_band"}
-
-            def kernel(spec=spec, args=args, kw=kw):
-                return spec["fn"](*args, **kw)
-
-            def plain(spec=spec, args=args, kw=plain_kw):
-                return spec["plain"](*args, **kw)
-            out, want = kernel(), plain()
-            errs[name] = max(errs[name], max_err(out, want))
-            check(torch.equal(out, want),
-                  f"{name} differs from plain at path {path}'s operands")
-            nbytes, ops = _work(name, args, kw, out)
-            lib = _library(name, args, kw, out)
-            t_kernel, t_plain = cuda_ms(kernel), cuda_ms(plain, iters=10)
-            t_lib = cuda_ms(lib) if lib is not None else None
+            t = time_call(name, args, kw, f"path {path} call {i}", errs)
             r = rows.setdefault((name, path), dict(
                 ms=0.0, plain_ms=0.0, bytes_s=0.0, ops_s=0.0,
                 library_ms=0.0, library=True))
-            r["ms"] += t_kernel
-            r["plain_ms"] += t_plain
-            r["bytes_s"] += nbytes / HBM_BYTES_PER_S
-            r["ops_s"] += ops / INT8_OPS_PER_S
-            if t_lib is None:
+            for key in ("ms", "plain_ms", "bytes_s", "ops_s"):
+                r[key] += t[key]
+            if t["library_ms"] is None:
                 r["library"] = False
             else:
-                r["library_ms"] += t_lib
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
-            shapes = " ".join(f"{tuple(a.shape)}" for a in args)
-            opts = " ".join(f"{k}={v}" for k, v in kw.items())
-            print(f"[timing] path {path} call {i} {name} {shapes} {opts}: "
-                  f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
-                  f"library {'n/a' if t_lib is None else f'{t_lib:.4f} ms'}, "
-                  f"bound {bound:.5f} ms ({nbytes} B, {ops} op)")
+                r["library_ms"] += t["library_ms"]
     for (name, path), r in rows.items():
         print(f"[timing] path {path} {name} per request: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms'] if r['library'] else 'n/a'}, bound "
               f"{max(r['bytes_s'], r['ops_s']) * 1e3:.5f} ms")
     return rows
+
+
+def phase_lm_timing(lm: dict, errs: dict) -> None:
+    """K1 at the LM's shapes: layer 0's seven linears and the head, in a
+    prefill and a decode step; per step the layer sum times the layer
+    count plus the head (K1's time does not depend on the weights'
+    values)."""
+    sess, tokens = lm["sess"], lm["tokens"]
+    cfg = sess.cfg
+    cache = sess.init_cache(LM_BATCH, lm["max_seq"])
+    with recorded_calls() as pre:
+        _, cache = sess.prefill(tokens, cache)
+    with recorded_calls() as dec:
+        sess.decode(tokens[:, -1], LM_PROMPT, cache)
+    torch.cuda.synchronize()
+    for label, calls in (("prefill", pre), ("decode", dec)):
+        check(len(calls) == lm["n_lin"], f"LM {label} recorded {len(calls)} "
+              f"kernel calls")
+        tot = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound")}
+        for j, (name, args, kw) in enumerate(calls[:7] + calls[-1:]):
+            t = time_call(name, args, kw, f"LM {label} "
+                          f"{'head' if j == 7 else f'layer 0 linear {j}'}",
+                          errs, plain_iters=3)
+            times = cfg.n_layers if j < 7 else 1
+            for k in ("ms", "plain_ms", "library_ms"):
+                tot[k] += times * t[k]
+            tot["bound"] += times * max(t["bytes_s"], t["ops_s"]) * 1e3
+        print(f"[timing] LM {label} K1 per step ({cfg.n_layers} x layer 0 + "
+              f"head): kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}"
+              f" ms, library {tot['library_ms']:.3f} ms, bound "
+              f"{tot['bound']:.4f} ms")
+
+
+def phase_attention_timing(errs: dict) -> None:
+    """K7 at the long shapes: [1, 16, 4096, 128] bf16 causal and windowed
+    against its plain version and scaled_dot_product_attention; [1, 16,
+    32768, 128] causal against the port's chunked_attention (the plain
+    version's [S, S] logits would take 64 GiB; held in float32) and the
+    library call."""
+    for window in (None, 1024):
+        args = tuple(qkv((1, 16, 4096, 128), torch.bfloat16, seed=11))
+        time_call("flash_attention", args, dict(causal=True, window=window),
+                  "long", errs, plain_iters=3)
+        del args
+    q_, k_, v_ = qkv((1, 16, 32768, 128), torch.bfloat16, seed=12)
+    out = flash_attention(q_, k_, v_, causal=True)
+    with torch.inference_mode():
+        want = attn.chunked_attention(
+            *(t.transpose(1, 2).float() for t in (q_, k_, v_)),
+            causal=True).transpose(1, 2)
+    err = k7_hold(errs, out, want, "at S = 32768 against chunked_attention")
+    del want
+    t_kernel = cuda_ms(lambda: flash_attention(q_, k_, v_, causal=True),
+                       iters=2, warmup=0)
+    with torch.inference_mode():
+        t_plain = cuda_ms(lambda: attn.chunked_attention(
+            *(t.transpose(1, 2) for t in (q_, k_, v_)), causal=True),
+            iters=1, warmup=0)
+    lib = _sdpa(q_, k_, v_, True, None)
+    check(within(lib(), out, SDPA_TOL, SDPA_TOL),
+          "scaled_dot_product_attention disagrees at S = 32768")
+    t_lib = cuda_ms(lib, iters=3, warmup=1)
+    nbytes, ops_, peak = _work("flash_attention", (q_, k_, v_),
+                               dict(causal=True), out)
+    print(f"[timing] long flash_attention (1, 16, 32768, 128) bf16 causal: "
+          f"kernel {t_kernel:.3f} ms, plain (chunked_attention) "
+          f"{t_plain:.3f} ms, library {t_lib:.3f} ms, bound "
+          f"{max(nbytes / HBM_BYTES_PER_S, ops_ / peak) * 1e3:.4f} ms "
+          f"({ops_} op); max abs err vs chunked_attention in float32 "
+          f"{err:.3g}")
 
 
 class _OpCount(TorchDispatchMode):
@@ -650,20 +1141,20 @@ class _OpCount(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def phase_profile(label: str, sess, x, request_s: float, launches: int,
+def phase_profile(label: str, run, request_s: float, launches: int,
                   requests: int = 4) -> None:
     """Host operators per request, device time by kernel over a few
     requests (torch.profiler), and the device's idle share of the
-    unprofiled median request latency."""
+    unprofiled median request time. ``run`` serves one request."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with _OpCount() as count:
-        sess.classify(x)
+        run()
     print(f"[profile] path {label}: {count.ops} PyTorch operators dispatched "
           f"per request, beside its {launches} kernel launches")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(requests):
-            sess.classify(x)
+            run()
         torch.cuda.synchronize()
     # Device-side events only: an aten op's entry also carries the time of
     # the kernels it launched, which have entries of their own.
@@ -685,18 +1176,37 @@ def phase_profile(label: str, sess, x, request_s: float, launches: int,
 
 
 def main() -> None:
-    # The fp32 conv yardstick runs in full fp32, not TF32 (cuDNN's default).
+    # The fp32 yardsticks and plain versions run in full fp32, not TF32
+    # (cuDNN's default for convolutions).
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     name, count = phase_device()
     phase_build()
     errs = {k: 0 for k in KERNELS}
     phase_kernels(errs)
+    phase_k7(errs)
     served = phase_serve()
-    rows = phase_timing(served["runs"], errs)
+    lm = phase_lm(errs)
+    launches = dict(served["launches"])
+    launches["LM generate"] = lm["gen_launches"]
+    launches["ops"] = lm["ops_launches"]
+    runs = {label: (lambda sess=sess, x=x: sess.classify(x))
+            for label, (sess, x, _) in served["runs"].items()}
+    runs["ops"] = lambda: lm_ops_path(lm["operands"])
+    rows = phase_timing(runs, errs)
+    phase_lm_timing(lm, errs)
+    phase_attention_timing(errs)
     for label, (sess, x, request_s) in served["runs"].items():
-        phase_profile(label, sess, x, request_s,
+        phase_profile(label, lambda sess=sess, x=x: sess.classify(x),
+                      request_s,
                       sum(served["launches"][label].values()) // REQUESTS)
+    sess, tokens = lm["sess"], lm["tokens"]
+    cache = sess.init_cache(LM_BATCH, lm["max_seq"])
+    phase_profile("LM prefill", lambda: sess.prefill(tokens, cache),
+                  lm["prefill_s"], lm["n_lin"], requests=2)
+    phase_profile("LM decode", lambda: sess.decode(tokens[:, -1], LM_PROMPT,
+                                                   cache),
+                  lm["decode_s"], lm["n_lin"], requests=4)
     kernels = []
     for kname, spec in KERNELS.items():
         path = spec["path"]
@@ -705,9 +1215,8 @@ def main() -> None:
         kernels.append({
             "name": kname, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "path": path,
-            "launches": served["launches"][path][kname],
-            "launches_by_path": {p: n[kname]
-                                 for p, n in served["launches"].items()
+            "launches": launches[path][kname],
+            "launches_by_path": {p: n[kname] for p, n in launches.items()
                                  if n[kname]},
             "max_abs_err": errs[kname], "ms": r["ms"],
             "plain_ms": r["plain_ms"],

@@ -14,14 +14,13 @@ six ops:
 Built-ins:
 
     torch_ref   the plain PyTorch oracles, on any device
-    cuda        the hand-written Hopper kernels (K1-K5); on CPU tensors
+    cuda        the hand-written Hopper kernels (K1-K7); on CPU tensors
                 their wrappers take the plain versions. The default.
 
 Pack-time weight-group counts (``w_counts``, Python ints from the plan)
 that are all full keep the static kernels (K1, K2); a count below Pw
 routes ``matmul_planes`` to K3 with bn = the filter group and
-``conv_planes`` to K4. ``dynamic_quant`` and ``attention`` raise
-NotImplementedError naming the ROADMAP item that brings them.
+``conv_planes`` to K4. ``dynamic_quant`` runs K6 and ``attention`` K7.
 """
 from __future__ import annotations
 
@@ -37,6 +36,8 @@ from repro_torch.kernels.bitserial_conv import (bitserial_conv,
                                                 bitserial_conv_wgroup)
 from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
                                                   bitserial_matmul_dynamic)
+from repro_torch.kernels.dynamic_quant import dynamic_quant
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 def _trims(w_counts, w_bits: int) -> bool:
@@ -127,19 +128,23 @@ class Backend:
             xq, dense_weights(w_packed, w_bits, w_counts, w_group), counts,
             kernel=kernel, stride=stride, group_size=group_size)
 
-    def dynamic_quant(self, *args, **kwargs):
-        raise NotImplementedError("dynamic_quant: not ported yet "
-                                  "(ROADMAP A.8, kernel K6)")
+    def dynamic_quant(self, x2, *, group_size: int, bits: int):
+        """f32 [M, K] -> (xq int8 [M, K], scale f32 [M, G], eff_bits int32
+        [M, G]) per group of ``group_size`` along K."""
+        return ref.dynamic_quant_ref(x2, group_size, bits)
 
-    def attention(self, *args, **kwargs):
-        raise NotImplementedError("attention: not ported yet "
-                                  "(ROADMAP queue B, kernel K7)")
+    def attention(self, q_, k_, v_, *, causal: bool = True,
+                  window: int | None = None):
+        """Full-sequence attention over [B, H, S, D] (KV head-repeated)."""
+        return ref.flash_attention_ref(q_, k_, v_, causal=causal,
+                                       window=window)
 
 
 class CudaBackend(Backend):
     """The hand-written Hopper kernels: K1 ``bitserial_matmul``, K2
     ``bitserial_conv``, K3 ``bitserial_matmul_dynamic``, K4
-    ``bitserial_conv_wgroup`` and K5 ``bitserial_conv_dynamic``."""
+    ``bitserial_conv_wgroup``, K5 ``bitserial_conv_dynamic``, K6
+    ``dynamic_quant`` and K7 ``flash_attention``."""
 
     name = "cuda"
 
@@ -175,6 +180,12 @@ class CudaBackend(Backend):
             lambda plane: bitserial_conv_dynamic(
                 xq, plane, counts, kernel=kernel, stride=stride,
                 group_size=group_size, rows_per_band=conv_tile))
+
+    def dynamic_quant(self, x2, *, group_size, bits):
+        return dynamic_quant(x2, group_size=group_size, bits=bits)
+
+    def attention(self, q_, k_, v_, *, causal=True, window=None):
+        return flash_attention(q_, k_, v_, causal=causal, window=window)
 
 
 _REGISTRY: dict[str, Backend] = {}

@@ -5,7 +5,9 @@ freezes a layer's kind, route, (Pa, Pw), conv geometry and band size;
 :func:`build_plan` produces the model-wide :class:`ExecutionPlan`, which
 also owns the backend.
 
-This slice ports the ``dense`` and ``serve_packed`` modes. The conv band
+The ``dense`` and ``serve_packed`` modes are ported, for the paper CNN and
+the LM (whose plans are keyed by layer class, ``attn_q`` ... ``lm_head``).
+The conv band
 size is sized against one H100 thread block's shared memory
 (:data:`repro_torch.kernels.bitserial_conv.SMEM_BUDGET`), where the
 reference sizes it against the TPU's VMEM.
@@ -29,6 +31,18 @@ MODE_ROUTES = {
 
 # Modes of the reference that later slices bring.
 _UNPORTED_MODES = {"fake_quant": "ROADMAP A.12", "serve_int8": "ROADMAP A.5"}
+
+# Param-tree key -> apply-time layer-class name used by PrecisionPolicy
+# (shared with models.model's serving conversion walk).
+PARAM_CLASS_NAMES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v",
+                     "wo": "attn_o", "w_gate": "ffn_gate", "w_up": "ffn_up",
+                     "w_down": "ffn_down", "head": "lm_head",
+                     "in_x": "ssm_x", "in_z": "ssm_z", "in_B": "ssm_B",
+                     "in_C": "ssm_C", "in_dt": "ssm_dt", "out": "ssm_out"}
+
+# Every linear layer class an LM architecture can route through.
+LM_LINEAR_CLASSES = tuple(sorted(set(PARAM_CLASS_NAMES.values()))) + (
+    "moe_expert", "moe_shared_gate", "moe_shared_up", "moe_shared_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,21 +189,25 @@ def build_plan(cfg, policy: PrecisionPolicy | None = None,
     """Compile the per-layer plans for a model config.
 
     ``cfg`` may be a :class:`repro_torch.models.cnn.CNNConfig` (pre-resolves
-    each conv with its kernel/stride plus the FC head) or None (everything
-    resolves on first use). ``backend`` is a Backend object or registered
-    name; the default ``cuda`` takes the plain versions on CPU tensors.
+    each conv with its kernel/stride plus the FC head), a
+    :class:`repro_torch.models.transformer.ModelConfig` (pre-resolves the
+    LM linear classes) or None (everything resolves on first use).
+    ``backend`` is a Backend object or registered name; the default
+    ``cuda`` takes the plain versions on CPU tensors.
     """
     policy = policy if policy is not None else PrecisionPolicy()
     plan = ExecutionPlan(mode=mode, policy=policy,
                          backend=resolve_backend(backend))
     if cfg is None:
         return plan
-    if not hasattr(cfg, "convs"):
-        raise NotImplementedError(
-            f"{getattr(cfg, 'name', cfg)!r}: only CNN configs are ported "
-            f"yet (LM: ROADMAP A.6)")
-    for c in cfg.convs:
-        plan.layer(c.name, kind="conv", kernel=c.kernel, stride=c.stride)
-    for i in range(len(cfg.fcs)):
-        plan.layer(f"fc{i}", kind="linear")
+    if hasattr(cfg, "convs"):            # CNNConfig
+        for c in cfg.convs:
+            plan.layer(c.name, kind="conv", kernel=c.kernel, stride=c.stride)
+        for i in range(len(cfg.fcs)):
+            plan.layer(f"fc{i}", kind="linear")
+    elif hasattr(cfg, "pattern"):        # ModelConfig
+        for cls in LM_LINEAR_CLASSES:
+            plan.layer(cls, kind="linear")
+    else:
+        raise TypeError(f"unknown model config {cfg!r}")
     return plan

@@ -1,14 +1,21 @@
 """``repro_torch.compile``: one entry point from (config, policy) to serving.
 
-PyTorch-port counterpart of ``repro/api/session.py`` (the CNN branch)::
+PyTorch-port counterpart of ``repro/api/session.py``::
 
     import repro_torch
     session = repro_torch.compile(cnn_cfg, policy, mode="serve_packed",
                                   backend="cuda")
     logits = session.classify(images)      # NHWC [B, H, W, C]
 
+    session = repro_torch.compile(lm_cfg, policy, mode="serve_packed")
+    logits, cache = session.prefill(tokens)           # tokens int [B, S]
+    logits, cache = session.decode(token, pos, cache)
+    gen = session.generate(tokens, gen_len=16)        # greedy, numpy int32
+
 The session runs on the card (``device="cuda"``) unless the caller asks
-for the CPU. There is no integrity fingerprint yet (ROADMAP A.9).
+for the CPU. PyTorch runs eagerly, so there is nothing to jit. The LM's
+cache is written in place by ``prefill`` and ``decode``. There is no
+integrity fingerprint yet (ROADMAP A.9).
 """
 from __future__ import annotations
 
@@ -32,59 +39,116 @@ class ServingSession:
     params: dict
     device: torch.device
 
+    @property
+    def is_lm(self) -> bool:
+        return hasattr(self.cfg, "pattern")
+
+    def _need(self, lm: bool) -> None:
+        if self.is_lm != lm:
+            raise ValueError(f"{self.cfg.name}: not "
+                             f"{'an LM' if lm else 'a CNN'} session")
+
+    # -- LM entry points ----------------------------------------------------
+
+    def init_cache(self, batch: int, max_seq: int | None = None) -> dict:
+        from repro_torch.models import model as M
+        self._need(lm=True)
+        return M.init_cache(self.cfg, batch, max_seq or self.cfg.max_seq,
+                            self.device)
+
+    def prefill(self, tokens, cache=None):
+        """Fill caches from a full prompt (int [B, S]). Returns
+        (last-token logits [B, 1, V], cache); ``cache`` defaults to a new
+        one of ``cfg.max_seq`` slots."""
+        from repro_torch.models import model as M
+        self._need(lm=True)
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        if cache is None:
+            cache = self.init_cache(tokens.shape[0])
+        with torch.inference_mode():
+            return M.prefill(self.params, self.cfg, tokens, cache, self.plan)
+
+    def decode(self, token, pos, cache):
+        """One decode step. token: int [B]; pos: the absolute position, an
+        int for the whole batch or an int [B] tensor per row. Returns
+        (logits [B, V], cache)."""
+        from repro_torch.models import model as M
+        self._need(lm=True)
+        token = torch.as_tensor(token, device=self.device).long()
+        if not isinstance(pos, int):
+            pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
+        with torch.inference_mode():
+            return M.decode_step(self.params, self.cfg, token, pos, cache,
+                                 self.plan)
+
+    def generate(self, tokens, gen_len: int, max_seq: int | None = None):
+        """Greedy generation: prefill + gen_len - 1 decode steps over a
+        cache of ``max_seq`` slots (default ``cfg.max_seq``). The tokens
+        stay on the device; returns numpy int32 [B, gen_len] after one
+        transfer."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        b, s = tokens.shape
+        logits, cache = self.prefill(tokens, self.init_cache(b, max_seq))
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        out = [tok]
+        for i in range(gen_len - 1):
+            logits, cache = self.decode(tok, s + i, cache)
+            tok = torch.argmax(logits, dim=-1)
+            out.append(tok)
+        return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+
+    # -- CNN entry point ----------------------------------------------------
+
     def classify(self, x) -> torch.Tensor:
         """x: [B, H, W, C] float (tensor or array) -> logits [B, n_classes]
         on the session's device."""
         from repro_torch.models import cnn
+        self._need(lm=False)
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         with torch.inference_mode():
             return cnn.forward(self.params, self.cfg, x, self.plan)
-
-
-def _convert_tree(params: dict, policy: PrecisionPolicy, mode: str) -> dict:
-    """Pack every dense 2-D ``{"w": ...}`` layer of a flat CNN tree for
-    ``mode``; layers already packed pass unchanged."""
-    from repro_torch.models import layers as L
-    out = {}
-    for name, p in params.items():
-        if isinstance(p, dict) and getattr(p.get("w"), "ndim", 0) == 2:
-            out[name] = L.convert_linear_for_serving(p, policy.lookup(name),
-                                                     mode)
-        else:
-            out[name] = p
-    return out
 
 
 def compile(cfg, policy: Optional[PrecisionPolicy] = None,
             mode: str = "dense", backend="cuda", *, params=None,
             generator: torch.Generator | None = None,
             device="cuda") -> ServingSession:
-    """Compile a CNN for serving: plans + params on ``device``.
+    """Compile a model for serving: plans + params on ``device``.
 
-    ``params``: a tree in the dense or the packed layout, as tensors or
-    numpy arrays (:func:`repro_torch.interop.params_from_numpy`); dense
-    layers are packed here when ``mode`` is a serving mode. Omitted ->
-    drawn from ``generator`` (seed 0 when None). ``backend``: registered
-    name or Backend object; the default ``cuda`` launches the kernels on
-    the card and takes their plain versions with ``device="cpu"``.
-    ``device="cuda"`` without a card raises.
+    ``cfg``: a CNN config (``classify``) or an LM ``ModelConfig``
+    (``prefill``/``decode``/``generate``). ``params``: a tree in the dense
+    or the packed layout, as tensors or numpy arrays
+    (:func:`repro_torch.interop.params_from_numpy`; the LM's is stacked
+    over its groups); dense layers are packed here when ``mode`` is a
+    serving mode. Omitted -> drawn from ``generator`` (seed 0 when None;
+    the LM's on ``device``). ``backend``: registered name or Backend
+    object; the default ``cuda`` launches the kernels on the card and takes
+    their plain versions with ``device="cpu"``. ``device="cuda"`` without
+    a card raises.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("compile(device='cuda'): no CUDA device is "
                            "available; pass device='cpu' to run on the CPU")
-    if not hasattr(cfg, "convs"):
-        raise NotImplementedError(
-            f"{getattr(cfg, 'name', cfg)!r}: LM sessions are not ported yet "
-            f"(ROADMAP A.6)")
     from repro_torch import interop
-    from repro_torch.models import cnn
+    from repro_torch.models import model as M
     policy = policy if policy is not None else PrecisionPolicy()
     plan = build_plan(cfg, policy, mode, backend)
+    lm = hasattr(cfg, "pattern")
     if params is None:
-        params = cnn.init_params(cfg, generator, device)
+        if lm:
+            params = M.init_params(cfg, generator, device)
+        else:
+            from repro_torch.models import cnn
+            params = cnn.init_params(cfg, generator, device)
     params = interop.params_from_numpy(params, device)
     if mode in _SERVING_MODES:
-        params = _convert_tree(params, policy, mode)
-        plan.record_weight_groups(params)
+        if lm:
+            params = M.convert_params_for_serving(params, policy, mode)
+            # LM blocks are stacked and share one plan per layer class, so
+            # pack-time counts apply only to the unstacked head.
+            plan.record_weight_groups({"lm_head": params.get("head", {})})
+        else:
+            params = M.convert_tree(params, policy, mode)
+            plan.record_weight_groups(params)
     return ServingSession(cfg=cfg, plan=plan, params=params, device=device)

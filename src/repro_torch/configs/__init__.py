@@ -2,14 +2,14 @@
 
 Each module exposes ``config()`` (the published configuration) and
 ``smoke_config()`` (a reduced same-family configuration for CPU tests).
-This slice ports the paper CNN only; the LM configurations come with the
-LM slice (ROADMAP A.6).
+Ported: the paper CNN and qwen3-1.7b (dense); the other LM families come
+with ROADMAP A.11.
 """
 from __future__ import annotations
 
-from repro_torch.configs import paper_cnn
+from repro_torch.configs import paper_cnn, qwen3_1_7b
 
-_ARCHS = {"paper_cnn": paper_cnn}
+_ARCHS = {"paper_cnn": paper_cnn, "qwen3_1_7b": qwen3_1_7b}
 
 
 def get(name: str, smoke: bool = False):

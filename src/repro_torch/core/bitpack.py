@@ -46,6 +46,23 @@ def unpack_bits_along_axis(packed: torch.Tensor, axis: int) -> torch.Tensor:
     return bits.reshape(shape).to(torch.uint8)
 
 
+# Transient int32 bytes that pack/unpack may hold at a time.
+_CHUNK_BYTES = 1 << 28
+
+
+def _by_columns(fn, t: torch.Tensor, bytes_per_column: int) -> torch.Tensor:
+    """``fn`` over blocks of ``t``'s columns (last axis), concatenated;
+    each block sized so that about 256 MiB of intermediates are live. One
+    block (one call) for every CNN layer; dozens for an LM head, whose
+    planes at once would take tens of GiB."""
+    n = t.shape[-1]
+    step = max(1, _CHUNK_BYTES // bytes_per_column)
+    if step >= n:
+        return fn(t)
+    return torch.cat([fn(t[..., i:i + step]) for i in range(0, n, step)],
+                     dim=-1)
+
+
 def pack_weights(wq: torch.Tensor, bits: int) -> torch.Tensor:
     """Bit-interleave a quantized weight matrix.
 
@@ -56,8 +73,10 @@ def pack_weights(wq: torch.Tensor, bits: int) -> torch.Tensor:
     k = wq.shape[0]
     if k % 8:
         wq = F.pad(wq, (0, 0, 0, (-k) % 8))
-    planes = q.bit_planes(wq, bits)              # [bits, K8, N] in {0,1}
-    return pack_bits_along_axis(planes, axis=1)  # [bits, K8//8, N]
+    # bit_planes: int32 [bits, K8, n] in {0,1}, packed to [bits, K8//8, n].
+    return _by_columns(
+        lambda w: pack_bits_along_axis(q.bit_planes(w, bits), axis=1),
+        wq, 8 * bits * wq.shape[0])
 
 
 def unpack_weights(packed: torch.Tensor, bits: int,
@@ -66,10 +85,12 @@ def unpack_weights(packed: torch.Tensor, bits: int,
 
     ``k`` trims the zero rows added by pack_weights for K % 8 != 0.
     """
-    planes = unpack_bits_along_axis(packed, axis=1).to(torch.int32)
-    w = q.plane_weights(bits, packed.device)
-    w = w.reshape((bits,) + (1,) * (planes.ndim - 1))
-    out = torch.sum(planes * w, dim=0, dtype=torch.int32)
+    w = q.plane_weights(bits, packed.device).reshape(bits, 1, 1)
+
+    def unpack(p):
+        planes = unpack_bits_along_axis(p, axis=1).to(torch.int32)
+        return torch.sum(planes * w, dim=0, dtype=torch.int32)
+    out = _by_columns(unpack, packed, 64 * bits * packed.shape[1])
     return out if k is None else out[:k]
 
 

@@ -30,12 +30,25 @@ def _dims(x: torch.Tensor, axis) -> tuple:
     return tuple(a % x.ndim for a in ((axis,) if isinstance(axis, int) else axis))
 
 
+def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` as an IEEE division on every device. PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal, one ulp off
+    the true quotient at some inputs; a divisor tensor on ``a``'s device
+    takes the true division, as the reference does."""
+    return a / torch.full_like(a, b)
+
+
 def compute_scale(x: torch.Tensor, bits: int, axis=None,
                   keepdims: bool = True) -> torch.Tensor:
-    """Symmetric absmax scale so that max|x| maps to qmax(bits)."""
+    """Symmetric absmax scale so that max|x| maps to qmax(bits).
+
+    Computed in float32 whatever ``x``'s dtype: the reference's clamp
+    against float32's ``tiny`` promotes a bf16 absmax to float32 before
+    the division."""
     absmax = torch.amax(x.abs(), dim=_dims(x, axis), keepdim=keepdims)
-    absmax = torch.clamp(absmax, min=torch.finfo(torch.float32).tiny)
-    return (absmax / qmax(bits)).to(torch.float32)
+    absmax = torch.clamp(absmax.to(torch.float32),
+                         min=torch.finfo(torch.float32).tiny)
+    return true_div(absmax, qmax(bits))
 
 
 def quantize(x: torch.Tensor, bits: int, scale: torch.Tensor | None = None,

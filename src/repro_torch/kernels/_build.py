@@ -20,7 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCES = ("bitserial_matmul", "bitserial_conv")
+SOURCES = ("bitserial_matmul", "bitserial_conv", "dynamic_quant",
+           "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

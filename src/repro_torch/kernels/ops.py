@@ -1,7 +1,8 @@
 """Serving-path orchestration around the backend op surface.
 
 PyTorch-port counterpart of ``repro/kernels/ops.py`` (the serving linear
-and conv, static and with runtime activation trimming). These functions
+and conv, static and with runtime activation trimming, and the entry
+points of the activation quantizer and of attention). These functions
 own the numeric steps that are the same on every backend -- activation
 quantization, K padding against the packed layout, the OR-tree plane
 counts, and the final dequantizing cast -- and hand the integer core to a
@@ -90,7 +91,9 @@ def loom_linear_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
         dense_weights(w_packed, w_bits, w_counts, w_group), w_bits,
         lambda plane: be.matmul_planes_dynamic(
             plane.T.contiguous(), x_packed, counts, w_bits=a_bits, bn=g))
-    y = yt.T[:m]
+    # Row-major like the static path's output: the float ops downstream
+    # (attention's products) may sum in another order for another layout.
+    y = yt.T[:m].contiguous()
     out = (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
     return out if x.ndim == 2 else out.reshape(*lead, -1)
 
@@ -149,3 +152,24 @@ def loom_conv_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
                                group_size=gsz, conv_tile=conv_tile,
                                w_counts=w_counts, w_group=w_group)
     return (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
+
+
+def quantize_activations(x: torch.Tensor, *, group_size: int = 256,
+                         bits: int = 8, backend=None):
+    """Dynamic per-group activation quantization (Loom's runtime path):
+    x [..., K] -> (xq int8 [..., K], scale f32 [..., K/G], eff_bits int32
+    [..., K/G]), computed in float32."""
+    be = resolve_backend(backend)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
+    xq, scale, eff = be.dynamic_quant(x2, group_size=group_size, bits=bits)
+    return (xq.reshape(*lead, -1), scale.reshape(*lead, -1),
+            eff.reshape(*lead, -1))
+
+
+def attention(q_: torch.Tensor, k_: torch.Tensor, v_: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              backend=None) -> torch.Tensor:
+    """Full-sequence attention ([B, H, S, D], KV already head-repeated)."""
+    be = resolve_backend(backend)
+    return be.attention(q_, k_, v_, causal=causal, window=window)

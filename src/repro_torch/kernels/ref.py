@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bitpack
+from repro_torch.core.quantize import true_div
 from repro_torch.core.weightgroups import truncate_columns_grouped, truncate_signed
 
 
@@ -190,3 +191,73 @@ def bitserial_conv_dynamic_banded_ref(x: torch.Tensor, w_packed: torch.Tensor,
         bands.append(_conv_walk(band, w3, kernel, stride, rows, wo,
                                 cmap[:, r0:r0 + rows]))
     return _narrow(torch.cat(bands, dim=1))
+
+
+def _flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """float32 values below ``tiny`` in magnitude read as zero: the
+    reference runs on XLA:CPU, which flushes subnormal inputs and results
+    to zero (torch on the CPU and this port's CUDA build do not)."""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny,
+                       torch.zeros_like(x), x)
+
+
+def dynamic_quant_ref(x: torch.Tensor, group_size: int, bits: int = 8):
+    """K6's plain version: per-group symmetric quantization and
+    effective-precision detection.
+
+    x: f32 [M, K] -> (xq int8 [M, K], scale f32 [M, K // group_size],
+    eff_bits int32 [M, K // group_size]). Per group of ``group_size``
+    along K: ``scale = max(absmax, tiny) / qmax`` and ``xq =
+    clip(round_half_even(x / scale))``; eff_bits is the bit length of
+    max|xq| plus the sign, floored at 1 (``ceil(log2(max|xq| + 1)) + 1``).
+
+    The reference's subnormal flushing is written out: subnormal inputs
+    read as zero, a scale below ``tiny`` is 0.0, and then ``0 / 0`` gives
+    0 while ``±x / 0`` clips to qmax / qmin.
+    """
+    m, k = x.shape
+    if k % group_size:
+        raise ValueError(f"K={k} is not a multiple of group_size="
+                         f"{group_size}")
+    if not 2 <= bits <= 8:
+        raise ValueError(f"bits={bits} outside [2, 8]")
+    qmax, qmin = (1 << (bits - 1)) - 1, -(1 << (bits - 1))
+    xg = _flush_subnormals(x.to(torch.float32)).reshape(m, k // group_size,
+                                                        group_size)
+    absmax = torch.clamp(xg.abs().amax(-1), min=torch.finfo(torch.float32).tiny)
+    scale = _flush_subnormals(true_div(absmax, qmax))
+    v = torch.round(xg / scale[..., None])
+    v = torch.clamp(torch.where(torch.isnan(v), torch.zeros_like(v), v),
+                    qmin, qmax)
+    xq = v.to(torch.int8)
+    mag = xq.to(torch.int32).abs().amax(-1)
+    eff = torch.zeros_like(mag)
+    for b in range(bits + 1):           # bit length of mag, mag <= 2^(bits-1)
+        eff += (mag >= (1 << b)).to(torch.int32)
+    return xq.reshape(m, k), scale, eff + 1
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """K7's plain version: exact softmax attention. q, k, v: [B, H, S, D]
+    with one head count. The logits are the product in the inputs' dtype,
+    then float32 times ``scale`` (default ``D ** -0.5``); keys outside
+    ``(i - window, i]`` (``window``) or after ``i`` (``causal``) are masked
+    with -inf. Returns [B, H, S, D] in q's dtype. Materializes the [B, H,
+    S, S] float32 logits."""
+    s, d = q.shape[2], q.shape[3]
+    if scale is None:
+        scale = d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)

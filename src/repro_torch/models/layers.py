@@ -1,7 +1,8 @@
 """The Loom linear and conv layers, dispatched through execution plans.
 
-PyTorch-port counterpart of ``repro/models/layers.py`` (the dense and
-packed routes). Every linear and conv asks the model's
+PyTorch-port counterpart of ``repro/models/layers.py``: RMSNorm, RoPE,
+activations, embeddings, and the dense and packed routes of the Loom
+linear and conv. Every linear and conv asks the model's
 :class:`~repro_torch.api.plan.ExecutionPlan` for its resolved
 :class:`~repro_torch.api.plan.LayerPlan` and jumps to that route's
 handler. Activations stay NHWC, as in the reference; weights keep the 2-D
@@ -21,12 +22,69 @@ from repro_torch.core import bitpack, quantize as q
 from repro_torch.kernels import ops
 
 
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32 with a zero-centred gain (``1 + gamma``), cast
+    back to x's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + gamma.to(torch.float32))).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding (rotate-half). x: [..., S, H, D]; positions:
+    [..., S]."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].to(torch.float32) * freqs   # [..., S, half]
+    cos = torch.cos(angles)[..., None, :]                     # [..., S, 1, half]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    # x * (1 / (1 + exp(-x))), each op rounded in x's dtype, as the
+    # reference's silu runs in bf16 (F.silu would round once).
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def activation_fn(name: str):
+    if name == "silu":
+        return _silu
+    if name in ("gelu", "relu2"):
+        raise NotImplementedError(
+            f"activation {name!r} is not ported yet: no ported config uses "
+            f"it (ROADMAP A.11)")
+    raise ValueError(name)
+
+
 def linear_init(d_in: int, d_out: int, generator: torch.Generator,
                 dtype=torch.float32) -> dict:
-    """{"w": [d_in, d_out]} drawn from N(0, 1/d_in) with ``generator``."""
-    w = torch.randn((d_in, d_out), generator=generator,
-                    dtype=torch.float32) * d_in ** -0.5
+    """{"w": [d_in, d_out]} drawn from N(0, 1/d_in) in float32 with
+    ``generator``, on its device, then cast to ``dtype``."""
+    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
+                    device=generator.device) * d_in ** -0.5
     return {"w": w.to(dtype)}
+
+
+def embed_init(vocab: int, d_model: int, generator: torch.Generator,
+               dtype=torch.bfloat16) -> dict:
+    w = torch.randn((vocab, d_model), generator=generator,
+                    dtype=torch.float32, device=generator.device) * 0.02
+    return {"emb": w.to(dtype)}
+
+
+def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["emb"][tokens]
+
+
+def norm_init(d: int, dtype=torch.bfloat16, device="cpu") -> dict:
+    return {"g": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def _linear_dense(p, x, lp, be):

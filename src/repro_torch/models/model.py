@@ -1,0 +1,150 @@
+"""LM: init, prefill and decode over the stacked blocks, and the offline
+weight packing.
+
+PyTorch-port counterpart of the serving half of ``repro/models/model.py``.
+The param tree is the reference's: ``{"embed": {"emb"}, "final_norm":
+{"g"}, "head": {"w"}, "blocks": {"p<i>": tree with a leading [n_groups]
+axis on every leaf}}``, so a tree made or converted by the JAX package
+(carried across by ``repro_torch.interop.params_from_numpy``) runs here
+unchanged. The cache tree has the same shape (``{"p<i>": {"k", "v",
+"slot_pos"}}``, each leaf stacked over the groups) and is written in place.
+Python loops over the groups take the place of the reference's
+``lax.scan``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.api.plan import PARAM_CLASS_NAMES
+from repro_torch.models import layers as L, transformer as T
+
+
+def _stack_trees(trees: list) -> dict:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees, dim=0)
+
+
+def _index_tree(tree, g: int):
+    """Group ``g`` of a stacked tree: views, so writes reach the stack."""
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def init_params(cfg: T.ModelConfig, generator: torch.Generator | None = None,
+                device="cpu", dtype=torch.bfloat16) -> dict:
+    """Random params in the reference's layout, drawn with ``generator``
+    on its device (a seed-0 generator on ``device`` when None)."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    params = {"embed": L.embed_init(cfg.vocab, cfg.d_model, generator, dtype),
+              "final_norm": L.norm_init(cfg.d_model, dtype, generator.device),
+              "head": L.linear_init(cfg.d_model, cfg.vocab, generator, dtype)}
+    params["blocks"] = {
+        f"p{i}": _stack_trees([T.block_init(cfg, spec, generator, dtype)
+                               for _ in range(cfg.n_groups)])
+        for i, spec in enumerate(cfg.pattern)}
+    return params
+
+
+def init_cache(cfg: T.ModelConfig, batch: int, max_seq: int,
+               device="cpu") -> dict:
+    return {f"p{i}": _stack_trees([T.block_cache_init(cfg, spec, batch,
+                                                      max_seq, device)
+                                   for _ in range(cfg.n_groups)])
+            for i, spec in enumerate(cfg.pattern)}
+
+
+def _layers(params, cache, cfg: T.ModelConfig):
+    """(spec, block params, block cache) of every layer, in order."""
+    for g in range(cfg.n_groups):
+        for i, spec in enumerate(cfg.pattern):
+            yield (spec, _index_tree(params["blocks"][f"p{i}"], g),
+                   _index_tree(cache[f"p{i}"], g))
+
+
+def prefill(params, cfg: T.ModelConfig, tokens, cache, plan):
+    """Fill the caches from a full prompt (tokens: int [B, S]). Returns
+    (last-token logits [B, 1, V], cache)."""
+    s = tokens.shape[1]
+    x = L.embed_apply(params["embed"], tokens).to(torch.bfloat16)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    for spec, p, c in _layers(params, cache, cfg):
+        x, _ = T.block_apply_prefill(p, cfg, spec, x, positions, plan, c)
+    x = L.rms_norm(x[:, -1:], params["final_norm"]["g"])
+    return L.linear_apply(params["head"], x, plan, "lm_head"), cache
+
+
+def decode_step(params, cfg: T.ModelConfig, token, pos, cache, plan):
+    """One decode step. token: int [B]; pos: the absolute position, an int
+    (or 0-d tensor) for the whole batch or an int [B] tensor per row.
+    Returns (logits [B, V], cache)."""
+    if isinstance(pos, torch.Tensor) and pos.ndim == 0:
+        pos = int(pos)
+    x = L.embed_apply(params["embed"], token[:, None]).to(torch.bfloat16)
+    for spec, p, c in _layers(params, cache, cfg):
+        x, _ = T.block_apply_decode(p, cfg, spec, x, pos, plan, c)
+    x = L.rms_norm(x, params["final_norm"]["g"])
+    return L.linear_apply(params["head"], x[:, 0], plan, "lm_head"), cache
+
+
+# ---------------------------------------------------------------------------
+# Offline weight packing (the paper's bit-interleaved storage step)
+# ---------------------------------------------------------------------------
+
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+_SKIP_LINEARS = ("router", "conv")  # tiny/accuracy-critical or depthwise conv
+
+
+def _policy_key(path: tuple) -> str:
+    if path and path[-1] in PARAM_CLASS_NAMES:
+        return PARAM_CLASS_NAMES[path[-1]]
+    return "/".join(path)
+
+
+def convert_tree(params: dict, policy, mode: str, root: tuple = ()) -> dict:
+    """Walk an UNSTACKED tree, converting every dense 2-D linear ``{"w"}``
+    for ``mode`` under its layer class's precision; packed layers and
+    other leaves pass unchanged."""
+    def walk(p, path):
+        if not isinstance(p, dict):
+            return p
+        if ("w" in p and getattr(p["w"], "ndim", 0) == 2
+                and (not path or path[-1] not in _SKIP_LINEARS)):
+            return L.convert_linear_for_serving(
+                p, policy.lookup(_policy_key(path)), mode)
+        out = {}
+        for k, v in p.items():
+            if k in _EXPERT_KEYS and getattr(v, "ndim", 0) == 3:
+                raise NotImplementedError("MoE expert packing is not ported "
+                                          "yet (ROADMAP A.11)")
+            out[k] = walk(v, path + (k,))
+        return out
+
+    return walk(params, tuple(root))
+
+
+def convert_params_for_serving(params: dict, policy, mode: str) -> dict:
+    """Every linear's ``w`` -> its packed representation. Embeddings and
+    norms stay bf16. Stacked block params are unstacked, converted layer by
+    layer (one weight scale per layer) and restacked."""
+    out = {}
+    for k, v in params.items():
+        if k == "blocks":
+            out[k] = {}
+            for pk, stacked in v.items():
+                n_groups = _leaves(stacked)[0].shape[0]
+                out[k][pk] = _stack_trees([
+                    convert_tree(_index_tree(stacked, g), policy, mode)
+                    for g in range(n_groups)])
+        else:
+            out[k] = convert_tree(v, policy, mode, root=(k,))
+    return out

@@ -67,7 +67,11 @@ def test_bit_planes_and_plane_weights(bits):
 
 @pytest.mark.parametrize("bits", [1, 8, 11, 16])
 @pytest.mark.parametrize("k", [27, 32])
-def test_pack_unpack_matches_jax_byte_for_byte(bits, k):
+@pytest.mark.parametrize("chunk_bytes", [None, 600])
+def test_pack_unpack_matches_jax_byte_for_byte(bits, k, chunk_bytes,
+                                               monkeypatch):
+    if chunk_bytes is not None:   # force several column blocks
+        monkeypatch.setattr(bitpack, "_CHUNK_BYTES", chunk_bytes)
     rng = np.random.default_rng(bits * 100 + k)
     wq = rng.integers(jq.qmin(bits), jq.qmax(bits) + 1,
                       size=(k, 20)).astype(np.int32)

@@ -1,6 +1,7 @@
-"""PyTorch port on the card: kernels K1-K5 against their plain versions and
-the ``cuda`` session against ``torch_ref``, bit for bit, on the static,
-dynamic (``dynamic_a``) and weight-group paths.
+"""PyTorch port on the card: kernels K1-K6 against their plain versions bit
+for bit and K7 within its tolerance; the ``cuda`` CNN session against
+``torch_ref``, bit for bit, on the static, dynamic (``dynamic_a``) and
+weight-group paths, and the smoke LM's prefill and decode likewise.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -19,6 +20,9 @@ from repro_torch.kernels.bitserial_conv import (
 from repro_torch.kernels.bitserial_matmul import (
     bitserial_matmul, bitserial_matmul_dynamic, bitserial_matmul_dynamic_plain,
     bitserial_matmul_plain)
+from repro_torch.kernels.dynamic_quant import dynamic_quant, dynamic_quant_plain
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -145,3 +149,86 @@ def test_cuda_session_equals_torch_ref(cuda, path):
                                  device=cuda).classify(x)
     assert torch.equal(out["cuda"], out["torch_ref"])
     assert torch.equal(out["cuda"], static)
+
+
+def _flush_cases() -> torch.Tensor:
+    """[4, 1024]: group 0 of each row is one that subnormal flushing
+    decides (all zeros; +-2e-38; a subnormal among zeros; 1e-36 among
+    zeros and subnormals)."""
+    x = torch.randn((4, 1024), generator=torch.Generator().manual_seed(7))
+    x[:, :256] = 0.0
+    x[1, :256] = 2e-38
+    x[2, 3] = 1e-39
+    x[3, 3], x[3, 4], x[3, 9] = 1e-36, 1e-38, -3e-39
+    return x
+
+
+@pytest.mark.parametrize("m,k,g", [(1024, 2048, 256), (1000, 512, 128),
+                                   (3, 1024, 512), (4, 1024, 256)])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_dynamic_quant_kernel_equals_plain(cuda, m, k, g, bits):
+    gen = torch.Generator().manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen) * 10.0 ** (
+        torch.rand((m, 1), generator=gen) * 6 - 3)
+    if m == 4:
+        x = _flush_cases()
+    x = x.to(cuda)
+    before = dynamic_quant.launches
+    got = dynamic_quant(x, group_size=g, bits=bits)
+    torch.cuda.synchronize()
+    assert dynamic_quant.launches == before + 1
+    for a, b in zip(got, dynamic_quant_plain(x, g, bits)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,dtype,causal,window", [
+    ((1, 4, 1024, 128), torch.bfloat16, True, None),
+    ((1, 4, 1024, 128), torch.bfloat16, True, 100),
+    ((2, 2, 300, 64), torch.float32, False, None),
+    ((1, 2, 100, 256), torch.float32, True, 17),
+    ((1, 1, 33, 16), torch.float32, False, 5)])
+def test_flash_attention_kernel_within_tolerance(cuda, shape, dtype, causal,
+                                                 window):
+    gen = torch.Generator().manual_seed(shape[2])
+    q_, k_, v_ = (torch.randn(shape, generator=gen).to(dtype).to(cuda)
+                  for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q_, k_, v_, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    # Against the plain version in float32 from the same inputs: the kernel
+    # works in float32 and rounds a bf16 output once (half a bf16 ulp), so
+    # bf16 is held to one ulp (2^-7 of the value) plus 1e-4 for float32
+    # sums in another order; float32 to the JAX tests' 2e-5.
+    want = flash_attention_plain(q_.float(), k_.float(), v_.float(),
+                                 causal=causal, window=window)
+    atol, rtol = (1e-4, 2 ** -7) if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dynamic_a", [False, True])
+def test_lm_cuda_session_equals_torch_ref(cuda, dynamic_a):
+    from repro_torch.models import model as M
+    cfg = configs.get("qwen3-1.7b", smoke=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for be in ("cuda", "torch_ref"):
+        sess = repro_torch.compile(cfg, uniform_policy(8, 8,
+                                                       dynamic_a=dynamic_a),
+                                   mode="serve_packed", backend=be,
+                                   params=params, device=cuda)
+        before = (bitserial_matmul.launches, bitserial_matmul_dynamic.launches)
+        logits, cache = sess.prefill(tokens)
+        step, _ = sess.decode(logits[:, 0].argmax(-1), 16, cache)
+        torch.cuda.synchronize()
+        if be == "cuda":
+            launched = (bitserial_matmul.launches - before[0],
+                        bitserial_matmul_dynamic.launches - before[1])
+            n = 2 * (7 * cfg.n_layers + 1)
+            assert launched == ((0, n) if dynamic_a else (n, 0))
+        out[be] = (logits, step)
+    assert torch.equal(out["cuda"][0], out["torch_ref"][0])
+    assert torch.equal(out["cuda"][1], out["torch_ref"][1])

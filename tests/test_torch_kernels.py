@@ -187,9 +187,18 @@ def test_backend_surface():
         assert b.conv_planes_dynamic(
             xc, wc, torch.ones((1, 1), dtype=torch.int32), kernel=3, stride=1,
             w_bits=8, group_size=8).shape == (1, 1, 2, 4)
-        for op, item in (("dynamic_quant", "A.8"), ("attention", "queue B")):
-            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-                getattr(b, op)()
+        # K6 and K7 (their plain versions on CPU tensors).
+        xq, scale, eff = b.dynamic_quant(
+            torch.linspace(-4, 4, 2 * 512).reshape(2, 512), group_size=256,
+            bits=8)
+        assert (xq.dtype, scale.dtype, eff.dtype) == (
+            torch.int8, torch.float32, torch.int32)
+        assert tuple(scale.shape) == tuple(eff.shape) == (2, 2)
+        assert int(xq.abs().max()) == 127 and bool((eff == 8).all())
+        qkv = torch.randn((1, 2, 8, 16), generator=torch.Generator().manual_seed(0))
+        out = b.attention(qkv, qkv, qkv, causal=True, window=4)
+        assert out.shape == qkv.shape and bool(torch.isfinite(out).all())
+        assert torch.equal(out[:, :, 0], qkv[:, :, 0])   # row 0 sees key 0
 
 
 def test_wrappers_reject_bad_operands():
