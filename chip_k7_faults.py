@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Plant faults in K7 (``csrc/flash_attention.cu``) and check that the K7
-checks of ``chip_smoke.py`` catch each one.
+"""Plant faults in K7's bf16 tensor-core kernel (``tc_kernel`` in
+``csrc/flash_attention.cu``) and check that the K7 checks of
+``chip_smoke.py`` catch each one.
 
     python3 chip_k7_faults.py WORK_DIR
 
@@ -21,25 +22,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL = "src/repro_torch/kernels/csrc/flash_attention.cu"
-LOOP = "for (int k0 = lo / BK * BK; k0 < hi; k0 += BK)"
-STORE = "store(out + head + (size_t)qi * d + dd, e[t] * inv)"
-NORM = "const float inv = 1.0f / fmaxf(l, 1e-30f);"
+# Anchors in the bf16 tensor-core kernel (`tc_kernel`), the route every
+# bf16 check of chip_smoke runs.
+FIRST = "const int t0 = lo / BK;"
+COUNT = "const int nt = (hi + BK - 1) / BK - t0;"
+STORE = "__float2bfloat16_rn(acc[4 * j + e] * inv[e >> 1])"
+NORM = "inv[r] = 1.0f / fmaxf(l[r], 1e-30f);"
 
 # fault -> (text of the kernel source, its replacement)
 FAULTS = {
     # the window's first key tile skipped
-    "window_tile": (LOOP, "for (int k0 = lo > 0 ? lo / BK * BK + BK : 0; "
-                          "k0 < hi; k0 += BK)"),
-    # without causal, the last key tile skipped (S = 1000: 8 keys)
-    "last_tile": (LOOP, "for (int k0 = lo / BK * BK; "
-                        "k0 < (causal ? hi : hi - BK); k0 += BK)"),
+    "window_tile": (FIRST, "const int t0 = lo > 0 ? lo / BK + 1 : 0;"),
+    # without causal, the last key tile skipped (S = 1000: 40 keys)
+    "last_tile": (COUNT, "const int nt = (hi + BK - 1) / BK - t0 - "
+                         "(causal ? 0 : 1);"),
     # rows from 20000 (32000) on written as zeros (S = 32768 only)
-    "zeros_20000": (STORE, "store(out + head + (size_t)qi * d + dd, "
-                           "qi >= 20000 ? 0.0f : e[t] * inv)"),
-    "zeros_32000": (STORE, "store(out + head + (size_t)qi * d + dd, "
-                           "qi >= 32000 ? 0.0f : e[t] * inv)"),
+    "zeros_20000": (STORE, "__float2bfloat16_rn(qi >= 20000 ? 0.0f : "
+                           "acc[4 * j + e] * inv[e >> 1])"),
+    "zeros_32000": (STORE, "__float2bfloat16_rn(qi >= 32000 ? 0.0f : "
+                           "acc[4 * j + e] * inv[e >> 1])"),
     # every output 1% too large
-    "scale_1.01": (NORM, "const float inv = 1.01f / fmaxf(l, 1e-30f);"),
+    "scale_1.01": (NORM, "inv[r] = 1.01f / fmaxf(l[r], 1e-30f);"),
 }
 
 RUN = ("import chip_smoke as c\n"

@@ -28,16 +28,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. device  -- the card's name, count and nvidia-smi power limit; no CUDA
               device means exit 1.
 2. build   -- compile every kernel from ``src/repro_torch/kernels/csrc``
-              (one nvcc per source, in parallel) and print ptxas usage.
+              (one nvcc per source, in parallel), print ptxas usage and,
+              where the toolkit has ``cuobjdump``, the tensor-core
+              instructions (HMMA/IMMA/HGMMA/IGMMA) in each kernel's SASS.
 3. kernels -- K1-K6 against their plain versions on the card, exact
               (``torch.equal``), at the paths' shapes and at ragged, banded,
-              strided and K-padded shapes; K3-K5 with random plane counts
+              strided and K-padded shapes; K1 on both sides of its skinny/
+              tile boundary (M 1-1024) at the LM's shapes, Pw 1-16, and on
+              an int32 sum that wraps; K3-K5 with random plane counts
               (forced truncation) and full counts; K6 with zero, 2e-38 and
               subnormal groups. K7 within K7_TOL of its plain version taken
               in float32 from the same inputs (bf16: one bf16 ulp, 2^-7 of
-              the value, plus 1e-4; f32: 2e-5, the JAX tests' own) at
-              [1, 16, S, 128] bf16, S = 4096 causal and windowed, S = 1000
-              non-causal, and f32 [2, 2, 256, 64].
+              the value, plus 1e-4; f32: 2e-5, the JAX tests' own), bf16
+              and f32 at D 32-256, S 1-4096, causal, non-causal and window
+              1024, and [1, 16, 4096, 128] bf16.
 4. serve   -- each CNN path serves REQUESTS batches of BATCH images with
               the launch counts reset just before; the counts must show the
               path's kernels and no other. Static: logits equal a
@@ -67,7 +71,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               TFLOP/s). K1 at the LM's shapes (layer 0 and the head, in
               prefill and decode). K7 also at [1, 16, 4096, 128] (causal,
               windowed) and [1, 16, 32768, 128] causal, the last held
-              against the port's ``chunked_attention`` in float32.
+              against the port's ``chunked_attention`` in float32. Each
+              line also names the kernel's time before the tensor-core
+              redesign of K1 and K7 (BEFORE_MS).
 6. profile -- per CNN path and for the LM's prefill and decode step: the
               PyTorch operators one request dispatches on the host, device
               time by kernel (torch.profiler), and the device's idle share
@@ -105,8 +111,8 @@ from repro_torch.kernels.bitserial_conv import (  # noqa: E402
     bitserial_conv, bitserial_conv_dynamic, bitserial_conv_dynamic_plain,
     bitserial_conv_plain, bitserial_conv_wgroup, bitserial_conv_wgroup_plain)
 from repro_torch.kernels.bitserial_matmul import (  # noqa: E402
-    bitserial_matmul, bitserial_matmul_dynamic, bitserial_matmul_dynamic_plain,
-    bitserial_matmul_plain)
+    _k1_route, bitserial_matmul, bitserial_matmul_dynamic,
+    bitserial_matmul_dynamic_plain, bitserial_matmul_plain)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.dynamic_quant import (  # noqa: E402
     dynamic_quant, dynamic_quant_plain)
@@ -135,6 +141,20 @@ K7_TOL = {torch.bfloat16: (1e-4, 2 ** -7), torch.float32: (2e-5, 2e-5)}
 # The JAX tests' bf16 tolerance (atol = rtol), for the library yardstick:
 # scaled_dot_product_attention rounds its bf16 probabilities.
 SDPA_TOL = 0.05
+# Each kernel's time before K1 and K7 moved to the tensor cores (K1 and K7
+# then multiplied on the CUDA cores), on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md's table), printed beside this run's.
+BEFORE_MS = {
+    ("bitserial_matmul", "static"): 0.1718, ("bitserial_matmul", "W"): 0.0309,
+    ("bitserial_conv", "static"): 0.4572,
+    ("bitserial_matmul_dynamic", "D"): 0.1665,
+    ("bitserial_matmul_dynamic", "W"): 0.1454,
+    ("bitserial_conv_wgroup", "W"): 0.5171,
+    ("bitserial_conv_dynamic", "D"): 0.4899,
+    ("dynamic_quant", "ops"): 0.0625, ("flash_attention", "ops"): 0.2513,
+    ("LM", "prefill"): 207.169, ("LM", "decode"): 36.178,
+    ("long", None): 5.5677, ("long", 1024): 2.3376, ("long", 32768): 304.481,
+}
 
 # Each kernel's wrapper, plain version and the path whose run its JSON
 # entry reports.
@@ -306,6 +326,31 @@ def phase_build() -> None:
     for name in _build.SOURCES:
         for line in _build.ptxas_report(name).splitlines():
             print(f"[build] {name}: {line.strip()}")
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        print("[build] SASS: no cuobjdump beside nvcc: not shown")
+        return
+    for name in _build.SOURCES:
+        for kernel, found in sass_tensor_ops(cuobjdump, name).items():
+            print(f"[build] {name} SASS {kernel}: "
+                  f"{found or 'no tensor-core instruction'}")
+
+
+def sass_tensor_ops(cuobjdump: Path, name: str) -> dict:
+    """Kernel -> {tensor-core opcode: count} in the built library's SASS."""
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    found, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            found[kernel] = {}
+        for op in ("HGMMA", "IGMMA", "HMMA", "IMMA"):
+            if kernel and f" {op}." in line:
+                found[kernel][op] = found[kernel].get(op, 0) + 1
+                break
+    return found
 
 
 def _hold(errs: dict, name: str, got, want, what: str) -> None:
@@ -313,20 +358,58 @@ def _hold(errs: dict, name: str, got, want, what: str) -> None:
     check(same(got, want), f"{name} {what} differs from plain")
 
 
+def k1_cases() -> list:
+    """(label, M, K, N, Pw) of the K1 checks: both sides of the skinny/tile
+    boundary at the LM's shapes, the LM head at M = 2, the CNN's FCs and
+    a ragged shape, at Pw 1/4/8/11/16."""
+    lm = [(2048, 1024), (2048, 2048), (2048, 6144), (6144, 2048)]
+    cases = [(f"LM K={k} N={n}", m, k, n, pw)
+             for m in (1, 2, 15, 16, 17, 64, 256, 1024) for k, n in lm
+             for pw in ((1, 4, 8, 11, 16) if m in (2, 16, 17, 1024) else (8,))]
+    cases += [("LM head", 2, 2048, 151936, 8)]
+    cases += [(label, m, k, n, pw)
+              for label, m, k, n in [("fc0", BATCH, 2048, 256),
+                                     ("fc1", BATCH, 256, 10),
+                                     ("ragged", 7, 40, 10)]
+              for pw in (1, 4, 8, 11, 16)]
+    return cases
+
+
+def k1_wrapping_operands(m: int, k: int = 6144, n: int = 16):
+    """x = -128 (127 in every third column of row 0) against weights of
+    -2^15 (2^15 - 1 in column 1) at Pw = 16: every product is about 2^22,
+    so the int32 sum over K = 6144 wraps."""
+    x = torch.full((m, k), -128, dtype=torch.int8)
+    x[0, ::3] = 127
+    wq = torch.full((k, n), -2 ** 15, dtype=torch.int32)
+    wq[:, 1] = 2 ** 15 - 1
+    return x.cuda(), bitpack.pack_weights(wq.cuda(), 16)
+
+
 def phase_kernels(errs: dict) -> None:
-    cases = 0
-    for label, m, k, n in [("fc0", BATCH, 2048, 256), ("fc1", BATCH, 256, 10),
-                           ("ragged", 7, 40, 10)]:
-        for w_bits in (1, 8, 11, 16):
-            x, wp = operands((m, k), k, n, w_bits, seed=m + k + w_bits)
-            got = bitserial_matmul(x, wp, w_bits=w_bits)
-            torch.cuda.synchronize()
-            _hold(errs, "bitserial_matmul", got,
-                  bitserial_matmul_plain(x, wp, w_bits),
-                  f"{label} M={m} K={k} N={n} Pw={w_bits}")
-            cases += 1
-    print(f"[kernels] K1 bitserial_matmul == plain in {cases} cases "
-          f"(fc0, fc1 at M={BATCH}; ragged 7x40x10; Pw 1/8/11/16)")
+    cases = k1_cases()
+    for label, m, k, n, w_bits in cases:
+        x, wp = operands((m, k), k, n, w_bits, seed=m + k + n + w_bits)
+        got = bitserial_matmul(x, wp, w_bits=w_bits)
+        torch.cuda.synchronize()
+        _hold(errs, "bitserial_matmul", got,
+              bitserial_matmul_plain(x, wp, w_bits),
+              f"{label} M={m} K={k} N={n} Pw={w_bits} route "
+              f"{_k1_route(m, k, n, w_bits)}")
+        del x, wp, got
+    for m in (2, 1024):
+        x, wp = k1_wrapping_operands(m)
+        want = bitserial_matmul_plain(x, wp, 16)
+        exact = x.double() @ bitpack.unpack_weights(wp, 16).double()
+        check(bool((exact != want.double()).any()),
+              "the wrapping K1 operands do not wrap")
+        got = bitserial_matmul(x, wp, w_bits=16)
+        torch.cuda.synchronize()
+        _hold(errs, "bitserial_matmul", got, want, f"wrapping int32 M={m}")
+    print(f"[kernels] K1 bitserial_matmul == plain in {len(cases) + 2} cases "
+          f"(M 1/2/15/16/17/64/256/1024 at the LM's K x N, the head at M=2, "
+          f"fc0/fc1 at M={BATCH}, ragged 7x40x10; Pw 1/4/8/11/16; an int32 "
+          f"sum that wraps at M 2 and 1024)")
     cases = 0
     for label, b, h, c, n, kernel, stride in [
             ("conv1", BATCH, 32, 3, 32, 3, 1), ("conv2", BATCH, 16, 32, 64, 3, 1),
@@ -464,31 +547,38 @@ def phase_kernels(errs: dict) -> None:
           f"flushed groups at bits 2/4/8)")
 
 
+def k7_cases() -> list:
+    """(shape, dtype, causal, window) of the K7 checks: bf16 (tensor-core
+    route) and float32 (CUDA-core route) at D 32/64/128/256, S 1/63/1000/
+    4096, causal, non-causal and window 1024; and the long bf16 shapes at
+    16 heads."""
+    cases = [((1, 2, s_, d), dtype, causal, window)
+             for dtype in (torch.bfloat16, torch.float32)
+             for d in (32, 64, 128, 256) for s_ in (1, 63, 1000, 4096)
+             for causal, window in ((True, None), (False, None), (True, 1024))]
+    return cases + [((1, 16, 4096, 128), torch.bfloat16, True, None),
+                    ((1, 16, 4096, 128), torch.bfloat16, True, 1024),
+                    ((1, 16, 1000, 128), torch.bfloat16, False, None)]
+
+
 def phase_k7(errs: dict) -> None:
     """K7 within K7_TOL of its plain version in float32."""
-    cases = 0
-    for shape, dtype, causal, window in [
-            ((1, 16, 4096, 128), torch.bfloat16, True, None),
-            ((1, 16, 4096, 128), torch.bfloat16, True, 1024),
-            ((1, 16, 1000, 128), torch.bfloat16, False, None),
-            ((2, 2, 256, 64), torch.float32, True, None),
-            ((2, 2, 256, 64), torch.float32, False, None),
-            ((1, 2, 100, 256), torch.float32, True, 17)]:
-        q_, k_, v_ = qkv(shape, dtype, seed=shape[2] + (window or 0))
+    cases = k7_cases()
+    for shape, dtype, causal, window in cases:
+        q_, k_, v_ = qkv(shape, dtype, seed=shape[2] + shape[3] + (window or 0))
         got = flash_attention(q_, k_, v_, causal=causal, window=window)
         torch.cuda.synchronize()
         check(got.dtype == dtype, f"flash_attention returned {got.dtype}")
         k7_hold(errs, got, k7_plain32(q_, k_, v_, causal=causal,
                                       window=window),
                 f"{shape} {dtype} causal={causal} window={window}")
-        cases += 1
         del q_, k_, v_, got
     print(f"[kernels] K7 flash_attention within K7_TOL of the float32 plain "
           f"version (bf16: 1e-4 + 2^-7 |want|, f32: 2e-5 + 2e-5 |want|) in "
-          f"{cases} cases ([1, 16, 4096, 128] bf16 causal and window 1024, "
-          f"[1, 16, 1000, 128] bf16 non-causal, [2, 2, 256, 64] f32, "
-          f"[1, 2, 100, 256] f32 window 17); max abs err "
-          f"{errs['flash_attention']:.3g}")
+          f"{len(cases)} cases ([1, 2, S, D] bf16 and f32 at D 32/64/128/256,"
+          f" S 1/63/1000/4096, causal, non-causal, window 1024; [1, 16, 4096,"
+          f" 128] bf16 causal and window 1024, [1, 16, 1000, 128] bf16 "
+          f"non-causal); max abs err {errs['flash_attention']:.3g}")
 
 
 def edge_groups() -> torch.Tensor:
@@ -1053,7 +1143,8 @@ def phase_timing(runs: dict, errs: dict) -> dict:
                 r["library_ms"] += t["library_ms"]
     for (name, path), r in rows.items():
         print(f"[timing] path {path} {name} per request: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['ms']:.4f} ms (before: {BEFORE_MS.get((name, path), 'n/a')}"
+              f" ms), plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms'] if r['library'] else 'n/a'}, bound "
               f"{max(r['bytes_s'], r['ops_s']) * 1e3:.5f} ms")
     return rows
@@ -1085,7 +1176,8 @@ def phase_lm_timing(lm: dict, errs: dict) -> None:
                 tot[k] += times * t[k]
             tot["bound"] += times * max(t["bytes_s"], t["ops_s"]) * 1e3
         print(f"[timing] LM {label} K1 per step ({cfg.n_layers} x layer 0 + "
-              f"head): kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f}"
+              f"head): kernel {tot['ms']:.3f} ms (before: "
+              f"{BEFORE_MS['LM', label]} ms), plain {tot['plain_ms']:.3f}"
               f" ms, library {tot['library_ms']:.3f} ms, bound "
               f"{tot['bound']:.4f} ms")
 
@@ -1098,8 +1190,12 @@ def phase_attention_timing(errs: dict) -> None:
     library call."""
     for window in (None, 1024):
         args = tuple(qkv((1, 16, 4096, 128), torch.bfloat16, seed=11))
-        time_call("flash_attention", args, dict(causal=True, window=window),
-                  "long", errs, plain_iters=3)
+        t = time_call("flash_attention", args, dict(causal=True,
+                                                    window=window),
+                      "long", errs, plain_iters=3)
+        print(f"[timing] long flash_attention (1, 16, 4096, 128) window="
+              f"{window}: kernel {t['ms']:.4f} ms (before: "
+              f"{BEFORE_MS['long', window]} ms)")
         del args
     q_, k_, v_ = qkv((1, 16, 32768, 128), torch.bfloat16, seed=12)
     out = flash_attention(q_, k_, v_, causal=True)
@@ -1122,7 +1218,8 @@ def phase_attention_timing(errs: dict) -> None:
     nbytes, ops_, peak = _work("flash_attention", (q_, k_, v_),
                                dict(causal=True), out)
     print(f"[timing] long flash_attention (1, 16, 32768, 128) bf16 causal: "
-          f"kernel {t_kernel:.3f} ms, plain (chunked_attention) "
+          f"kernel {t_kernel:.3f} ms (before: {BEFORE_MS['long', 32768]} ms), "
+          f"plain (chunked_attention) "
           f"{t_plain:.3f} ms, library {t_lib:.3f} ms, bound "
           f"{max(nbytes / HBM_BYTES_PER_S, ops_ / peak) * 1e3:.4f} ms "
           f"({ops_} op); max abs err vs chunked_attention in float32 "

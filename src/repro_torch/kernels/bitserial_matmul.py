@@ -7,6 +7,12 @@ their plain PyTorch versions are the oracles
 :func:`repro_torch.kernels.ref.bitserial_matmul_ref` and
 :func:`~repro_torch.kernels.ref.bitserial_matmul_dynamic_ref`.
 
+K1 runs on the int8 tensor cores in one of two shapes, chosen here by
+:func:`_k1_route` from M: ``tile`` (128 x 128 output tiles) above
+``SKINNY_MAX_M`` rows, ``skinny`` (16 x 64 tiles, M padded to 16) at or
+below it, either one splitting K when its output tiles alone would leave
+SMs idle. Neither falls back to the other.
+
 ``bitserial_matmul.launches`` and ``bitserial_matmul_dynamic.launches``
 count each kernel's launches (the plain route on CPU tensors does not
 count).
@@ -22,6 +28,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (
     bitserial_matmul_dynamic_ref as bitserial_matmul_dynamic_plain)
 from repro_torch.kernels.ref import bitserial_matmul_ref as bitserial_matmul_plain
+
+SKINNY_MAX_M = 16    # K1 rows up to which the skinny route runs
+_SMS = 132           # streaming multiprocessors of an H100 SXM
+
+
+def _k1_route(m: int, k: int, n: int, pw: int) -> tuple[str, int]:
+    """K1's route and K split for an [M, K] x [K, N] call at Pw planes:
+    ``("skinny", s)`` for M <= SKINNY_MAX_M (16 x 64 output tiles), else
+    ``("tile", s)`` (128 x 128 by K/128, or 64 x 128 by K/64 at Pw > 8).
+    ``s`` splits the reduction tiles over blocks until about two blocks
+    per SM are in flight (or every tile has its own block), never leaving
+    a split without a tile."""
+    route = "skinny" if m <= SKINNY_MAX_M else "tile"
+    # bitserial_matmul.cu's Skinny, TileWide and Tile configurations
+    bm, bn, bk = ((16, 64, 64) if route == "skinny" else
+                  (64, 128, 64) if pw > 8 else (128, 128, 128))
+    blocks = -(-m // bm) * -(-n // bn)
+    tiles = max(1, -(-k // bk))
+    per = max(1, tiles // -(-2 * _SMS // blocks))   # tiles per split
+    return route, -(-tiles // per)
 
 
 @functools.cache
@@ -62,7 +88,7 @@ def _launch(entry: str, kernel_fn, x: torch.Tensor, w_packed: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
-    if -(-m // 64) > 65535:   # one block row per 64 rows (BM)
+    if -(-m // 64) > 65535:   # a block row per 64 rows or more
         raise ValueError(f"M={m} exceeds the kernel's grid")
     with torch.cuda.device(x.device):
         err = _launcher(entry, 3 + len(extra), 3 + len(ints))(
@@ -87,8 +113,9 @@ def bitserial_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
     _check(x, w_packed, w_bits)
     if x.device.type == "cpu":
         return bitserial_matmul_plain(x, w_packed, w_bits)
+    route, splits = _k1_route(x.shape[0], x.shape[1], w_packed.shape[2], w_bits)
     return _launch("bitserial_matmul_launch", bitserial_matmul, x, w_packed,
-                   (), (w_bits,))
+                   (), (w_bits, int(route == "skinny"), splits))
 
 
 bitserial_matmul.launches = 0

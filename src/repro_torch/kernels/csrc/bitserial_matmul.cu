@@ -10,35 +10,59 @@
 // of planes >= the N-tile's scalar-prefetched count, plane count-1
 // negated.
 //
-// What bounds it on an H100: at the paper CNN's FC shapes (M = 256,
-// K <= 2048, N <= 256) the function moves ~1.3 MB and does ~0.27 GOP, so
-// its bound is the bytes (well under a microsecond). This first kernel
-// does not reach that bound: it multiplies on the CUDA cores, not the
-// tensor cores, and the small grid (ceil(M/64) x ceil(N/32) blocks)
-// leaves most SMs idle.
+// K1 -- `tc_kernel`, on the int8 tensor cores (mma.sync.m16n8k32, s8 x s8
+// -> s32, wrapping: no .satfinite). What bounds it on an H100 depends on M:
+//   * prefill-shaped M (the LM's 1024 rows, the CNN's 256): 2 M N K
+//     operations against 1979 TOP/s int8, e.g. 1.57 ms for the 197 linears
+//     of a 2 x 512-token prefill;
+//   * decode-shaped M (<= 16): the packed weight bytes, 1.72 GB a decode
+//     step at Pw = 8, 0.52 ms at 3.35 TB/s.
+// The fold is a bit transpose. For one column and packed row-byte kb, the
+// Pw plane bytes form a Pw x 8 bit matrix; its 8x8 transpose (a byte
+// transpose of 8 columns by prmt, then three masked shift-xor rounds on 64
+// bits) gives the 8 weights of rows 8kb..8kb+7, one byte each. At Pw = 8 a
+// byte is the int8 two's-complement weight (plane 7 negated is the sign
+// bit); below 8 it is sign-extended from Pw bits. Weights land K-contiguous
+// per column in shared memory, the mma's K-major B operand. A thread's
+// fragment takes 8 consecutive bytes of A (an x row) and of B (a weight
+// column) for its two K slices: the mma sums over K in another order,
+// which exact integer sums do not see. Pw = 9..16 splits each weight into
+// lo = w & 255 (planes 0-7, unsigned: mma s8 x u8) and hi = w >> 8 (planes
+// 8..Pw-1, sign-extended), two accumulators recombined as hi * 256 + lo in
+// wrapping int32.
+// Each stage stages BK rows of x and the stage's packed plane bytes
+// (cp.async, 8 and 16 bytes at a time) in a ring, so the next stages load
+// while one is folded and multiplied. Two shapes, chosen by the wrapper
+// from M (`_k1_route`), neither falling back to the other:
+//   tile   -- 128 x 128 output tile, 8 warps of 64 x 32, BK = 128 in a
+//             ring of 2 (at Pw > 8: 64 x 128, warps of 32 x 32, BK = 64
+//             in a ring of 3); for M > 16. Larger tiles (256 x 128,
+//             128 x 256) were slower on the card, and BK = 128 beat 64.
+//   skinny -- 16 x 64 tile, 4 warps of 16 x 16, rows past M zero, BK = 64
+//             in a ring of 4; for M <= 16.
+// Either splits K over blockIdx.z when the output tiles alone would leave
+// SMs idle (e.g. the decode step's 1024-column projections); the splits
+// add their partial sums into a zeroed output with int32 atomicAdd, exact
+// in any order. Ragged M, N and K (K a multiple of 8) are zero-filled.
 //
-// Design: instead of Pw passes, each block folds the packed planes of its
-// chunk into signed weights in shared memory once (bitserial_tile.cuh),
-// so the inner loop is one int8 x int32 multiply-add per term whatever Pw
-// is, and the weights still cross device memory bit-packed (Pw/16 of the
-// 16-bit baseline: the paper's bandwidth law). K3 is the same kernel with
-// a per-column plane count: the fold reads counts[col / bn] and loads only
-// the bytes of planes below it, so a trimmed group moves count/Pw of the
-// bytes. The dynamic serving linear calls it transposed, the packed
-// operand being the runtime-packed activations (bn = the row group); the
-// static weight-group route calls it with the pack-time counts (bn = the
-// filter group). M, N and K need not divide the tile: every edge is masked
-// here, a ragged last column group included (K must be a multiple of 8,
-// the pack layout's row quantum).
+// K3 -- `dynamic_kernel`, on the CUDA cores (bitserial_tile.cuh): each
+// block folds the packed planes of its chunk into int32 weights in shared
+// memory once, one int8 x int32 multiply-add per term whatever the count;
+// the fold reads counts[col / bn] and loads only the bytes of planes below
+// it, so a trimmed group moves count/Pw of the bytes. The dynamic serving
+// linear calls it transposed, the packed operand being the runtime-packed
+// activations (bn = the row group); the static weight-group route calls it
+// with the pack-time counts (bn = the filter group). Every edge is masked,
+// a ragged last column group included.
 #include "bitserial_tile.cuh"
+#include "tensor_core.cuh"
 
 namespace bitserial {
 
-template <bool kCounts>
 __global__ void __launch_bounds__(THREADS)
-matmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
-              const int32_t* __restrict__ counts, int32_t* __restrict__ out,
-              int m, int k, int n, int pw, int bn) {
+dynamic_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
+               const int32_t* __restrict__ counts, int32_t* __restrict__ out,
+               int m, int k, int n, int pw, int bn) {
   __shared__ Tile tile;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
@@ -50,7 +74,7 @@ matmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
       if (m0 + r < m && k0 + kk < k) v = x[(size_t)(m0 + r) * k + k0 + kk];
       tile.a[r][kk] = v;
     }
-    fold_weights(tile, wp, k / 8, n, pw, k0, n0, kCounts ? counts : nullptr, bn);
+    fold_weights(tile, wp, k / 8, n, pw, k0, n0, counts, bn);
     __syncthreads();
     accumulate(tile, acc, ty, tx);
     __syncthreads();
@@ -58,23 +82,267 @@ matmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
   store(out, acc, m0, min(BM, m - m0), n0, n, ty, tx);
 }
 
-template <bool kCounts>
-int launch(const void* x, const void* wp, const void* counts, void* out, int m,
-           int k, int n, int pw, int bn, void* stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  matmul_kernel<kCounts><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+}  // namespace bitserial
+
+namespace k1 {
+
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int BK_, bool kWide_>
+struct Cfg {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, STAGES = STAGES_;
+  static constexpr int BK = BK_;                       // reduction rows per stage
+  static constexpr int KB = BK / 8;                    // packed bytes a column per stage
+  static constexpr int LDS = BK + 32;                  // bytes per staged x row and folded
+                                                       // weight column: 8-byte fragment
+                                                       // loads free of bank conflicts
+  static constexpr bool kWide = kWide_;                // Pw > 8: lo and hi slices
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int MT = BM / (16 * WM);            // m16 tiles per warp
+  static constexpr int NT = BN / (8 * WN);             // n8 tiles per warp
+  static constexpr int RAW_LD = BN + 16;               // bytes per staged (plane, kb) row
+  static constexpr int smem(int pw) {
+    return STAGES * (BM * LDS + pw * KB * RAW_LD) + (kWide ? 2 : 1) * BN * LDS;
+  }
+};
+using Tile = Cfg<128, 128, 2, 4, 2, 128, false>;
+using TileWide = Cfg<64, 128, 2, 4, 3, 64, true>;
+using Skinny = Cfg<16, 64, 1, 4, 4, 64, false>;
+using SkinnyWide = Cfg<16, 64, 1, 4, 4, 64, true>;
+
+// Bit (r, c) of x at 8r + c moves to 8c + r.
+__device__ __forceinline__ uint64_t transpose8(uint64_t x) {
+  uint64_t t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
+  x ^= t ^ (t << 7);
+  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
+  x ^= t ^ (t << 14);
+  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
+  x ^= t ^ (t << 28);
+  return x;
+}
+
+// Words a, b, c, d (rows 0-3, byte j = column j) -> o[j] (column j, byte
+// i = row i): a 4x4 byte transpose.
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
+                                           uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(a, b, 0x5140), t1 = __byte_perm(c, d, 0x5140);
+  const uint32_t t2 = __byte_perm(a, b, 0x7362), t3 = __byte_perm(c, d, 0x7362);
+  o[0] = __byte_perm(t0, t1, 0x5410);
+  o[1] = __byte_perm(t0, t1, 0x7632);
+  o[2] = __byte_perm(t2, t3, 0x5410);
+  o[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// Sign-extend each byte of x from `bits` (1..8) bits.
+__device__ __forceinline__ uint64_t sign_extend8(uint64_t x, int bits) {
+  if (bits >= 8) return x;
+  const uint64_t sign = (x >> (bits - 1)) & 0x0101010101010101ull;
+  return x | sign * static_cast<uint64_t>((0xFFu << bits) & 0xFFu);
+}
+
+// The np (<= 8) plane bytes of 8 neighbouring columns at one packed row,
+// plane i at plane0 + i * stride -> w[j]: column j's 8 rows, byte r = bit
+// r of each plane, plane i at bit i (unsigned: the caller sign-extends).
+__device__ __forceinline__ void fold8(const uint8_t* plane0, int stride, int np,
+                                      uint64_t (&w)[8]) {
+  uint32_t lo[8], hi[8];                 // plane i, columns 0-3 and 4-7
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint2 v = make_uint2(0u, 0u);
+    if (i < np) v = *reinterpret_cast<const uint2*>(plane0 + i * stride);
+    lo[i] = v.x;
+    hi[i] = v.y;
+  }
+  uint32_t c[4][4];   // c[0], c[1]: columns 0-3, planes 0-3 and 4-7; c[2], c[3]: columns 4-7
+  transpose4(lo[0], lo[1], lo[2], lo[3], c[0]);
+  transpose4(lo[4], lo[5], lo[6], lo[7], c[1]);
+  transpose4(hi[0], hi[1], hi[2], hi[3], c[2]);
+  transpose4(hi[4], hi[5], hi[6], hi[7], c[3]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    w[j] = transpose8(c[0][j] | static_cast<uint64_t>(c[1][j]) << 32);
+    w[4 + j] = transpose8(c[2][j] | static_cast<uint64_t>(c[3][j]) << 32);
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS)
+tc_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
+          int32_t* __restrict__ out, int m, int k, int n, int pw, int splits) {
+  constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, RAW_LD = C::RAW_LD;
+  constexpr int BK = C::BK, KB = C::KB, LDS = C::LDS;
+  constexpr int MT = C::MT, NT = C::NT, WIDE = C::kWide ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int raw_stage = pw * KB * RAW_LD;
+  uint8_t* a_s = smem_raw;                          // [ST][BM][LDS] x rows
+  uint8_t* raw_s = a_s + ST * BM * LDS;             // [ST][pw][KB][RAW_LD] packed bytes
+  uint8_t* b_s = raw_s + ST * raw_stage;            // [WIDE][BN][LDS] folded weights
+
+  const int k8 = k / 8, tiles = (k + BK - 1) / BK, per = (tiles + splits - 1) / splits;
+  const int kt0 = blockIdx.z * per, nk = min(tiles, kt0 + per) - kt0;
+  if (nk <= 0) return;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const bool xvec = reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  const bool wvec = n % 16 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0;
+
+  // Stage x rows [m0, m0 + BM) and the packed bytes of columns [n0, n0 +
+  // BN) for reduction tile kt into ring slot `slot`; zeros past M, K, N.
+  auto load = [&](int kt, int slot) {
+    uint8_t* a = a_s + slot * BM * LDS;
+    for (int e = threadIdx.x; e < BM * KB; e += C::THREADS) {
+      const int r = e / KB, c = 8 * (e % KB), gk = kt * BK + c;
+      const bool ok = m0 + r < m && gk < k;
+      const int8_t* src = x + (size_t)(m0 + r) * k + gk;
+      if (xvec || !ok) {
+        tc::cp_async8(a + r * LDS + c, ok ? src : x, ok ? 8 : 0);
+      } else {
+        for (int j = 0; j < 8; ++j) a[r * LDS + c + j] = static_cast<uint8_t>(src[j]);
+      }
+    }
+    uint8_t* raw = raw_s + slot * raw_stage;
+    constexpr int CH = BN / 16;                     // 16-byte chunks per packed row
+    for (int e = threadIdx.x; e < pw * KB * CH; e += C::THREADS) {
+      const int row = e / CH, c = 16 * (e % CH);    // row = plane * KB + kb
+      const int gkb = kt * KB + row % KB, gn = n0 + c;
+      uint8_t* dst = raw + row * RAW_LD + c;
+      const uint8_t* src = wp + ((size_t)(row / KB) * k8 + gkb) * n + gn;
+      const bool ok = gkb < k8 && gn < n;
+      if (wvec || !ok) {
+        tc::cp_async16(dst, ok ? src : wp, ok ? 16 : 0);
+      } else {
+        for (int j = 0; j < 16; ++j) dst[j] = gn + j < n ? src[j] : 0;
+      }
+    }
+  };
+
+  // Fold ring slot `slot` into b_s: column-major int8 weights (lo and hi
+  // slices at Pw > 8).
+  auto fold = [&](int slot) {
+    const uint8_t* raw = raw_s + slot * raw_stage;
+    for (int e = threadIdx.x; e < KB * (BN / 8); e += C::THREADS) {
+      const int kb = e % KB, cg = e / KB;
+      const uint8_t* src = raw + kb * RAW_LD + 8 * cg;
+      uint64_t w[8];
+      fold8(src, KB * RAW_LD, min(pw, 8), w);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint64_t*>(b_s + (8 * cg + j) * LDS + 8 * kb) =
+            C::kWide ? w[j] : sign_extend8(w[j], pw);
+      if constexpr (C::kWide) {
+        fold8(src + 8 * KB * RAW_LD, KB * RAW_LD, pw - 8, w);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint64_t*>(b_s + (BN + 8 * cg + j) * LDS + 8 * kb) =
+              sign_extend8(w[j], pw - 8);
+      }
+    }
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wm = warp / C::WN, wn = warp % C::WN;
+  int32_t acc[WIDE][MT][NT][4];
+#pragma unroll
+  for (int h = 0; h < WIDE; ++h)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) acc[h][i][j][0] = acc[h][i][j][1] = acc[h][i][j][2] = acc[h][i][j][3] = 0;
+
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < nk) load(kt0 + s, s);
+    tc::cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    tc::cp_async_wait<ST - 2>();
+    __syncthreads();                     // slot i landed; slot i - 1 and b_s are free
+    fold(i % ST);
+    if (i + ST - 1 < nk) load(kt0 + i + ST - 1, (i + ST - 1) % ST);
+    tc::cp_async_commit();
+    __syncthreads();                     // b_s folded
+    const uint8_t* a = a_s + (i % ST) * BM * LDS;
+#pragma unroll
+    for (int kc = 0; kc < BK / 32; ++kc) {
+      // A: rows g and g + 8, bytes 8t..8t+3 in a0/a1 and 8t+4..8t+7 in
+      // a2/a3; B: the same bytes of column g. Both put byte 8t + j at the
+      // mma's K slot 4t + j (j < 4) or 16 + 4t + j - 4.
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint8_t* row = a + (wm * MT * 16 + mt * 16 + g) * LDS + 32 * kc + 8 * t;
+        const uint2 r0 = *reinterpret_cast<const uint2*>(row);
+        const uint2 r8 = *reinterpret_cast<const uint2*>(row + 8 * LDS);
+        af[mt][0] = r0.x;
+        af[mt][1] = r8.x;
+        af[mt][2] = r0.y;
+        af[mt][3] = r8.y;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint8_t* col = b_s + (wn * NT * 8 + nt * 8 + g) * LDS + 32 * kc + 8 * t;
+        const uint2 b = *reinterpret_cast<const uint2*>(col);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (C::kWide) {
+            const uint2 bh = *reinterpret_cast<const uint2*>(col + BN * LDS);
+            tc::mma_s8u8(acc[0][mt][nt], af[mt], b.x, b.y);
+            tc::mma_s8s8(acc[WIDE - 1][mt][nt], af[mt], bh.x, bh.y);
+          } else {
+            tc::mma_s8s8(acc[0][mt][nt], af[mt], b.x, b.y);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + wm * MT * 16 + mt * 16 + g + 8 * (e >> 1);
+        const int col = n0 + wn * NT * 8 + nt * 8 + 2 * t + (e & 1);
+        if (row >= m || col >= n) continue;
+        uint32_t v = static_cast<uint32_t>(acc[0][mt][nt][e]);
+        if (C::kWide) v += static_cast<uint32_t>(acc[WIDE - 1][mt][nt][e]) << 8;
+        int32_t* o = out + (size_t)row * n + col;
+        if (splits > 1) atomicAdd(o, static_cast<int32_t>(v));
+        else *o = static_cast<int32_t>(v);
+      }
+    }
+  }
+}
+
+template <class C>
+int launch(const void* x, const void* wp, void* out, int m, int k, int n, int pw, int splits,
+           cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      tc_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem(pw));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, splits);
+  tc_kernel<C><<<grid, C::THREADS, C::smem(pw), stream>>>(
       static_cast<const int8_t*>(x), static_cast<const uint8_t*>(wp),
-      static_cast<const int32_t*>(counts), static_cast<int32_t*>(out), m, k, n,
-      pw, bn);
+      static_cast<int32_t*>(out), m, k, n, pw, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace bitserial
+}  // namespace k1
 
 // Launch on `stream`; each returns cudaGetLastError() (0 = launched).
-extern "C" int bitserial_matmul_launch(const void* x, const void* wp, void* out,
-                                       int m, int k, int n, int pw, void* stream) {
-  return bitserial::launch<false>(x, wp, nullptr, out, m, k, n, pw, 1, stream);
+// skinny: the M <= 16 shape; splits > 1 zeroes `out` first (the splits add
+// into it).
+extern "C" int bitserial_matmul_launch(const void* x, const void* wp, void* out, int m,
+                                       int k, int n, int pw, int skinny, int splits,
+                                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (splits > 1) {
+    const cudaError_t err = cudaMemsetAsync(out, 0, (size_t)m * n * sizeof(int32_t), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (skinny)
+    return pw > 8 ? k1::launch<k1::SkinnyWide>(x, wp, out, m, k, n, pw, splits, st)
+                  : k1::launch<k1::Skinny>(x, wp, out, m, k, n, pw, splits, st);
+  return pw > 8 ? k1::launch<k1::TileWide>(x, wp, out, m, k, n, pw, splits, st)
+                : k1::launch<k1::Tile>(x, wp, out, m, k, n, pw, splits, st);
 }
 
 // counts: int32 [ceil(n / bn)], each in [1, pw].
@@ -82,5 +350,9 @@ extern "C" int bitserial_matmul_dynamic_launch(const void* x, const void* wp,
                                                const void* counts, void* out,
                                                int m, int k, int n, int pw,
                                                int bn, void* stream) {
-  return bitserial::launch<true>(x, wp, counts, out, m, k, n, pw, bn, stream);
+  const dim3 grid((n + bitserial::BN - 1) / bitserial::BN, (m + bitserial::BM - 1) / bitserial::BM);
+  bitserial::dynamic_kernel<<<grid, bitserial::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<const int32_t*>(counts), static_cast<int32_t*>(out), m, k, n, pw, bn);
+  return static_cast<int>(cudaGetLastError());
 }

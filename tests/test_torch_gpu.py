@@ -1,5 +1,6 @@
 """PyTorch port on the card: kernels K1-K6 against their plain versions bit
-for bit and K7 within its tolerance; the ``cuda`` CNN session against
+for bit (K1 on both of its tensor-core routes) and K7 within its tolerance
+(on both of its routes); the ``cuda`` CNN session against
 ``torch_ref``, bit for bit, on the static, dynamic (``dynamic_a``) and
 weight-group paths, and the smoke LM's prefill and decode likewise.
 
@@ -42,8 +43,19 @@ def _operands(cuda, x_shape, k, n, w_bits, seed):
     return x.to(cuda), bitpack.pack_weights(wq, w_bits).to(cuda)
 
 
-@pytest.mark.parametrize("m,k,n", [(256, 2048, 256), (7, 40, 10)])
-@pytest.mark.parametrize("w_bits", [1, 8, 16])
+# The CNN's fc0 and a ragged shape; then K1 on both sides of its skinny/tile
+# boundary at the LM's shapes, and the LM head at decode.
+_K1_CASES = ([(m, k, n, w) for m, k, n in [(256, 2048, 256), (7, 40, 10)]
+              for w in (1, 8, 16)]
+             + [(m, k, n, w) for m in (1, 2, 15, 16, 17, 64, 256, 1024)
+                for k, n, w in [(2048, 1024, 1), (2048, 1024, 4),
+                                (2048, 1024, 8), (2048, 1024, 11),
+                                (2048, 1024, 16), (2048, 2048, 8),
+                                (2048, 6144, 8), (6144, 2048, 8)]]
+             + [(2, 2048, 151936, 8)])
+
+
+@pytest.mark.parametrize("m,k,n,w_bits", _K1_CASES)
 def test_matmul_kernel_equals_plain(cuda, m, k, n, w_bits):
     x, wp = _operands(cuda, (m, k), k, n, w_bits, m + w_bits)
     before = bitserial_matmul.launches
@@ -51,6 +63,22 @@ def test_matmul_kernel_equals_plain(cuda, m, k, n, w_bits):
     torch.cuda.synchronize()
     assert bitserial_matmul.launches == before + 1
     assert torch.equal(got, bitserial_matmul_plain(x, wp, w_bits))
+
+
+@pytest.mark.parametrize("m", [2, 1024])
+def test_matmul_kernel_wraps_like_int32(cuda, m):
+    """An operand pair whose int32 sum wraps: the kernel wraps as the
+    reference's int32 accumulator does (no saturation), split K or not."""
+    x = torch.full((m, 6144), -128, dtype=torch.int8)
+    x[0, ::3] = 127
+    wq = torch.full((6144, 16), -2 ** 15, dtype=torch.int32)
+    wq[:, 1] = 2 ** 15 - 1
+    x, wp = x.to(cuda), bitpack.pack_weights(wq, 16).to(cuda)
+    want = bitserial_matmul_plain(x, wp, 16)
+    assert (x.double() @ wq.to(cuda).double() != want.double()).any()
+    got = bitserial_matmul(x, wp, w_bits=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape,kernel,stride,rows",
@@ -181,12 +209,20 @@ def test_dynamic_quant_kernel_equals_plain(cuda, m, k, g, bits):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("shape,dtype,causal,window", [
-    ((1, 4, 1024, 128), torch.bfloat16, True, None),
-    ((1, 4, 1024, 128), torch.bfloat16, True, 100),
-    ((2, 2, 300, 64), torch.float32, False, None),
-    ((1, 2, 100, 256), torch.float32, True, 17),
-    ((1, 1, 33, 16), torch.float32, False, 5)])
+# Shapes of both routes (tensor cores for bf16, CUDA cores for f32), then
+# both across head dims, lengths and masks.
+_K7_CASES = [((1, 4, 1024, 128), torch.bfloat16, True, None),
+             ((1, 4, 1024, 128), torch.bfloat16, True, 100),
+             ((2, 2, 300, 64), torch.float32, False, None),
+             ((1, 2, 100, 256), torch.float32, True, 17),
+             ((1, 1, 33, 16), torch.float32, False, 5)] + [
+    ((1, 2, s, d), dtype, causal, window)
+    for dtype in (torch.bfloat16, torch.float32) for d in (32, 64, 128, 256)
+    for s in (1, 63, 1000, 4096)
+    for causal, window in ((True, None), (False, None), (True, 1024))]
+
+
+@pytest.mark.parametrize("shape,dtype,causal,window", _K7_CASES)
 def test_flash_attention_kernel_within_tolerance(cuda, shape, dtype, causal,
                                                  window):
     gen = torch.Generator().manual_seed(shape[2])

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``."""
+"""The PyTorch port stands alone: no module of ``src/repro_torch``, nor
+``chip_smoke.py``, ``chip_k7_faults.py`` or ``chip_kernel_times.py``,
+imports ``jax`` or the JAX package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -7,7 +8,8 @@ import pytest
 
 _ROOT = Path(__file__).resolve().parents[1]
 _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    _ROOT / "chip_smoke.py"]
+    _ROOT / "chip_smoke.py", _ROOT / "chip_k7_faults.py",
+    _ROOT / "chip_kernel_times.py"]
 
 
 def _forbidden(module: str) -> bool:
