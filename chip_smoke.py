@@ -19,7 +19,8 @@ mode="serve_packed", backend="cuda")``, batch 256, random weights):
 The LM, qwen3-1.7b at full width and depth (``repro_torch.compile(qwen3,
 uniform_policy(8, 8), mode="serve_packed")``, random weights from seed 0,
 B = 2 prompts of S = 512 tokens from seed 1, 32 greedy tokens): K1 on every
-linear, 7 per layer and the head. And the op entry points of K6 and K7,
+linear, 7 per layer and the head; a ``dynamic_a`` prefill runs K3 on every
+linear instead (transposed). And the op entry points of K6 and K7,
 ``ops.quantize_activations`` and ``ops.attention``, on the LM's own layer-0
 operands (the "ops" path).
 
@@ -28,15 +29,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. device  -- the card's name, count and nvidia-smi power limit; no CUDA
               device means exit 1.
 2. build   -- compile every kernel from ``src/repro_torch/kernels/csrc``
-              (one nvcc per source, in parallel), print ptxas usage and,
-              where the toolkit has ``cuobjdump``, the tensor-core
-              instructions (HMMA/IMMA/HGMMA/IGMMA) in each kernel's SASS.
+              (one nvcc per source, in parallel), print ptxas usage and
+              the tensor-core instructions (HMMA/IMMA/HGMMA/IGMMA) in each
+              kernel's SASS (``cuobjdump`` beside nvcc); fail where a
+              kernel of K1, K3 or K4 has no IMMA, and print each one's
+              registers, static shared memory and spills.
 3. kernels -- K1-K6 against their plain versions on the card, exact
               (``torch.equal``), at the paths' shapes and at ragged, banded,
               strided and K-padded shapes; K1 on both sides of its skinny/
               tile boundary (M 1-1024) at the LM's shapes, Pw 1-16, and on
               an int32 sum that wraps; K3-K5 with random plane counts
-              (forced truncation) and full counts; K6 with zero, 2e-38 and
+              (forced truncation), full counts and all-1 counts; K3 on both
+              routes at bn 12/16/256 and Pw 8/11/16, and on K1's wrapping
+              sum; K4 at conv1-3 (B 256 and 2), ragged N, w_group 16/12,
+              stride 2, k 1/5 and a chunked K of 4608; K6 with zero, 2e-38 and
               subnormal groups. K7 within K7_TOL of its plain version taken
               in float32 from the same inputs (bf16: one bf16 ulp, 2^-7 of
               the value, plus 1e-4; f32: 2e-5, the JAX tests' own), bf16
@@ -56,28 +62,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               before (K1 197 times per prefill and per decode step, nothing
               else); prefill and every decode step's logits equal a
               ``torch_ref`` session's bit for bit, and the tokens too;
-              ``dynamic_a`` prefill (K3) equals the static one; prefill ms,
-              decode ms/token (a loop of its own after the checks),
+              ``dynamic_a`` prefill (K3) equals the static one, and its
+              median wall time; prefill ms, decode ms/token (a loop of
+              its own after the checks),
               tokens/s and peak memory. Then the ops path on layer 0's
               operands as one ``prefill`` hands them on: K6 on the FFN's
               inputs equals its plain version, K7 on the head-repeated
               q/k/v is within K7_TOL of the port's ``chunked_attention`` in
               float32.
-5. timing  -- each kernel at the operands its path gave it (CUDA events),
-              beside its plain version, one PyTorch library call
+5. timing  -- each kernel at the operands its path gave it (CUDA events,
+              launched from Python and, for the device's time alone,
+              replayed from a CUDA graph), beside its plain version, one
+              PyTorch library call
               computing the same function, and its bound: the larger of
               bytes / 3.35 TB/s and operations over the H100 SXM peak of
               their type (int8 1979 TOP/s, bf16 989 TFLOP/s, f32 67
               TFLOP/s). K1 at the LM's shapes (layer 0 and the head, in
-              prefill and decode). K7 also at [1, 16, 4096, 128] (causal,
-              windowed) and [1, 16, 32768, 128] causal, the last held
-              against the port's ``chunked_attention`` in float32. Each
-              line also names the kernel's time before the tensor-core
-              redesign of K1 and K7 (BEFORE_MS).
-6. profile -- per CNN path and for the LM's prefill and decode step: the
-              PyTorch operators one request dispatches on the host, device
-              time by kernel (torch.profiler), and the device's idle share
-              of the unprofiled median request time.
+              prefill and decode), K3 at the ``dynamic_a`` prefill's. K7
+              also at [1, 16, 4096, 128] (causal, windowed) and [1, 16,
+              32768, 128] causal, the last held against the port's
+              ``chunked_attention`` in float32. Each line also names the
+              kernel's time in the parent (BEFORE_MS).
+6. profile -- per CNN path and for the LM's prefill, decode step and
+              ``dynamic_a`` prefill: the PyTorch operators one request
+              dispatches on the host, device time by kernel
+              (torch.profiler), and the device's idle share of the
+              unprofiled median request time.
 
 The second-to-last line is one JSON object ``{"kernels": [...]}`` with per
 -request totals (ms per request of its path: a classify of BATCH images,
@@ -111,7 +121,7 @@ from repro_torch.kernels.bitserial_conv import (  # noqa: E402
     bitserial_conv, bitserial_conv_dynamic, bitserial_conv_dynamic_plain,
     bitserial_conv_plain, bitserial_conv_wgroup, bitserial_conv_wgroup_plain)
 from repro_torch.kernels.bitserial_matmul import (  # noqa: E402
-    _k1_route, bitserial_matmul, bitserial_matmul_dynamic,
+    _route, bitserial_matmul, bitserial_matmul_dynamic,
     bitserial_matmul_dynamic_plain, bitserial_matmul_plain)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.dynamic_quant import (  # noqa: E402
@@ -141,19 +151,21 @@ K7_TOL = {torch.bfloat16: (1e-4, 2 ** -7), torch.float32: (2e-5, 2e-5)}
 # The JAX tests' bf16 tolerance (atol = rtol), for the library yardstick:
 # scaled_dot_product_attention rounds its bf16 probabilities.
 SDPA_TOL = 0.05
-# Each kernel's time before K1 and K7 moved to the tensor cores (K1 and K7
-# then multiplied on the CUDA cores), on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md's table), printed beside this run's.
+# Each kernel's time before K3 and K4 moved to the tensor cores, on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's table), printed beside this
+# run's. K3 at the LM's dynamic_a prefill had no time then: PERF.md gives
+# it from chip_kernel_times.py.
 BEFORE_MS = {
-    ("bitserial_matmul", "static"): 0.1718, ("bitserial_matmul", "W"): 0.0309,
-    ("bitserial_conv", "static"): 0.4572,
-    ("bitserial_matmul_dynamic", "D"): 0.1665,
-    ("bitserial_matmul_dynamic", "W"): 0.1454,
-    ("bitserial_conv_wgroup", "W"): 0.5171,
-    ("bitserial_conv_dynamic", "D"): 0.4899,
-    ("dynamic_quant", "ops"): 0.0625, ("flash_attention", "ops"): 0.2513,
-    ("LM", "prefill"): 207.169, ("LM", "decode"): 36.178,
-    ("long", None): 5.5677, ("long", 1024): 2.3376, ("long", 32768): 304.481,
+    ("bitserial_matmul", "static"): 0.0609, ("bitserial_matmul", "W"): 0.0293,
+    ("bitserial_conv", "static"): 0.4605,
+    ("bitserial_matmul_dynamic", "D"): 0.1683,
+    ("bitserial_matmul_dynamic", "W"): 0.1468,
+    ("bitserial_conv_wgroup", "W"): 0.5210,
+    ("bitserial_conv_dynamic", "D"): 0.4933,
+    ("dynamic_quant", "ops"): 0.0508, ("flash_attention", "ops"): 0.0374,
+    ("LM", "prefill"): 18.064, ("LM", "decode"): 6.693,
+    ("LM", "dynamic_a prefill"): "not measured",
+    ("long", None): 0.4112, ("long", 1024): 0.2180, ("long", 32768): 15.846,
 }
 
 # Each kernel's wrapper, plain version and the path whose run its JSON
@@ -207,6 +219,32 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50, replays: int = 3) -> float:
+    """Mean device time of ``fn`` per call without the host's launch cost:
+    ``iters`` calls captured in one CUDA graph, replayed ``replays`` times
+    between CUDA events (chip_kernel_times.graph_ms)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def max_err(a, b):
@@ -263,11 +301,13 @@ def operands(x_shape, k: int, n: int, w_bits: int, seed: int,
 
 
 def count_cases(shape, bits: int, seed: int):
-    """Random plane counts in [1, bits] (forced truncation) and full ones."""
+    """Random plane counts in [1, bits] (forced truncation), full ones and
+    all 1 (the sign plane alone)."""
     g = torch.Generator().manual_seed(seed)
     return [torch.randint(1, bits + 1, shape, generator=g,
                           dtype=torch.int32).cuda(),
-            torch.full(shape, bits, dtype=torch.int32, device="cuda")]
+            torch.full(shape, bits, dtype=torch.int32, device="cuda"),
+            torch.ones(shape, dtype=torch.int32, device="cuda")]
 
 
 def reset_launches() -> None:
@@ -315,6 +355,14 @@ def phase_device() -> tuple[str, int]:
     return name, count
 
 
+# Kernels that must run on the tensor cores: (library, name fragment of
+# the kernel's mangled symbol) -> the kernel (K3 in every configuration of
+# mm::k3_kernel, K4 in both of tcconv::conv_tc_kernel).
+TENSOR_CORE_KERNELS = {("bitserial_matmul", "k1_kernel"): "K1",
+                       ("bitserial_matmul", "k3_kernel"): "K3",
+                       ("bitserial_conv", "conv_tc_kernel"): "K4"}
+
+
 def phase_build() -> None:
     nvcc = _build.nvcc_path()
     version = subprocess.run([nvcc, "--version"], capture_output=True,
@@ -327,13 +375,48 @@ def phase_build() -> None:
         for line in _build.ptxas_report(name).splitlines():
             print(f"[build] {name}: {line.strip()}")
     cuobjdump = Path(nvcc).with_name("cuobjdump")
-    if not cuobjdump.is_file():
-        print("[build] SASS: no cuobjdump beside nvcc: not shown")
-        return
-    for name in _build.SOURCES:
-        for kernel, found in sass_tensor_ops(cuobjdump, name).items():
+    check(cuobjdump.is_file(), "no cuobjdump beside nvcc: the SASS of the "
+          "tensor-core kernels cannot be checked")
+    sass = {name: sass_tensor_ops(cuobjdump, name) for name in _build.SOURCES}
+    for name, kernels in sass.items():
+        for kernel, found in kernels.items():
             print(f"[build] {name} SASS {kernel}: "
                   f"{found or 'no tensor-core instruction'}")
+    for (lib, frag), label in TENSOR_CORE_KERNELS.items():
+        usage = ptxas_usage(lib)
+        found = {k: v for k, v in sass[lib].items() if frag in k}
+        check(bool(found), f"{label}: no {frag} in {lib}'s SASS")
+        for kernel, ops_ in found.items():
+            check(ops_.get("IMMA", 0) > 0, f"{label} {kernel}: no IMMA in its "
+                  f"SASS ({ops_})")
+            print(f"[build] {label} {kernel}: {ops_['IMMA']} IMMA; ptxas: "
+                  f"{usage.get(kernel, 'no ptxas line')}")
+
+
+def ptxas_usage(name: str) -> dict:
+    """Kernel -> "R registers, S bytes static shared memory, spill
+    stores/loads" from the library's ``-Xptxas -v`` report (the dynamic
+    shared memory is set at launch)."""
+    usage, kernel = {}, None
+    for line in _build.ptxas_report(name).splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+            usage[kernel] = {}
+        elif kernel and "spill stores" in line:
+            parts = [p.strip().split(" ")[0] for p in line.split(",")]
+            usage[kernel]["spills"] = (f"{parts[1]}/{parts[2]} bytes spill "
+                                       f"stores/loads")
+        elif kernel and "Used" in line and "registers" in line:
+            words = line.split()
+            usage[kernel]["registers"] = int(
+                words[words.index("registers,") - 1])
+            smem = [words[i - 2] for i, w in enumerate(words)
+                    if w.startswith("smem")]
+            usage[kernel]["smem"] = int(smem[0]) if smem else 0
+    return {k: (f"{u.get('registers')} registers, {u.get('smem', 0)} bytes "
+                f"static shared memory, "
+                f"{u.get('spills', 'spills not reported')}")
+            for k, u in usage.items()}
 
 
 def sass_tensor_ops(cuobjdump: Path, name: str) -> dict:
@@ -395,7 +478,7 @@ def phase_kernels(errs: dict) -> None:
         _hold(errs, "bitserial_matmul", got,
               bitserial_matmul_plain(x, wp, w_bits),
               f"{label} M={m} K={k} N={n} Pw={w_bits} route "
-              f"{_k1_route(m, k, n, w_bits)}")
+              f"{_route(m, k, n, w_bits)}")
         del x, wp, got
     for m in (2, 1024):
         x, wp = k1_wrapping_operands(m)
@@ -434,14 +517,18 @@ def phase_kernels(errs: dict) -> None:
           f"one band and 3-row bands)")
 
     # K3: path D's transposed FCs (weights [N_out, K8] x activations packed
-    # at Pa = 8, one row group of 256), fc0 as path W calls it (bn 16),
-    # and a ragged last group.
+    # at Pa = 8, one row group of 256), fc0 as path W calls it (bn 16), a
+    # ragged last group; then both routes (M 10 and 1024) at bn 12 (not a
+    # multiple of 8), 16 and 256, Pw 8/11/16, with every count 1, every
+    # count Pw and random counts; and K1's wrapping operands at full counts.
     cases = 0
     for label, m, k, n, bits_list, bn in [
             ("D fc0", 256, 2048, BATCH, (8,), 256),
             ("D fc1", 10, 256, BATCH, (8,), 256),
             ("W fc0", BATCH, 2048, 256, (8, 11, 16), 16),
-            ("ragged", 7, 40, 40, (8, 11, 16), 16)]:
+            ("ragged", 7, 40, 40, (8, 11, 16), 16)] + [
+            (f"bn {bn}", m, 2040, 520, (8, 11, 16), bn)
+            for m in (10, 1024) for bn in (12, 16, 256)]:
         for bits in bits_list:
             x, wp = operands((m, k), k, n, bits, seed=m + k + bits + bn)
             for counts in count_cases((-(-n // bn),), bits, seed=n + bits):
@@ -450,35 +537,63 @@ def phase_kernels(errs: dict) -> None:
                 torch.cuda.synchronize()
                 _hold(errs, "bitserial_matmul_dynamic", got,
                       bitserial_matmul_dynamic_plain(x, wp, counts, bits, bn),
-                      f"{label} M={m} K={k} N={n} P={bits} bn={bn}")
+                      f"{label} M={m} K={k} N={n} P={bits} bn={bn} counts "
+                      f"{counts.tolist()[:8]} route {_route(m, k, n, bits)}")
                 cases += 1
+    for m in (2, 1024):
+        x, wp = k1_wrapping_operands(m)
+        full = torch.full((1,), 16, dtype=torch.int32, device="cuda")
+        got = bitserial_matmul_dynamic(x, wp, full, w_bits=16, bn=16)
+        torch.cuda.synchronize()
+        _hold(errs, "bitserial_matmul_dynamic", got,
+              bitserial_matmul_plain(x, wp, 16), f"wrapping int32 M={m}")
+        cases += 1
     print(f"[kernels] K3 bitserial_matmul_dynamic == plain in {cases} cases "
-          f"(path D fc0/fc1 transposed at bn 256; fc0 at bn 16, Pw "
-          f"8/11/16; ragged N=40 at bn 16; random and full counts)")
+          f"(path D fc0/fc1 transposed at bn 256; fc0 at bn 16, Pw 8/11/16; "
+          f"ragged N=40 at bn 16; M 10 and 1024 x K 2040 x N 520 at bn "
+          f"12/16/256, Pw 8/11/16; random, full and all-1 counts; K1's "
+          f"wrapping int32 sum at full counts, M 2 and 1024)")
 
-    # K4: conv1-3 at B = 256 and a ragged last filter group (N = 40).
+    # K4: conv1-3 at B = 256 and 2, a ragged last filter group (N = 40;
+    # N = 10, rows of int32 not a multiple of 16 bytes), stride 2, k 1 and
+    # 5, and C = 512 (K = 4608: the chunked reduction);
+    # w_group 16 and 12, Pw 8/11/16, random, full and all-1 counts, one band
+    # and 3-row bands.
     cases = 0
-    for label, b, h, c, n in [("conv1", BATCH, 32, 3, 32),
-                              ("conv2", BATCH, 16, 32, 64),
-                              ("conv3", BATCH, 8, 64, 128),
-                              ("N=40", 8, 9, 5, 40)]:
+    for label, b, h, c, n, kernel, stride in [
+            ("conv1", BATCH, 32, 3, 32, 3, 1),
+            ("conv2", BATCH, 16, 32, 64, 3, 1),
+            ("conv3", BATCH, 8, 64, 128, 3, 1), ("conv1", 2, 32, 3, 32, 3, 1),
+            ("conv2", 2, 16, 32, 64, 3, 1), ("conv3", 2, 8, 64, 128, 3, 1),
+            ("N=40", 8, 9, 5, 40, 3, 1), ("N=10", 8, 9, 5, 10, 3, 1),
+            ("k3s2", 8, 9, 5, 40, 3, 2),
+            ("k5s2", 8, 9, 5, 40, 5, 2), ("k1", 8, 9, 8, 16, 1, 1),
+            ("C=512", 2, 6, 512, 40, 3, 1)]:
         for w_bits in (8, 11, 16):
-            x, wp = operands((b, h, h, c), 9 * c, n, w_bits,
+            x, wp = operands((b, h, h, c), kernel * kernel * c, n, w_bits,
                              seed=b + h + c + w_bits)
-            for counts in count_cases((-(-n // 16),), w_bits, seed=n + w_bits):
-                want = bitserial_conv_wgroup_plain(
-                    x, wp, counts, kernel=3, stride=1, w_bits=w_bits)
-                for rows in (None, 3):
-                    got = bitserial_conv_wgroup(x, wp, counts, kernel=3,
-                                                stride=1, w_bits=w_bits,
-                                                rows_per_band=rows)
-                    torch.cuda.synchronize()
-                    _hold(errs, "bitserial_conv_wgroup", got, want,
-                          f"{label} {tuple(x.shape)} Pw={w_bits} rows={rows}")
-                    cases += 1
+            for w_group in (16, 12):
+                for counts in count_cases((-(-n // w_group),), w_bits,
+                                          seed=n + w_bits + w_group):
+                    want = bitserial_conv_wgroup_plain(
+                        x, wp, counts, kernel=kernel, stride=stride,
+                        w_bits=w_bits, w_group=w_group)
+                    for rows in (None, 3):
+                        got = bitserial_conv_wgroup(
+                            x, wp, counts, kernel=kernel, stride=stride,
+                            w_bits=w_bits, w_group=w_group,
+                            rows_per_band=rows)
+                        torch.cuda.synchronize()
+                        _hold(errs, "bitserial_conv_wgroup", got, want,
+                              f"{label} {tuple(x.shape)} k={kernel} "
+                              f"s={stride} N={n} Pw={w_bits} w_group="
+                              f"{w_group} rows={rows} counts "
+                              f"{counts.tolist()[:8]}")
+                        cases += 1
     print(f"[kernels] K4 bitserial_conv_wgroup == plain in {cases} cases "
-          f"(conv1-3 at B={BATCH}, N=40 ragged; Pw 8/11/16; random and full "
-          f"counts; one band and 3-row bands)")
+          f"(conv1-3 at B={BATCH} and 2, N=40 and 10 ragged, stride 2, k "
+          f"1/5, C=512 chunked; w_group 16/12; Pw 8/11/16; random, full and "
+          f"all-1 counts; one band and 3-row bands)")
 
     # K5: conv1-3 at B = 256 (groups of 256, 256, 64 windows), k 1 and 5,
     # stride 2, C = 3 (K8 pads 27 to 32).
@@ -516,8 +631,8 @@ def phase_kernels(errs: dict) -> None:
                 cases += 1
     print(f"[kernels] K5 bitserial_conv_dynamic == plain (and its band-local "
           f"oracle) in {cases} cases (conv1-3 at B={BATCH}, groups "
-          f"256/256/64; k 1/5, stride 2, C=3 K-padding; random and full "
-          f"counts; one band and 3-row bands)")
+          f"256/256/64; k 1/5, stride 2, C=3 K-padding; random, full and "
+          f"all-1 counts; one band and 3-row bands)")
 
     # K6: qwen3's hidden and FFN widths at 1024 rows, the CNN's fc0 input,
     # a ragged M, bits 4 and 8; rows scaled over six decades so the
@@ -927,16 +1042,27 @@ def phase_lm(errs: dict) -> dict:
           f"window less the median prefill: "
           f"{(gen_s - prefill_med) * 1e3 / (LM_GEN - 1):.3f} ms/step")
 
-    # dynamic_a prefill == static, through K3.
+    # dynamic_a prefill == static, through K3; then its wall time.
     reset_launches()
     ydyn, _ = dyn.prefill(tokens, dyn.init_cache(LM_BATCH, max_seq))
     torch.cuda.synchronize()
     lm_step_launches("dynamic_a prefill", read_launches(),
                      {"bitserial_matmul_dynamic": n_lin})
     check(torch.equal(ydyn, y), "LM dynamic_a prefill differs from static")
+    dyn_s = []
+    for _ in range(3):
+        cache = dyn.init_cache(LM_BATCH, max_seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dyn.prefill(tokens, cache)
+        torch.cuda.synchronize()
+        dyn_s.append(time.perf_counter() - t0)
+    dyn_med = sorted(dyn_s)[len(dyn_s) // 2]
     print(f"[lm] dynamic_a prefill == static prefill bit for bit (K3 "
-          f"launched {n_lin} times)")
-    del dyn, ref, sessions["torch_ref"], caches
+          f"launched {n_lin} times); dynamic_a prefill {LM_BATCH} x "
+          f"{LM_PROMPT}: median {dyn_med * 1e3:.3f} ms of {len(dyn_s)} (host "
+          f"clock to synchronize)")
+    del ref, sessions["torch_ref"], caches, cache
 
     # The ops path on layer 0's operands, counts reset just before.
     o = lm_layer0_operands(sess, tokens)
@@ -962,9 +1088,10 @@ def phase_lm(errs: dict) -> dict:
           f"head-repeated q/k/v {tuple(o['q'].shape)} within K7_TOL of "
           f"chunked_attention in float32; launches "
           f"{ {k: v for k, v in ops_launches.items() if v} }")
-    return dict(sess=sess, tokens=tokens, prefill_s=prefill_med,
-                decode_s=decode_med, operands=o, gen_launches=launches,
-                ops_launches=ops_launches, n_lin=n_lin, max_seq=max_seq)
+    return dict(sess=sess, dyn=dyn, tokens=tokens, prefill_s=prefill_med,
+                dyn_prefill_s=dyn_med, decode_s=decode_med, operands=o,
+                gen_launches=launches, ops_launches=ops_launches, n_lin=n_lin,
+                max_seq=max_seq)
 
 
 def _packed_bytes(wp: torch.Tensor, counts, bn: int) -> int:
@@ -1108,17 +1235,21 @@ def time_call(name: str, args: tuple, kw: dict, label: str, errs: dict,
     nbytes, ops_, peak = _work(name, args, kw, out)
     lib = _library(name, args, kw, out)
     t_kernel, t_plain = cuda_ms(kernel), cuda_ms(plain, iters=plain_iters)
+    out_bytes = sum(t.numel() * t.element_size()
+                    for t in (out if isinstance(out, tuple) else (out,)))
+    t_graph = graph_ms(kernel, iters=max(2, min(50, 2 ** 30 // out_bytes)))
     t_lib = cuda_ms(lib) if lib is not None else None
     bound = max(nbytes / HBM_BYTES_PER_S, ops_ / peak) * 1e3
     shapes = " ".join(f"{tuple(a.shape)}" for a in args)
     opts = " ".join(f"{k}={v}" for k, v in kw.items())
     print(f"[timing] {label} {name} {shapes} {opts}: kernel {t_kernel:.4f} "
-          f"ms, plain {t_plain:.4f} ms, library "
-          f"{'n/a' if t_lib is None else f'{t_lib:.4f} ms'}, bound "
+          f"ms (graph-replayed {t_graph:.4f} ms), plain {t_plain:.4f} ms, "
+          f"library {'n/a' if t_lib is None else f'{t_lib:.4f} ms'}, bound "
           f"{bound:.5f} ms ({nbytes} B, {ops_} op, "
           f"{'bytes' if nbytes / HBM_BYTES_PER_S >= ops_ / peak else 'operations'})")
-    return dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
-                bytes_s=nbytes / HBM_BYTES_PER_S, ops_s=ops_ / peak)
+    return dict(ms=t_kernel, graph_ms=t_graph, plain_ms=t_plain,
+                library_ms=t_lib, bytes_s=nbytes / HBM_BYTES_PER_S,
+                ops_s=ops_ / peak)
 
 
 def phase_timing(runs: dict, errs: dict) -> dict:
@@ -1133,9 +1264,9 @@ def phase_timing(runs: dict, errs: dict) -> dict:
         for i, (name, args, kw) in enumerate(calls):
             t = time_call(name, args, kw, f"path {path} call {i}", errs)
             r = rows.setdefault((name, path), dict(
-                ms=0.0, plain_ms=0.0, bytes_s=0.0, ops_s=0.0,
+                ms=0.0, graph_ms=0.0, plain_ms=0.0, bytes_s=0.0, ops_s=0.0,
                 library_ms=0.0, library=True))
-            for key in ("ms", "plain_ms", "bytes_s", "ops_s"):
+            for key in ("ms", "graph_ms", "plain_ms", "bytes_s", "ops_s"):
                 r[key] += t[key]
             if t["library_ms"] is None:
                 r["library"] = False
@@ -1144,7 +1275,8 @@ def phase_timing(runs: dict, errs: dict) -> dict:
     for (name, path), r in rows.items():
         print(f"[timing] path {path} {name} per request: kernel "
               f"{r['ms']:.4f} ms (before: {BEFORE_MS.get((name, path), 'n/a')}"
-              f" ms), plain {r['plain_ms']:.4f} ms, library "
+              f" ms; graph-replayed {r['graph_ms']:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, library "
               f"{r['library_ms'] if r['library'] else 'n/a'}, bound "
               f"{max(r['bytes_s'], r['ops_s']) * 1e3:.5f} ms")
     return rows
@@ -1152,34 +1284,44 @@ def phase_timing(runs: dict, errs: dict) -> dict:
 
 def phase_lm_timing(lm: dict, errs: dict) -> None:
     """K1 at the LM's shapes: layer 0's seven linears and the head, in a
-    prefill and a decode step; per step the layer sum times the layer
-    count plus the head (K1's time does not depend on the weights'
-    values)."""
-    sess, tokens = lm["sess"], lm["tokens"]
+    prefill and a decode step; and K3 at the ``dynamic_a`` prefill's
+    (each linear transposed, the weights [N_out, K] against the
+    activations packed at Pa = 8). Per step the layer sum times the layer
+    count plus the head (the kernels' time does not depend on the
+    weights' values)."""
+    sess, dyn, tokens = lm["sess"], lm["dyn"], lm["tokens"]
     cfg = sess.cfg
     cache = sess.init_cache(LM_BATCH, lm["max_seq"])
     with recorded_calls() as pre:
         _, cache = sess.prefill(tokens, cache)
     with recorded_calls() as dec:
         sess.decode(tokens[:, -1], LM_PROMPT, cache)
+    with recorded_calls() as dyn_pre:
+        dyn.prefill(tokens, dyn.init_cache(LM_BATCH, lm["max_seq"]))
     torch.cuda.synchronize()
-    for label, calls in (("prefill", pre), ("decode", dec)):
+    for label, calls, kname, before in (
+            ("prefill", pre, "K1", BEFORE_MS["LM", "prefill"]),
+            ("decode", dec, "K1", BEFORE_MS["LM", "decode"]),
+            ("dynamic_a prefill", dyn_pre, "K3",
+             BEFORE_MS["LM", "dynamic_a prefill"])):
         check(len(calls) == lm["n_lin"], f"LM {label} recorded {len(calls)} "
               f"kernel calls")
-        tot = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound")}
+        tot = {k: 0.0 for k in ("ms", "graph_ms", "plain_ms", "library_ms",
+                                "bound")}
         for j, (name, args, kw) in enumerate(calls[:7] + calls[-1:]):
             t = time_call(name, args, kw, f"LM {label} "
                           f"{'head' if j == 7 else f'layer 0 linear {j}'}",
                           errs, plain_iters=3)
             times = cfg.n_layers if j < 7 else 1
-            for k in ("ms", "plain_ms", "library_ms"):
+            for k in ("ms", "graph_ms", "plain_ms", "library_ms"):
                 tot[k] += times * t[k]
             tot["bound"] += times * max(t["bytes_s"], t["ops_s"]) * 1e3
-        print(f"[timing] LM {label} K1 per step ({cfg.n_layers} x layer 0 + "
-              f"head): kernel {tot['ms']:.3f} ms (before: "
-              f"{BEFORE_MS['LM', label]} ms), plain {tot['plain_ms']:.3f}"
-              f" ms, library {tot['library_ms']:.3f} ms, bound "
-              f"{tot['bound']:.4f} ms")
+        print(f"[timing] LM {label} {kname} per step ({cfg.n_layers} x layer 0 "
+              f"+ head): kernel {tot['ms']:.3f} ms (before: {before} ms; "
+              f"graph-replayed {tot['graph_ms']:.3f} ms), "
+              f"plain {tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f}"
+              f" ms, bound {tot['bound']:.4f} ms")
+        del calls[:]
 
 
 def phase_attention_timing(errs: dict) -> None:
@@ -1304,6 +1446,11 @@ def main() -> None:
     phase_profile("LM decode", lambda: sess.decode(tokens[:, -1], LM_PROMPT,
                                                    cache),
                   lm["decode_s"], lm["n_lin"], requests=4)
+    dyn = lm["dyn"]
+    dyn_cache = dyn.init_cache(LM_BATCH, lm["max_seq"])
+    phase_profile("LM dynamic_a prefill",
+                  lambda: dyn.prefill(tokens, dyn_cache),
+                  lm["dyn_prefill_s"], lm["n_lin"], requests=2)
     kernels = []
     for kname, spec in KERNELS.items():
         path = spec["path"]
@@ -1316,6 +1463,7 @@ def main() -> None:
             "launches_by_path": {p: n[kname] for p, n in launches.items()
                                  if n[kname]},
             "max_abs_err": errs[kname], "ms": r["ms"],
+            "graph_ms": r["graph_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": max(r["bytes_s"], r["ops_s"]) * 1e3,
             "bound_by": "bytes" if by_bytes else "operations",

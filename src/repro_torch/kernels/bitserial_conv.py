@@ -3,19 +3,24 @@
 Ports of ``repro/kernels/bitserial_conv.py``: ``bitserial_conv`` (K2,
 packed weight planes), ``bitserial_conv_wgroup`` (K4, a weight plane count
 per filter group) and ``bitserial_conv_dynamic`` (K5, dense int8 weights
-and an activation plane count per window group). The three kernels are
-one template in ``csrc/bitserial_conv.cu``; their plain PyTorch versions
-are the oracles :func:`repro_torch.kernels.ref.bitserial_conv_ref`,
+and an activation plane count per window group). The kernels are in
+``csrc/bitserial_conv.cu``: K4 on the int8 tensor cores
+(``tcconv::conv_tc_kernel``), K2 and K5 on the CUDA cores (one template).
+Their plain PyTorch versions are the oracles
+:func:`repro_torch.kernels.ref.bitserial_conv_ref`,
 :func:`~repro_torch.kernels.ref.bitserial_conv_wgroup_ref` and
 :func:`~repro_torch.kernels.ref.conv_dynamic_dense_ref`.
 
 Each block stages one band of input rows (the halo included) in shared
 memory and gathers its patches from there, so no patch tensor reaches
-device memory. :func:`conv_smem_bytes` is the block's shared-memory
-footprint, the counterpart of the TPU kernel's ``conv_vmem_bytes``; the
-plan sizes ``rows_per_band`` so that it fits :data:`SMEM_BUDGET`. K5 bands
-the same way (the reference's K5 aligns its bands to the window groups;
-here each pixel looks its group up, so any band is exact).
+device memory. :func:`conv_smem_bytes` is the largest shared-memory
+footprint of a block of any of the three at a band size, the counterpart
+of the TPU kernel's ``conv_vmem_bytes``; the plan sizes ``rows_per_band``
+so that it fits :data:`SMEM_BUDGET`. K4 then takes as much of the
+reduction per chunk as the rest of the budget holds
+(:func:`conv_tc_chunk`). K5 bands the same way (the reference's K5 aligns
+its bands to the window groups; here each pixel looks its group up, so
+any band is exact).
 
 ``bitserial_conv.launches``, ``bitserial_conv_wgroup.launches`` and
 ``bitserial_conv_dynamic.launches`` count each kernel's launches (the
@@ -38,10 +43,15 @@ from repro_torch.kernels.ref import (
 # Shared memory one H100 thread block can use (bytes, static + dynamic).
 SMEM_BUDGET = 232_448
 
-# The kernels' static shared memory, K5's (the largest): the int8 [64][36]
-# activation tile, the int32 [32][32] weight tile, the 64 + 32 int offsets
-# and K5's 64 window counts (csrc/bitserial_tile.cuh, csrc/bitserial_conv.cu).
+# The CUDA-core kernels' static shared memory, K5's (the larger): the int8
+# [64][36] activation tile, the int32 [32][32] weight tile, the 64 + 32 int
+# offsets and K5's 64 window counts (csrc/bitserial_tile.cuh,
+# csrc/bitserial_conv.cu).
 _STATIC_SMEM = 64 * 36 + 32 * 32 * 4 + (64 + 32 + 64) * 4
+# K4's tile (csrc/bitserial_conv.cu, tcconv): BM pixels x BN filters, an
+# output row staged in OUT_LD bytes.
+TC_BM, TC_BN = 64, 64
+_TC_OUT_LD = 4 * TC_BN + 32
 
 
 def band_geometry(ho: int, wo: int, rows_per_band: int | None, kernel: int,
@@ -54,15 +64,70 @@ def band_geometry(ho: int, wo: int, rows_per_band: int | None, kernel: int,
     return rpb, -(-ho // rpb), (rpb - 1) * stride + kernel
 
 
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def conv_tc_layout(w: int, c: int, *, kernel: int, stride: int, rpb: int,
+                   kc: int, wide: bool) -> dict:
+    """K4's shared-memory layout (``tcconv::Layout`` in the kernel): the
+    band's row stride and the left pad that puts each row's W*C interior
+    bytes on a 16-byte boundary; ``vec``, the bytes a patch run is copied
+    in (the largest of 16, 8, 4, 2, 1 dividing C); ``lds``, the byte stride
+    of a gathered patch and a folded filter (kc plus 0 or 32, so that it is
+    32 or 96 mod 128); and ``bytes``, the block's total."""
+    pad = kernel // 2
+    lpad = (16 - pad * c % 16) % 16
+    row_ld = _round16(lpad + (w + 2 * pad) * c)
+    band_rows = (rpb - 1) * stride + kernel
+    vec = next(v for v in (16, 8, 4, 2, 1) if c % v == 0)
+    lds = kc + (32 if kc // 32 % 2 == 0 else 0)
+    nbytes = (_round16(band_rows * row_ld) + (2 if wide else 1) * TC_BN * lds
+              + _round16(TC_BM * max(lds, _TC_OUT_LD))
+              + _round16(4 * (kc // vec)) + _round16(4 * (TC_BN + 1))
+              + 4 * TC_BM)
+    return dict(pad=pad, lpad=lpad, row_ld=row_ld, band_rows=band_rows,
+                vec=vec, lds=lds, bytes=nbytes)
+
+
+def conv_tc_chunk(h: int, w: int, c: int, *, kernel: int, stride: int,
+                  rpb: int, wide: bool) -> int:
+    """K4's reduction rows per chunk: the whole K8 rounded up to 32 where
+    the block's shared memory allows it (the folded weights are then made
+    once per block), else the fewest equal chunks of a multiple of 32 that
+    fit :data:`SMEM_BUDGET`."""
+    kp = -(-kernel * kernel * c // 32) * 32
+    for nchunks in range(1, kp // 32 + 1):
+        kc = -(-kp // nchunks // 32) * 32
+        if conv_tc_layout(w, c, kernel=kernel, stride=stride, rpb=rpb, kc=kc,
+                          wide=wide)["bytes"] <= SMEM_BUDGET:
+            return kc
+    raise ValueError(f"a band of {rpb} output rows of a {h}x{w}x{c} map "
+                     f"leaves K4 no room for a 32-row chunk")
+
+
+def conv_tc_images_per_block(band_pixels: int) -> int:
+    """Images one K4 block runs, folding its filters' weights once: two
+    where a band is a single tile of pixels (the fold then costs about as
+    much as the tile's products, as at the paper CNN's conv3), else one (a
+    band of several tiles already shares its fold). It never changes a bit
+    of the result."""
+    return 2 if band_pixels <= TC_BM else 1
+
+
 def conv_smem_bytes(h: int, w: int, c: int, *, kernel: int, stride: int = 1,
                     rows_per_band: int | None = None) -> int:
-    """Shared memory (bytes) of one block of the banded kernels: the staged
-    int8 input band, ((rpb-1)*stride + k) rows of (W + 2*(k//2)) * C, plus
-    the fixed tiles. The output channels, Pw and the plane counts do not
-    change it: the weights pass chunk by chunk through the fixed tile."""
+    """Shared memory (bytes) of one block of the banded kernels at a band
+    size, the largest of the three: K2/K5 stage the int8 input band,
+    ((rpb-1)*stride + k) rows of (W + 2*(k//2)) * C, beside fixed tiles; K4
+    stages it with 16-byte aligned rows beside its smallest tile (one
+    32-row chunk at Pw > 8). The output channels, Pw and the plane counts do
+    not change it."""
     ho, wo = -(-h // stride), -(-w // stride)
-    _, _, band_rows = band_geometry(ho, wo, rows_per_band, kernel, stride)
-    return band_rows * (w + 2 * (kernel // 2)) * c + _STATIC_SMEM
+    rpb, _, band_rows = band_geometry(ho, wo, rows_per_band, kernel, stride)
+    return max(band_rows * (w + 2 * (kernel // 2)) * c + _STATIC_SMEM,
+               conv_tc_layout(w, c, kernel=kernel, stride=stride, rpb=rpb,
+                              kc=32, wide=True)["bytes"])
 
 
 @functools.cache
@@ -184,8 +249,14 @@ def bitserial_conv_wgroup(x: torch.Tensor, w_packed: torch.Tensor,
         return bitserial_conv_wgroup_plain(x, w_packed, counts, kernel=kernel,
                                            stride=stride, w_bits=w_bits,
                                            w_group=w_group)
+    b, h, w, c = x.shape
+    ho, wo = -(-h // stride), -(-w // stride)
+    rpb, _, _ = band_geometry(ho, wo, rows_per_band, kernel, stride)
+    kc = conv_tc_chunk(h, w, c, kernel=kernel, stride=stride, rpb=rpb,
+                       wide=w_bits > 8)
+    ipb = conv_tc_images_per_block(rpb * wo)
     return _launch("bitserial_conv_wgroup_launch", bitserial_conv_wgroup, x,
-                   (w_packed, counts), n, ((w_bits,), (w_group,)),
+                   (w_packed, counts), n, ((w_bits,), (w_group, kc, ipb)),
                    kernel=kernel, stride=stride, rows_per_band=rows_per_band)
 
 

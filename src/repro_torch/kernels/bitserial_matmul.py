@@ -7,11 +7,13 @@ their plain PyTorch versions are the oracles
 :func:`repro_torch.kernels.ref.bitserial_matmul_ref` and
 :func:`~repro_torch.kernels.ref.bitserial_matmul_dynamic_ref`.
 
-K1 runs on the int8 tensor cores in one of two shapes, chosen here by
-:func:`_k1_route` from M: ``tile`` (128 x 128 output tiles) above
-``SKINNY_MAX_M`` rows, ``skinny`` (16 x 64 tiles, M padded to 16) at or
-below it, either one splitting K when its output tiles alone would leave
-SMs idle. Neither falls back to the other.
+Both run on the int8 tensor cores, one kernel body in one of two shapes,
+chosen here by :func:`_route` from M: ``tile`` (128 x 128 output tiles)
+above ``SKINNY_MAX_M`` rows, ``skinny`` (16 x 64 tiles, M padded to 16)
+at or below it, either one splitting K when its output tiles alone would
+leave SMs idle. Neither falls back to the other. K3's kernel loads only
+the planes below each tile's largest count and folds every column at its
+own count.
 
 ``bitserial_matmul.launches`` and ``bitserial_matmul_dynamic.launches``
 count each kernel's launches (the plain route on CPU tensors does not
@@ -29,14 +31,15 @@ from repro_torch.kernels.ref import (
     bitserial_matmul_dynamic_ref as bitserial_matmul_dynamic_plain)
 from repro_torch.kernels.ref import bitserial_matmul_ref as bitserial_matmul_plain
 
-SKINNY_MAX_M = 16    # K1 rows up to which the skinny route runs
+SKINNY_MAX_M = 16    # rows up to which the skinny route runs
 _SMS = 132           # streaming multiprocessors of an H100 SXM
 
 
-def _k1_route(m: int, k: int, n: int, pw: int) -> tuple[str, int]:
-    """K1's route and K split for an [M, K] x [K, N] call at Pw planes:
-    ``("skinny", s)`` for M <= SKINNY_MAX_M (16 x 64 output tiles), else
-    ``("tile", s)`` (128 x 128 by K/128, or 64 x 128 by K/64 at Pw > 8).
+def _route(m: int, k: int, n: int, pw: int) -> tuple[str, int]:
+    """K1's and K3's route and K split for an [M, K] x [K, N] call at Pw
+    planes (K3's counts change neither): ``("skinny", s)`` for M <=
+    SKINNY_MAX_M (16 x 64 output tiles), else ``("tile", s)`` (128 x 128
+    by K/128, or 64 x 128 by K/64 at Pw > 8).
     ``s`` splits the reduction tiles over blocks until about two blocks
     per SM are in flight (or every tile has its own block), never leaving
     a split without a tile."""
@@ -113,7 +116,7 @@ def bitserial_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
     _check(x, w_packed, w_bits)
     if x.device.type == "cpu":
         return bitserial_matmul_plain(x, w_packed, w_bits)
-    route, splits = _k1_route(x.shape[0], x.shape[1], w_packed.shape[2], w_bits)
+    route, splits = _route(x.shape[0], x.shape[1], w_packed.shape[2], w_bits)
     return _launch("bitserial_matmul_launch", bitserial_matmul, x, w_packed,
                    (), (w_bits, int(route == "skinny"), splits))
 
@@ -143,8 +146,10 @@ def bitserial_matmul_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"x on {x.device}, counts on {counts.device}")
     if x.device.type == "cpu":
         return bitserial_matmul_dynamic_plain(x, w_packed, counts, w_bits, bn)
+    route, splits = _route(x.shape[0], x.shape[1], n, w_bits)
     return _launch("bitserial_matmul_dynamic_launch", bitserial_matmul_dynamic,
-                   x, w_packed, (counts,), (w_bits, bn))
+                   x, w_packed, (counts,),
+                   (w_bits, bn, int(route == "skinny"), splits))
 
 
 bitserial_matmul_dynamic.launches = 0

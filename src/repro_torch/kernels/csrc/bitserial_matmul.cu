@@ -10,30 +10,36 @@
 // of planes >= the N-tile's scalar-prefetched count, plane count-1
 // negated.
 //
-// K1 -- `tc_kernel`, on the int8 tensor cores (mma.sync.m16n8k32, s8 x s8
-// -> s32, wrapping: no .satfinite). What bounds it on an H100 depends on M:
-//   * prefill-shaped M (the LM's 1024 rows, the CNN's 256): 2 M N K
+// Both run one kernel body, `tc_body`, on the int8 tensor cores
+// (mma.sync.m16n8k32, s8 x s8 -> s32, wrapping: no .satfinite): K1 as
+// `k1_kernel` (no counts), K3 as `k3_kernel`. What bounds them on an H100
+// depends on M:
+//   * prefill-shaped M (the LM's 1024 rows, the CNN's 256, and K3's
+//     transposed calls, whose M is a layer's output width): 2 M N K
 //     operations against 1979 TOP/s int8, e.g. 1.57 ms for the 197 linears
 //     of a 2 x 512-token prefill;
 //   * decode-shaped M (<= 16): the packed weight bytes, 1.72 GB a decode
 //     step at Pw = 8, 0.52 ms at 3.35 TB/s.
-// The fold is a bit transpose. For one column and packed row-byte kb, the
-// Pw plane bytes form a Pw x 8 bit matrix; its 8x8 transpose (a byte
-// transpose of 8 columns by prmt, then three masked shift-xor rounds on 64
-// bits) gives the 8 weights of rows 8kb..8kb+7, one byte each. At Pw = 8 a
-// byte is the int8 two's-complement weight (plane 7 negated is the sign
-// bit); below 8 it is sign-extended from Pw bits. Weights land K-contiguous
-// per column in shared memory, the mma's K-major B operand. A thread's
-// fragment takes 8 consecutive bytes of A (an x row) and of B (a weight
-// column) for its two K slices: the mma sums over K in another order,
-// which exact integer sums do not see. Pw = 9..16 splits each weight into
-// lo = w & 255 (planes 0-7, unsigned: mma s8 x u8) and hi = w >> 8 (planes
-// 8..Pw-1, sign-extended), two accumulators recombined as hi * 256 + lo in
-// wrapping int32.
+// The fold is a bit transpose (bitfold.cuh): 8 int8 weights per column
+// and packed row-byte, K-contiguous per column in shared memory, the mma's
+// K-major B operand. At Pw = 8 a byte is the int8 two's-complement weight
+// (plane 7 negated is the sign bit); below 8 it is sign-extended from Pw
+// bits. A thread's fragment takes 8 consecutive bytes of A (an x row) and
+// of B (a weight column) for its two K slices: the mma sums over K in
+// another order, which exact integer sums do not see. Pw = 9..16 splits
+// each weight into lo = w & 255 (planes 0-7, unsigned: mma s8 x u8) and
+// hi = w >> 8 (sign-extended), two accumulators recombined as hi * 256 +
+// lo in wrapping int32.
+// K3's block reads the counts of its BN columns once. Its loads stage only
+// the planes below the tile's largest count, so a trimmed tile moves
+// count/Pw of the packed bytes (the paper's bandwidth law), and its fold
+// masks each column at its own count and sign-extends from it (bn need not
+// be a multiple of 8, and a column group may end inside a tile). The
+// products are the same whatever the counts.
 // Each stage stages BK rows of x and the stage's packed plane bytes
 // (cp.async, 8 and 16 bytes at a time) in a ring, so the next stages load
 // while one is folded and multiplied. Two shapes, chosen by the wrapper
-// from M (`_k1_route`), neither falling back to the other:
+// from M (`_route`), neither falling back to the other:
 //   tile   -- 128 x 128 output tile, 8 warps of 64 x 32, BK = 128 in a
 //             ring of 2 (at Pw > 8: 64 x 128, warps of 32 x 32, BK = 64
 //             in a ring of 3); for M > 16. Larger tiles (256 x 128,
@@ -44,47 +50,14 @@
 // SMs idle (e.g. the decode step's 1024-column projections); the splits
 // add their partial sums into a zeroed output with int32 atomicAdd, exact
 // in any order. Ragged M, N and K (K a multiple of 8) are zero-filled.
-//
-// K3 -- `dynamic_kernel`, on the CUDA cores (bitserial_tile.cuh): each
-// block folds the packed planes of its chunk into int32 weights in shared
-// memory once, one int8 x int32 multiply-add per term whatever the count;
-// the fold reads counts[col / bn] and loads only the bytes of planes below
-// it, so a trimmed group moves count/Pw of the bytes. The dynamic serving
-// linear calls it transposed, the packed operand being the runtime-packed
-// activations (bn = the row group); the static weight-group route calls it
-// with the pack-time counts (bn = the filter group). Every edge is masked,
-// a ragged last column group included.
-#include "bitserial_tile.cuh"
+// K3 has two callers: the dynamic serving linear calls it transposed, the
+// packed operand being the runtime-packed activations (bn = the row
+// group); the static weight-group route calls it with the pack-time counts
+// (bn = the filter group).
+#include "bitfold.cuh"
 #include "tensor_core.cuh"
 
-namespace bitserial {
-
-__global__ void __launch_bounds__(THREADS)
-dynamic_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
-               const int32_t* __restrict__ counts, int32_t* __restrict__ out,
-               int m, int k, int n, int pw, int bn) {
-  __shared__ Tile tile;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  uint32_t acc[TM][TN] = {};
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK;
-      int8_t v = 0;
-      if (m0 + r < m && k0 + kk < k) v = x[(size_t)(m0 + r) * k + k0 + kk];
-      tile.a[r][kk] = v;
-    }
-    fold_weights(tile, wp, k / 8, n, pw, k0, n0, counts, bn);
-    __syncthreads();
-    accumulate(tile, acc, ty, tx);
-    __syncthreads();
-  }
-  store(out, acc, m0, min(BM, m - m0), n0, n, ty, tx);
-}
-
-}  // namespace bitserial
-
-namespace k1 {
+namespace mm {
 
 template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int BK_, bool kWide_>
 struct Cfg {
@@ -99,8 +72,10 @@ struct Cfg {
   static constexpr int MT = BM / (16 * WM);            // m16 tiles per warp
   static constexpr int NT = BN / (8 * WN);             // n8 tiles per warp
   static constexpr int RAW_LD = BN + 16;               // bytes per staged (plane, kb) row
-  static constexpr int smem(int pw) {
-    return STAGES * (BM * LDS + pw * KB * RAW_LD) + (kWide ? 2 : 1) * BN * LDS;
+  // Dynamic shared memory; K3 adds its BN column counts and their maximum.
+  static constexpr int smem(int pw, bool counts) {
+    return STAGES * (BM * LDS + pw * KB * RAW_LD) + (kWide ? 2 : 1) * BN * LDS +
+           (counts ? 4 * (BN + 1) : 0);
   }
 };
 using Tile = Cfg<128, 128, 2, 4, 2, 128, false>;
@@ -108,65 +83,14 @@ using TileWide = Cfg<64, 128, 2, 4, 3, 64, true>;
 using Skinny = Cfg<16, 64, 1, 4, 4, 64, false>;
 using SkinnyWide = Cfg<16, 64, 1, 4, 4, 64, true>;
 
-// Bit (r, c) of x at 8r + c moves to 8c + r.
-__device__ __forceinline__ uint64_t transpose8(uint64_t x) {
-  uint64_t t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
-  x ^= t ^ (t << 7);
-  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
-  x ^= t ^ (t << 14);
-  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
-  x ^= t ^ (t << 28);
-  return x;
-}
-
-// Words a, b, c, d (rows 0-3, byte j = column j) -> o[j] (column j, byte
-// i = row i): a 4x4 byte transpose.
-__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
-                                           uint32_t (&o)[4]) {
-  const uint32_t t0 = __byte_perm(a, b, 0x5140), t1 = __byte_perm(c, d, 0x5140);
-  const uint32_t t2 = __byte_perm(a, b, 0x7362), t3 = __byte_perm(c, d, 0x7362);
-  o[0] = __byte_perm(t0, t1, 0x5410);
-  o[1] = __byte_perm(t0, t1, 0x7632);
-  o[2] = __byte_perm(t2, t3, 0x5410);
-  o[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// Sign-extend each byte of x from `bits` (1..8) bits.
-__device__ __forceinline__ uint64_t sign_extend8(uint64_t x, int bits) {
-  if (bits >= 8) return x;
-  const uint64_t sign = (x >> (bits - 1)) & 0x0101010101010101ull;
-  return x | sign * static_cast<uint64_t>((0xFFu << bits) & 0xFFu);
-}
-
-// The np (<= 8) plane bytes of 8 neighbouring columns at one packed row,
-// plane i at plane0 + i * stride -> w[j]: column j's 8 rows, byte r = bit
-// r of each plane, plane i at bit i (unsigned: the caller sign-extends).
-__device__ __forceinline__ void fold8(const uint8_t* plane0, int stride, int np,
-                                      uint64_t (&w)[8]) {
-  uint32_t lo[8], hi[8];                 // plane i, columns 0-3 and 4-7
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    uint2 v = make_uint2(0u, 0u);
-    if (i < np) v = *reinterpret_cast<const uint2*>(plane0 + i * stride);
-    lo[i] = v.x;
-    hi[i] = v.y;
-  }
-  uint32_t c[4][4];   // c[0], c[1]: columns 0-3, planes 0-3 and 4-7; c[2], c[3]: columns 4-7
-  transpose4(lo[0], lo[1], lo[2], lo[3], c[0]);
-  transpose4(lo[4], lo[5], lo[6], lo[7], c[1]);
-  transpose4(hi[0], hi[1], hi[2], hi[3], c[2]);
-  transpose4(hi[4], hi[5], hi[6], hi[7], c[3]);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    w[j] = transpose8(c[0][j] | static_cast<uint64_t>(c[1][j]) << 32);
-    w[4 + j] = transpose8(c[2][j] | static_cast<uint64_t>(c[3][j]) << 32);
-  }
-}
-
-template <class C>
-__global__ void __launch_bounds__(C::THREADS)
-tc_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
-          int32_t* __restrict__ out, int m, int k, int n, int pw, int splits) {
+// One output tile of K1 (kCounts false: every column runs all pw planes)
+// or K3 (column col runs counts[col / bn] planes, clamped to [1, pw]).
+template <class C, bool kCounts>
+__device__ __forceinline__ void tc_body(const int8_t* __restrict__ x,
+                                        const uint8_t* __restrict__ wp,
+                                        const int32_t* __restrict__ counts,
+                                        int32_t* __restrict__ out, int m, int k, int n,
+                                        int pw, int bn, int splits) {
   constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, RAW_LD = C::RAW_LD;
   constexpr int BK = C::BK, KB = C::KB, LDS = C::LDS;
   constexpr int MT = C::MT, NT = C::NT, WIDE = C::kWide ? 2 : 1;
@@ -175,6 +99,7 @@ tc_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
   uint8_t* a_s = smem_raw;                          // [ST][BM][LDS] x rows
   uint8_t* raw_s = a_s + ST * BM * LDS;             // [ST][pw][KB][RAW_LD] packed bytes
   uint8_t* b_s = raw_s + ST * raw_stage;            // [WIDE][BN][LDS] folded weights
+  int* cnt = reinterpret_cast<int*>(b_s + WIDE * BN * LDS);   // K3: [BN] counts, their max
 
   const int k8 = k / 8, tiles = (k + BK - 1) / BK, per = (tiles + splits - 1) / splits;
   const int kt0 = blockIdx.z * per, nk = min(tiles, kt0 + per) - kt0;
@@ -183,8 +108,26 @@ tc_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
   const bool xvec = reinterpret_cast<uintptr_t>(x) % 8 == 0;
   const bool wvec = n % 16 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0;
 
-  // Stage x rows [m0, m0 + BM) and the packed bytes of columns [n0, n0 +
-  // BN) for reduction tile kt into ring slot `slot`; zeros past M, K, N.
+  // The planes the tile loads: all pw (K1), or its columns' largest count.
+  int np = pw;
+  if constexpr (kCounts) {
+    if (threadIdx.x == 0) cnt[BN] = 1;
+    __syncthreads();
+    for (int j = threadIdx.x; j < BN; j += C::THREADS) {
+      int c = pw;
+      if (n0 + j < n) {
+        c = max(1, min(counts[(n0 + j) / bn], pw));
+        atomicMax(cnt + BN, c);
+      }
+      cnt[j] = c;
+    }
+    __syncthreads();
+    np = cnt[BN];
+  }
+
+  // Stage x rows [m0, m0 + BM) and the packed bytes of planes [0, np) of
+  // columns [n0, n0 + BN) for reduction tile kt into ring slot `slot`;
+  // zeros past M, K, N.
   auto load = [&](int kt, int slot) {
     uint8_t* a = a_s + slot * BM * LDS;
     for (int e = threadIdx.x; e < BM * KB; e += C::THREADS) {
@@ -199,7 +142,7 @@ tc_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
     }
     uint8_t* raw = raw_s + slot * raw_stage;
     constexpr int CH = BN / 16;                     // 16-byte chunks per packed row
-    for (int e = threadIdx.x; e < pw * KB * CH; e += C::THREADS) {
+    for (int e = threadIdx.x; e < np * KB * CH; e += C::THREADS) {
       const int row = e / CH, c = 16 * (e % CH);    // row = plane * KB + kb
       const int gkb = kt * KB + row % KB, gn = n0 + c;
       uint8_t* dst = raw + row * RAW_LD + c;
@@ -214,24 +157,44 @@ tc_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
   };
 
   // Fold ring slot `slot` into b_s: column-major int8 weights (lo and hi
-  // slices at Pw > 8).
+  // slices at Pw > 8), each column truncated at its count (K3).
   auto fold = [&](int slot) {
     const uint8_t* raw = raw_s + slot * raw_stage;
     for (int e = threadIdx.x; e < KB * (BN / 8); e += C::THREADS) {
       const int kb = e % KB, cg = e / KB;
       const uint8_t* src = raw + kb * RAW_LD + 8 * cg;
       uint64_t w[8];
-      fold8(src, KB * RAW_LD, min(pw, 8), w);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint64_t*>(b_s + (8 * cg + j) * LDS + 8 * kb) =
-            C::kWide ? w[j] : sign_extend8(w[j], pw);
-      if constexpr (C::kWide) {
-        fold8(src + 8 * KB * RAW_LD, KB * RAW_LD, pw - 8, w);
+      bitfold::fold8([&](int i) { return *reinterpret_cast<const uint2*>(src + i * KB * RAW_LD); },
+                     min(np, 8), w);
+      if constexpr (!C::kWide) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<uint64_t*>(b_s + (BN + 8 * cg + j) * LDS + 8 * kb) =
-              sign_extend8(w[j], pw - 8);
+          *reinterpret_cast<uint64_t*>(b_s + (8 * cg + j) * LDS + 8 * kb) =
+              kCounts ? bitfold::trim8(w[j], cnt[8 * cg + j]) : bitfold::sign_extend8(w[j], pw);
+      } else {
+        const uint8_t* src_hi = src + 8 * KB * RAW_LD;
+        auto load_hi = [&](int i) {
+          return *reinterpret_cast<const uint2*>(src_hi + i * KB * RAW_LD);
+        };
+        uint8_t* lo_s = b_s + 8 * cg * LDS + 8 * kb;
+        uint8_t* hi_s = lo_s + BN * LDS;
+        if constexpr (kCounts) {
+          uint64_t h[8];
+          bitfold::fold8(load_hi, np - 8, h);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            bitfold::trim16(w[j], h[j], cnt[8 * cg + j]);
+            *reinterpret_cast<uint64_t*>(lo_s + j * LDS) = w[j];
+            *reinterpret_cast<uint64_t*>(hi_s + j * LDS) = h[j];
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) *reinterpret_cast<uint64_t*>(lo_s + j * LDS) = w[j];
+          bitfold::fold8(load_hi, pw - 8, w);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<uint64_t*>(hi_s + j * LDS) = bitfold::sign_extend8(w[j], pw - 8);
+        }
       }
     }
   };
@@ -313,19 +276,58 @@ tc_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
 }
 
 template <class C>
-int launch(const void* x, const void* wp, void* out, int m, int k, int n, int pw, int splits,
-           cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      tc_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::smem(pw));
-  if (err != cudaSuccess) return static_cast<int>(err);
+__global__ void __launch_bounds__(C::THREADS)
+k1_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
+          int32_t* __restrict__ out, int m, int k, int n, int pw, int splits) {
+  tc_body<C, false>(x, wp, nullptr, out, m, k, n, pw, 1, splits);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS)
+k3_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
+          const int32_t* __restrict__ counts, int32_t* __restrict__ out, int m, int k,
+          int n, int pw, int bn, int splits) {
+  tc_body<C, true>(x, wp, counts, out, m, k, n, pw, bn, splits);
+}
+
+// K1 (counts == nullptr) or K3 in configuration C.
+template <class C>
+int launch(const void* x, const void* wp, const void* counts, void* out, int m, int k,
+           int n, int pw, int bn, int splits, cudaStream_t stream) {
+  const int smem = C::smem(pw, counts != nullptr);
   const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM, splits);
-  tc_kernel<C><<<grid, C::THREADS, C::smem(pw), stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(wp),
-      static_cast<int32_t*>(out), m, k, n, pw, splits);
+  const auto* xs = static_cast<const int8_t*>(x);
+  const auto* ws = static_cast<const uint8_t*>(wp);
+  auto* os = static_cast<int32_t*>(out);
+  cudaError_t err;
+  if (counts) {
+    err = cudaFuncSetAttribute(k3_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k3_kernel<C><<<grid, C::THREADS, smem, stream>>>(
+        xs, ws, static_cast<const int32_t*>(counts), os, m, k, n, pw, bn, splits);
+  } else {
+    err = cudaFuncSetAttribute(k1_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    k1_kernel<C><<<grid, C::THREADS, smem, stream>>>(xs, ws, os, m, k, n, pw, splits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace k1
+int dispatch(const void* x, const void* wp, const void* counts, void* out, int m, int k,
+             int n, int pw, int bn, int skinny, int splits, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (splits > 1) {
+    const cudaError_t err = cudaMemsetAsync(out, 0, (size_t)m * n * sizeof(int32_t), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (skinny)
+    return pw > 8 ? launch<SkinnyWide>(x, wp, counts, out, m, k, n, pw, bn, splits, st)
+                  : launch<Skinny>(x, wp, counts, out, m, k, n, pw, bn, splits, st);
+  return pw > 8 ? launch<TileWide>(x, wp, counts, out, m, k, n, pw, bn, splits, st)
+                : launch<Tile>(x, wp, counts, out, m, k, n, pw, bn, splits, st);
+}
+
+}  // namespace mm
 
 // Launch on `stream`; each returns cudaGetLastError() (0 = launched).
 // skinny: the M <= 16 shape; splits > 1 zeroes `out` first (the splits add
@@ -333,26 +335,14 @@ int launch(const void* x, const void* wp, void* out, int m, int k, int n, int pw
 extern "C" int bitserial_matmul_launch(const void* x, const void* wp, void* out, int m,
                                        int k, int n, int pw, int skinny, int splits,
                                        void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (splits > 1) {
-    const cudaError_t err = cudaMemsetAsync(out, 0, (size_t)m * n * sizeof(int32_t), st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (skinny)
-    return pw > 8 ? k1::launch<k1::SkinnyWide>(x, wp, out, m, k, n, pw, splits, st)
-                  : k1::launch<k1::Skinny>(x, wp, out, m, k, n, pw, splits, st);
-  return pw > 8 ? k1::launch<k1::TileWide>(x, wp, out, m, k, n, pw, splits, st)
-                : k1::launch<k1::Tile>(x, wp, out, m, k, n, pw, splits, st);
+  return mm::dispatch(x, wp, nullptr, out, m, k, n, pw, 1, skinny, splits, stream);
 }
 
-// counts: int32 [ceil(n / bn)], each in [1, pw].
+// counts: int32 [ceil(n / bn)], each clamped to [1, pw].
 extern "C" int bitserial_matmul_dynamic_launch(const void* x, const void* wp,
                                                const void* counts, void* out,
                                                int m, int k, int n, int pw,
-                                               int bn, void* stream) {
-  const dim3 grid((n + bitserial::BN - 1) / bitserial::BN, (m + bitserial::BM - 1) / bitserial::BM);
-  bitserial::dynamic_kernel<<<grid, bitserial::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(wp),
-      static_cast<const int32_t*>(counts), static_cast<int32_t*>(out), m, k, n, pw, bn);
-  return static_cast<int>(cudaGetLastError());
+                                               int bn, int skinny, int splits,
+                                               void* stream) {
+  return mm::dispatch(x, wp, counts, out, m, k, n, pw, bn, skinny, splits, stream);
 }

@@ -1,5 +1,5 @@
-// Tile machinery shared by the bit-serial kernels (bitserial_matmul.cu:
-// K1, K3; bitserial_conv.cu: K2, K4, K5).
+// Tile machinery of the CUDA-core conv kernels (bitserial_conv.cu: K2,
+// K5).
 //
 // A block owns one BM x BN output tile and walks the reduction in chunks
 // of BK rows. Per chunk it holds, in shared memory,
@@ -9,9 +9,8 @@
 //   w[BK][BN]    the chunk's weights folded from the packed planes into
 //                 signed int32: w = sum_{p<P-1} b_p 2^p - b_{P-1} 2^{P-1}
 //                 (the MSB plane negated: 2's complement, the paper's SIP
-//                 negation block), P = Pw, or the column's plane count
-//                 where the planes are trimmed (K3, K4); or K5's dense
-//                 int8 weights, sign-extended.
+//                 negation block), P = Pw (K2); or K5's dense int8
+//                 weights, sign-extended.
 // Each of the 256 threads accumulates a TM x TN sub-tile in 32-bit
 // registers with wrap-around arithmetic, which is the reference's int32
 // accumulator.
@@ -39,22 +38,15 @@ struct __align__(16) Tile {
 // and columns [n0, n0 + BN) into tile.w. wp is uint8 [pw, k8, n]; byte j of
 // a plane holds rows 8j..8j+7, bit i = row 8j+i. Bytes past k8 or columns
 // past n fold to zero, so ragged K and N need no other mask on this side.
-// counts == nullptr folds all pw planes of every column (K1, K2).
-// Otherwise column col folds only its first c = counts[col / bn] planes
-// (in [1, pw]) with plane c-1 negated, 2's-complement truncation at c
-// bits (K3, K4): the bytes of planes >= c are never loaded.
 __device__ __forceinline__ void fold_weights(Tile& t, const uint8_t* __restrict__ wp,
-                                             int k8, int n, int pw, int k0, int n0,
-                                             const int32_t* __restrict__ counts = nullptr,
-                                             int bn = 1) {
+                                             int k8, int n, int pw, int k0, int n0) {
   const int kb0 = k0 / 8;
   for (int e = threadIdx.x; e < (BK / 8) * BN; e += THREADS) {
     const int kb = e / BN, j = e % BN;
     int32_t v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     if (kb0 + kb < k8 && n0 + j < n) {
-      const int planes = counts ? max(1, min(counts[(n0 + j) / bn], pw)) : pw;
-      const int32_t sign = 1 << (planes - 1);
-      for (int p = 0; p < planes; ++p) {
+      const int32_t sign = 1 << (pw - 1);
+      for (int p = 0; p < pw; ++p) {
         const uint32_t byte = wp[((size_t)p * k8 + kb0 + kb) * n + n0 + j];
 #pragma unroll
         for (int i = 0; i < 8; ++i) v[i] |= (int32_t)((byte >> i) & 1u) << p;

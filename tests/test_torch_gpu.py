@@ -1,5 +1,6 @@
 """PyTorch port on the card: kernels K1-K6 against their plain versions bit
-for bit (K1 on both of its tensor-core routes) and K7 within its tolerance
+for bit (K1 and K3 on both of their tensor-core routes; K3 and K4 with
+random, full and all-1 plane counts) and K7 within its tolerance
 (on both of its routes); the ``cuda`` CNN session against
 ``torch_ref``, bit for bit, on the static, dynamic (``dynamic_a``) and
 weight-group paths, and the smoke LM's prefill and decode likewise.
@@ -113,6 +114,72 @@ def test_matmul_dynamic_kernel_equals_plain(cuda, m, k, n, w_bits, bn):
                                                            w_bits, bn))
 
 
+def _count_kinds(cuda, shape, bits, seed):
+    """Random counts in [1, bits], every count full, every count 1."""
+    return [_counts(cuda, shape, bits, seed),
+            torch.full(shape, bits, dtype=torch.int32, device=cuda),
+            torch.ones(shape, dtype=torch.int32, device=cuda)]
+
+
+# K3 on both tensor-core routes (M 10: skinny, 1024: tile) at column groups
+# of 12 (not a multiple of 8), 16 and 256, ragged K and N.
+@pytest.mark.parametrize("m", [10, 1024])
+@pytest.mark.parametrize("bn", [12, 16, 256])
+@pytest.mark.parametrize("w_bits", [8, 11, 16])
+def test_matmul_dynamic_kernel_count_edges(cuda, m, bn, w_bits):
+    k, n = 2040, 520
+    x, wp = _operands(cuda, (m, k), k, n, w_bits, m + bn + w_bits)
+    for counts in _count_kinds(cuda, (-(-n // bn),), w_bits, bn + w_bits):
+        got = bitserial_matmul_dynamic(x, wp, counts, w_bits=w_bits, bn=bn)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bitserial_matmul_dynamic_plain(
+            x, wp, counts, w_bits, bn))
+
+
+@pytest.mark.parametrize("m", [2, 1024])
+def test_matmul_dynamic_kernel_wraps_like_int32(cuda, m):
+    """K1's wrapping operands through K3 at full counts."""
+    x = torch.full((m, 6144), -128, dtype=torch.int8)
+    x[0, ::3] = 127
+    wq = torch.full((6144, 16), -2 ** 15, dtype=torch.int32)
+    wq[:, 1] = 2 ** 15 - 1
+    x, wp = x.to(cuda), bitpack.pack_weights(wq, 16).to(cuda)
+    full = torch.full((1,), 16, dtype=torch.int32, device=cuda)
+    got = bitserial_matmul_dynamic(x, wp, full, w_bits=16, bn=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bitserial_matmul_plain(x, wp, 16))
+
+
+# K4 at the paper CNN's convs (B 2 and 256), a ragged last filter group
+# (N 40; N 10, whose int32 rows are not a multiple of 16 bytes), stride 2,
+# k 1 and 5, and C = 512 (K = 4608, reduced in chunks).
+_K4_SHAPES = [(256, 32, 3, 32, 3, 1), (256, 16, 32, 64, 3, 1),
+              (256, 8, 64, 128, 3, 1), (2, 32, 3, 32, 3, 1),
+              (2, 16, 32, 64, 3, 1), (2, 8, 64, 128, 3, 1),
+              (8, 9, 5, 40, 3, 1), (8, 9, 5, 10, 3, 1), (8, 9, 5, 40, 3, 2),
+              (8, 9, 5, 40, 5, 2), (8, 9, 8, 16, 1, 1), (2, 6, 512, 40, 3, 1)]
+
+
+@pytest.mark.parametrize("b,h,c,n,kernel,stride", _K4_SHAPES)
+@pytest.mark.parametrize("w_bits", [8, 11, 16])
+@pytest.mark.parametrize("w_group", [16, 12])
+def test_conv_wgroup_kernel_count_edges(cuda, b, h, c, n, kernel, stride,
+                                        w_bits, w_group):
+    x, wp = _operands(cuda, (b, h, h, c), kernel * kernel * c, n, w_bits,
+                      b + h + c + w_bits)
+    for counts in _count_kinds(cuda, (-(-n // w_group),), w_bits,
+                               n + w_group):
+        want = bitserial_conv_wgroup_plain(x, wp, counts, kernel=kernel,
+                                           stride=stride, w_bits=w_bits,
+                                           w_group=w_group)
+        for rows in (None, 3):
+            got = bitserial_conv_wgroup(x, wp, counts, kernel=kernel,
+                                        stride=stride, w_bits=w_bits,
+                                        w_group=w_group, rows_per_band=rows)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("rows", [None, 3])
 def test_conv_wgroup_kernel_equals_plain(cuda, rows):
     x, wp = _operands(cuda, (4, 9, 9, 5), 45, 40, 11, 7)
@@ -172,6 +239,26 @@ def test_cuda_session_equals_torch_ref(cuda, path):
         sess = repro_torch.compile(cfg, policy, mode="serve_packed",
                                    backend=be, params=params, device=cuda)
         out[be] = sess.classify(x)
+    static = repro_torch.compile(cfg, uniform_policy(8, 8, w_group=0),
+                                 mode="serve_packed", params=params,
+                                 device=cuda).classify(x)
+    assert torch.equal(out["cuda"], out["torch_ref"])
+    assert torch.equal(out["cuda"], static)
+
+
+def test_cuda_session_both_paths_at_serving_batch(cuda):
+    """Path D on the skewed weights (K5 on the convs, K3 on the FCs) at the
+    serving batch of 256: ``cuda`` == ``torch_ref`` == the untrimmed
+    static logits."""
+    cfg = configs.get("paper_cnn")
+    params = _skewed_params(cfg, cuda)
+    x = torch.randn((256, 32, 32, 3),
+                    generator=torch.Generator().manual_seed(2))
+    x[:, 16:] *= 0.02
+    out = {be: repro_torch.compile(cfg, uniform_policy(8, 8, dynamic_a=True),
+                                   mode="serve_packed", backend=be,
+                                   params=params, device=cuda).classify(x)
+           for be in ("cuda", "torch_ref")}
     static = repro_torch.compile(cfg, uniform_policy(8, 8, w_group=0),
                                  mode="serve_packed", params=params,
                                  device=cuda).classify(x)

@@ -30,7 +30,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash_attention
 from repro_torch.core import bitpack
 from repro_torch.kernels import ref
-from repro_torch.kernels.bitserial_matmul import SKINNY_MAX_M, _k1_route
+from repro_torch.kernels.bitserial_matmul import SKINNY_MAX_M, _route
 
 K7_BF16_TOL = (1e-4, 2 ** -7)      # chip_smoke.K7_TOL for bf16 inputs
 JAX_BF16_TOL = 0.05                # tests/test_kernels.py, bf16
@@ -233,7 +233,7 @@ def test_one_bf16_rounding_of_p_breaks_k7_tolerance():
                                     (2048, 151936, 8), (2048, 256, 8),
                                     (40, 10, 11), (256, 10, 16)])
 def test_k1_route(m, k, n, pw):
-    route, splits = _k1_route(m, k, n, pw)
+    route, splits = _route(m, k, n, pw)
     assert route == ("skinny" if m <= SKINNY_MAX_M else "tile")
     bm, bn, bk = ((16, 64, 64) if route == "skinny" else
                   (64, 128, 64) if pw > 8 else (128, 128, 128))
@@ -246,8 +246,8 @@ def test_k1_route(m, k, n, pw):
 
 
 def test_k1_route_boundary():
-    assert _k1_route(SKINNY_MAX_M, 2048, 1024, 8)[0] == "skinny"
-    assert _k1_route(SKINNY_MAX_M + 1, 2048, 1024, 8)[0] == "tile"
+    assert _route(SKINNY_MAX_M, 2048, 1024, 8)[0] == "skinny"
+    assert _route(SKINNY_MAX_M + 1, 2048, 1024, 8)[0] == "tile"
     # the decode step's projections fill the card; the head needs no split
-    assert _k1_route(2, 2048, 1024, 8) == ("skinny", 32)
-    assert _k1_route(2, 2048, 151936, 8) == ("skinny", 1)
+    assert _route(2, 2048, 1024, 8) == ("skinny", 32)
+    assert _route(2, 2048, 151936, 8) == ("skinny", 1)
