@@ -32,18 +32,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               (one nvcc per source, in parallel), print ptxas usage and
               the tensor-core instructions (HMMA/IMMA/HGMMA/IGMMA) in each
               kernel's SASS (``cuobjdump`` beside nvcc); fail where a
-              kernel of K1, K3 or K4 has no IMMA, and print each one's
+              kernel of K1-K5 has no IMMA (K2 and K4 launch the conv
+              kernel's packed-plane instantiations, K5 its dense one) or
+              the conv library holds another kernel, and print each one's
               registers, static shared memory and spills.
 3. kernels -- K1-K6 against their plain versions on the card, exact
               (``torch.equal``), at the paths' shapes and at ragged, banded,
-              strided and K-padded shapes; K1 on both sides of its skinny/
+              strided, K-padded, chunked and odd-batch shapes; K1 on both sides of its skinny/
               tile boundary (M 1-1024) at the LM's shapes, Pw 1-16, and on
               an int32 sum that wraps; K3-K5 with random plane counts
               (forced truncation), full counts and all-1 counts; K3 on both
               routes at bn 12/16/256 and Pw 8/11/16, and on K1's wrapping
-              sum; K4 at conv1-3 (B 256 and 2), ragged N, w_group 16/12,
-              stride 2, k 1/5 and a chunked K of 4608; K6 with zero, 2e-38 and
-              subnormal groups. K7 within K7_TOL of its plain version taken
+              sum; K2, K4 and K5 at conv1-3 (B 256; K4 also B 2), ragged
+              N 40 and 10, stride 2, k 1/5, a chunked K of 4608 and B 3 at
+              conv3 (blocks of two images, the last one short); K2 and K5
+              beside their band-local oracles; the conv kernel's shared-
+              memory mirror against the built kernel's own sum; K6 with
+              zero, 2e-38 and subnormal groups. K7 within K7_TOL of its plain version taken
               in float32 from the same inputs (bf16: one bf16 ulp, 2^-7 of
               the value, plus 1e-4; f32: 2e-5, the JAX tests' own), bf16
               and f32 at D 32-256, S 1-4096, causal, non-causal and window
@@ -118,8 +123,10 @@ from repro_torch.core.weightgroups import truncate_columns_grouped  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.bitserial_conv import (  # noqa: E402
-    bitserial_conv, bitserial_conv_dynamic, bitserial_conv_dynamic_plain,
-    bitserial_conv_plain, bitserial_conv_wgroup, bitserial_conv_wgroup_plain)
+    band_geometry, bitserial_conv, bitserial_conv_dynamic,
+    bitserial_conv_dynamic_plain, bitserial_conv_plain, bitserial_conv_wgroup,
+    bitserial_conv_wgroup_plain, conv_tc_chunk, conv_tc_layout,
+    conv_tc_layout_bytes)
 from repro_torch.kernels.bitserial_matmul import (  # noqa: E402
     _route, bitserial_matmul, bitserial_matmul_dynamic,
     bitserial_matmul_dynamic_plain, bitserial_matmul_plain)
@@ -151,22 +158,29 @@ K7_TOL = {torch.bfloat16: (1e-4, 2 ** -7), torch.float32: (2e-5, 2e-5)}
 # The JAX tests' bf16 tolerance (atol = rtol), for the library yardstick:
 # scaled_dot_product_attention rounds its bf16 probabilities.
 SDPA_TOL = 0.05
-# Each kernel's time before K3 and K4 moved to the tensor cores, on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's table), printed beside this
-# run's. K3 at the LM's dynamic_a prefill had no time then: PERF.md gives
-# it from chip_kernel_times.py.
+# Each kernel's time before K2 and K5 moved to the tensor cores (launched
+# from Python, per request of its path), on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md's table), printed beside this run's.
 BEFORE_MS = {
-    ("bitserial_matmul", "static"): 0.0609, ("bitserial_matmul", "W"): 0.0293,
-    ("bitserial_conv", "static"): 0.4605,
-    ("bitserial_matmul_dynamic", "D"): 0.1683,
-    ("bitserial_matmul_dynamic", "W"): 0.1468,
-    ("bitserial_conv_wgroup", "W"): 0.5210,
-    ("bitserial_conv_dynamic", "D"): 0.4933,
-    ("dynamic_quant", "ops"): 0.0508, ("flash_attention", "ops"): 0.0374,
-    ("LM", "prefill"): 18.064, ("LM", "decode"): 6.693,
-    ("LM", "dynamic_a prefill"): "not measured",
-    ("long", None): 0.4112, ("long", 1024): 0.2180, ("long", 32768): 15.846,
+    ("bitserial_matmul", "static"): 0.0904, ("bitserial_matmul", "W"): 0.0324,
+    ("bitserial_conv", "static"): 0.4600,
+    ("bitserial_matmul_dynamic", "D"): 0.0874,
+    ("bitserial_matmul_dynamic", "W"): 0.0423,
+    ("bitserial_conv_wgroup", "W"): 0.1549,
+    ("bitserial_conv_dynamic", "D"): 0.4895,
+    ("dynamic_quant", "ops"): 0.0773, ("flash_attention", "ops"): 0.0364,
+    ("LM", "prefill"): 18.024, ("LM", "decode"): 8.125,
+    ("LM", "dynamic_a prefill"): 18.058,
+    ("long", None): 0.4072, ("long", 1024): 0.2199, ("long", 32768): 15.894,
 }
+
+# K2's and K5's shapes beyond the paths' (label, B, H, C, N, k, stride):
+# ragged N (40; 10, whose int32 rows are not a multiple of 16 bytes), C =
+# 512 (K = 4608, reduced in chunks) and an odd batch at conv3, whose band is
+# one pixel tile (blocks of two images; the last block runs one).
+ODD_CHUNKED_RAGGED = [("N=40", 8, 9, 5, 40, 3, 1), ("N=10", 8, 9, 5, 10, 3, 1),
+                      ("C=512", 2, 6, 512, 40, 3, 1),
+                      ("conv3 B=3", 3, 8, 64, 128, 3, 1)]
 
 # Each kernel's wrapper, plain version and the path whose run its JSON
 # entry reports.
@@ -357,10 +371,13 @@ def phase_device() -> tuple[str, int]:
 
 # Kernels that must run on the tensor cores: (library, name fragment of
 # the kernel's mangled symbol) -> the kernel (K3 in every configuration of
-# mm::k3_kernel, K4 in both of tcconv::conv_tc_kernel).
+# mm::k3_kernel; K2 and K4 in tcconv::conv_tc_kernel's packed-plane
+# instantiations, Pw <= 8 and Pw > 8; K5 in its dense int8 one).
 TENSOR_CORE_KERNELS = {("bitserial_matmul", "k1_kernel"): "K1",
                        ("bitserial_matmul", "k3_kernel"): "K3",
-                       ("bitserial_conv", "conv_tc_kernel"): "K4"}
+                       ("bitserial_conv", "PackedPlanes"): "K2/K4 Pw <= 8",
+                       ("bitserial_conv", "WidePlanes"): "K2/K4 Pw > 8",
+                       ("bitserial_conv", "DenseInt8"): "K5"}
 
 
 def phase_build() -> None:
@@ -382,6 +399,9 @@ def phase_build() -> None:
         for kernel, found in kernels.items():
             print(f"[build] {name} SASS {kernel}: "
                   f"{found or 'no tensor-core instruction'}")
+    others = [k for k in sass["bitserial_conv"] if "conv_tc_kernel" not in k]
+    check(not others, f"the conv library holds kernels other than "
+          f"conv_tc_kernel: {others}")
     for (lib, frag), label in TENSOR_CORE_KERNELS.items():
         usage = ptxas_usage(lib)
         found = {k: v for k, v in sass[lib].items() if frag in k}
@@ -498,12 +518,17 @@ def phase_kernels(errs: dict) -> None:
             ("conv1", BATCH, 32, 3, 32, 3, 1), ("conv2", BATCH, 16, 32, 64, 3, 1),
             ("conv3", BATCH, 8, 64, 128, 3, 1), ("k1", 8, 9, 5, 16, 1, 1),
             ("k5", 8, 9, 5, 16, 5, 1), ("k3s2", 8, 9, 5, 40, 3, 2),
-            ("k5s2", 8, 9, 5, 40, 5, 2)]:
+            ("k5s2", 8, 9, 5, 40, 5, 2)] + ODD_CHUNKED_RAGGED:
         for w_bits in (8, 11, 16):
             x, wp = operands((b, h, h, c), kernel * kernel * c, n, w_bits,
                              seed=b + h + c + kernel + w_bits)
             want = bitserial_conv_plain(x, wp, kernel=kernel, stride=stride,
                                         w_bits=w_bits)
+            banded = ref.bitserial_conv_banded_ref(
+                x, wp, kernel=kernel, stride=stride, w_bits=w_bits,
+                rows_per_band=3)
+            check(torch.equal(banded, want), f"K2 {label}: the band-local "
+                  f"oracle differs from the plain version")
             for rows in (None, 3):
                 got = bitserial_conv(x, wp, kernel=kernel, stride=stride,
                                      w_bits=w_bits, rows_per_band=rows)
@@ -512,9 +537,10 @@ def phase_kernels(errs: dict) -> None:
                       f"{label} {tuple(x.shape)} k={kernel} s={stride} "
                       f"Pw={w_bits} rows={rows}")
                 cases += 1
-    print(f"[kernels] K2 bitserial_conv == plain in {cases} cases (conv1-3 "
-          f"at B={BATCH}; k 1/5, stride 2, C=3 K-padding; Pw 8/11/16; "
-          f"one band and 3-row bands)")
+    print(f"[kernels] K2 bitserial_conv == plain (and its band-local "
+          f"oracle) in {cases} cases (conv1-3 at B={BATCH}; k 1/5, stride 2, "
+          f"C=3 K-padding; N 40 and 10; C=512 chunked; B=3 at conv3; Pw "
+          f"8/11/16; one band and 3-row bands)")
 
     # K3: path D's transposed FCs (weights [N_out, K8] x activations packed
     # at Pa = 8, one row group of 256), fc0 as path W calls it (bn 16), a
@@ -596,14 +622,18 @@ def phase_kernels(errs: dict) -> None:
           f"all-1 counts; one band and 3-row bands)")
 
     # K5: conv1-3 at B = 256 (groups of 256, 256, 64 windows), k 1 and 5,
-    # stride 2, C = 3 (K8 pads 27 to 32).
+    # stride 2, C = 3 (K8 pads 27 to 32), and K2's ragged, chunked and
+    # odd-batch shapes (groups of 16 windows, which do not divide Wo = 9;
+    # 64 at conv3).
     cases = 0
     for label, b, h, c, n, kernel, stride, gsz in [
             ("conv1", BATCH, 32, 3, 32, 3, 1, 256),
             ("conv2", BATCH, 16, 32, 64, 3, 1, 256),
             ("conv3", BATCH, 8, 64, 128, 3, 1, 64),
             ("k1", 8, 9, 5, 16, 1, 1, 16), ("k5s2", 8, 9, 5, 40, 5, 2, 8),
-            ("k3s2c3", 8, 9, 3, 24, 3, 2, 8)]:
+            ("k3s2c3", 8, 9, 3, 24, 3, 2, 8)] + [
+            (*case, 64 if case[0] == "conv3 B=3" else 16)
+            for case in ODD_CHUNKED_RAGGED]:
         g = torch.Generator().manual_seed(b + h + c + kernel)
         x = torch.randint(-128, 128, (b, h, h, c), generator=g,
                           dtype=torch.int8).cuda()
@@ -631,8 +661,33 @@ def phase_kernels(errs: dict) -> None:
                 cases += 1
     print(f"[kernels] K5 bitserial_conv_dynamic == plain (and its band-local "
           f"oracle) in {cases} cases (conv1-3 at B={BATCH}, groups "
-          f"256/256/64; k 1/5, stride 2, C=3 K-padding; random, full and "
-          f"all-1 counts; one band and 3-row bands)")
+          f"256/256/64; k 1/5, stride 2, C=3 K-padding; N 40 and 10; C=512 "
+          f"chunked; B=3 at conv3; random, full and all-1 counts; one band "
+          f"and 3-row bands)")
+
+    # The shared-memory mirror the wrappers size the kernel's chunks with
+    # against the built kernel's own sum, at every conv shape above.
+    layouts = 0
+    for h, c, kernel, stride in [(32, 3, 3, 1), (16, 32, 3, 1), (8, 64, 3, 1),
+                                 (9, 5, 1, 1), (9, 5, 5, 2), (9, 3, 3, 2),
+                                 (6, 512, 3, 1)]:
+        ho = -(-h // stride)
+        for rows in (None, 3):
+            rpb = band_geometry(ho, ho, rows, kernel, stride)[0]
+            for wide in (False, True):
+                kc = conv_tc_chunk(h, h, c, kernel=kernel, stride=stride,
+                                   rpb=rpb, wide=wide)
+                mirror = conv_tc_layout(h, c, kernel=kernel, stride=stride,
+                                        rpb=rpb, kc=kc, wide=wide)["bytes"]
+                built = conv_tc_layout_bytes(h, c, kernel=kernel,
+                                             stride=stride, rpb=rpb, kc=kc,
+                                             wide=wide)
+                check(mirror == built, f"conv_tc_layout {mirror} B != the "
+                      f"kernel's {built} B at h={h} c={c} k={kernel} "
+                      f"rpb={rpb} kc={kc} wide={wide}")
+                layouts += 1
+    print(f"[kernels] conv_tc_layout == the built kernel's tcconv::Layout in "
+          f"{layouts} cases")
 
     # K6: qwen3's hidden and FFN widths at 1024 rows, the CNN's fc0 input,
     # a ragged M, bits 4 and 8; rows scaled over six decades so the

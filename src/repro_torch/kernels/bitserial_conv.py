@@ -3,27 +3,28 @@
 Ports of ``repro/kernels/bitserial_conv.py``: ``bitserial_conv`` (K2,
 packed weight planes), ``bitserial_conv_wgroup`` (K4, a weight plane count
 per filter group) and ``bitserial_conv_dynamic`` (K5, dense int8 weights
-and an activation plane count per window group). The kernels are in
-``csrc/bitserial_conv.cu``: K4 on the int8 tensor cores
-(``tcconv::conv_tc_kernel``), K2 and K5 on the CUDA cores (one template).
-Their plain PyTorch versions are the oracles
-:func:`repro_torch.kernels.ref.bitserial_conv_ref`,
+and an activation plane count per window group). All three launch one
+kernel on the int8 tensor cores, ``tcconv::conv_tc_kernel`` in
+``csrc/bitserial_conv.cu``, whose template parameter names the weight
+operand: packed planes (K2, K4) or dense int8 (K5). Their plain PyTorch
+versions are the oracles :func:`repro_torch.kernels.ref.bitserial_conv_ref`,
 :func:`~repro_torch.kernels.ref.bitserial_conv_wgroup_ref` and
 :func:`~repro_torch.kernels.ref.conv_dynamic_dense_ref`.
 
 Each block stages one band of input rows (the halo included) in shared
 memory and gathers its patches from there, so no patch tensor reaches
-device memory. :func:`conv_smem_bytes` is the largest shared-memory
-footprint of a block of any of the three at a band size, the counterpart
-of the TPU kernel's ``conv_vmem_bytes``; the plan sizes ``rows_per_band``
-so that it fits :data:`SMEM_BUDGET`. K4 then takes as much of the
-reduction per chunk as the rest of the budget holds
-(:func:`conv_tc_chunk`). K5 bands the same way (the reference's K5 aligns
-its bands to the window groups; here each pixel looks its group up, so
-any band is exact).
+device memory. :func:`conv_tc_layout` mirrors the block's shared memory;
+:func:`conv_smem_bytes`, its smallest footprint at a band size, is the
+counterpart of the TPU kernel's ``conv_vmem_bytes``: the plan sizes
+``rows_per_band`` so that it fits :data:`SMEM_BUDGET`. The wrappers then
+take as much of the reduction per chunk as the rest of the budget holds
+(:func:`conv_tc_chunk`) and two images a block where a band is one tile
+(:func:`conv_tc_images_per_block`). K5 bands like K2 (the reference's K5
+aligns its bands to the window groups; here each pixel looks its group
+up, so any band is exact).
 
 ``bitserial_conv.launches``, ``bitserial_conv_wgroup.launches`` and
-``bitserial_conv_dynamic.launches`` count each kernel's launches (the
+``bitserial_conv_dynamic.launches`` count each wrapper's launches (the
 plain route on CPU tensors does not count).
 """
 from __future__ import annotations
@@ -43,13 +44,8 @@ from repro_torch.kernels.ref import (
 # Shared memory one H100 thread block can use (bytes, static + dynamic).
 SMEM_BUDGET = 232_448
 
-# The CUDA-core kernels' static shared memory, K5's (the larger): the int8
-# [64][36] activation tile, the int32 [32][32] weight tile, the 64 + 32 int
-# offsets and K5's 64 window counts (csrc/bitserial_tile.cuh,
-# csrc/bitserial_conv.cu).
-_STATIC_SMEM = 64 * 36 + 32 * 32 * 4 + (64 + 32 + 64) * 4
-# K4's tile (csrc/bitserial_conv.cu, tcconv): BM pixels x BN filters, an
-# output row staged in OUT_LD bytes.
+# The kernel's tile (csrc/bitserial_conv.cu, tcconv): BM pixels x BN
+# filters, an output row staged in OUT_LD bytes.
 TC_BM, TC_BN = 64, 64
 _TC_OUT_LD = 4 * TC_BN + 32
 
@@ -70,30 +66,38 @@ def _round16(v: int) -> int:
 
 def conv_tc_layout(w: int, c: int, *, kernel: int, stride: int, rpb: int,
                    kc: int, wide: bool) -> dict:
-    """K4's shared-memory layout (``tcconv::Layout`` in the kernel): the
-    band's row stride and the left pad that puts each row's W*C interior
-    bytes on a 16-byte boundary; ``vec``, the bytes a patch run is copied
-    in (the largest of 16, 8, 4, 2, 1 dividing C); ``lds``, the byte stride
-    of a gathered patch and a folded filter (kc plus 0 or 32, so that it is
-    32 or 96 mod 128); and ``bytes``, the block's total."""
+    """The kernel's shared-memory layout (``tcconv::Layout``): the band's
+    row stride and the left pad that puts each row's W*C interior bytes on
+    a 16-byte boundary; ``vec``, the bytes a patch run is copied in (the
+    largest of 16, 8, 4, 2, 1 dividing C); ``lds``, the byte stride of a
+    gathered patch and of a filter's B operand (kc plus 0 or 32, so that it
+    is 32 or 96 mod 128); the byte offsets of the B operand (``b_off``;
+    two slices of BN filters where ``wide``), the patch tile (``a_off``),
+    the slot offsets (``koff_off``), the filter counts (``cnt_off``), the
+    pixel offsets (``pix_off``) and K5's pixel counts (``pcnt_off``); and
+    ``bytes``, the block's total."""
     pad = kernel // 2
     lpad = (16 - pad * c % 16) % 16
     row_ld = _round16(lpad + (w + 2 * pad) * c)
     band_rows = (rpb - 1) * stride + kernel
     vec = next(v for v in (16, 8, 4, 2, 1) if c % v == 0)
     lds = kc + (32 if kc // 32 % 2 == 0 else 0)
-    nbytes = (_round16(band_rows * row_ld) + (2 if wide else 1) * TC_BN * lds
-              + _round16(TC_BM * max(lds, _TC_OUT_LD))
-              + _round16(4 * (kc // vec)) + _round16(4 * (TC_BN + 1))
-              + 4 * TC_BM)
+    b_off = _round16(band_rows * row_ld)
+    a_off = b_off + (2 if wide else 1) * TC_BN * lds
+    koff_off = a_off + _round16(TC_BM * max(lds, _TC_OUT_LD))
+    cnt_off = koff_off + _round16(4 * (kc // vec))
+    pix_off = cnt_off + _round16(4 * (TC_BN + 1))
+    pcnt_off = pix_off + 4 * TC_BM
     return dict(pad=pad, lpad=lpad, row_ld=row_ld, band_rows=band_rows,
-                vec=vec, lds=lds, bytes=nbytes)
+                vec=vec, lds=lds, b_off=b_off, a_off=a_off, koff_off=koff_off,
+                cnt_off=cnt_off, pix_off=pix_off, pcnt_off=pcnt_off,
+                bytes=pcnt_off + 4 * TC_BM)
 
 
 def conv_tc_chunk(h: int, w: int, c: int, *, kernel: int, stride: int,
                   rpb: int, wide: bool) -> int:
-    """K4's reduction rows per chunk: the whole K8 rounded up to 32 where
-    the block's shared memory allows it (the folded weights are then made
+    """The kernel's reduction rows per chunk: the whole K8 rounded up to 32
+    where the block's shared memory allows it (the B operand is then made
     once per block), else the fewest equal chunks of a multiple of 32 that
     fit :data:`SMEM_BUDGET`."""
     kp = -(-kernel * kernel * c // 32) * 32
@@ -103,31 +107,40 @@ def conv_tc_chunk(h: int, w: int, c: int, *, kernel: int, stride: int,
                           wide=wide)["bytes"] <= SMEM_BUDGET:
             return kc
     raise ValueError(f"a band of {rpb} output rows of a {h}x{w}x{c} map "
-                     f"leaves K4 no room for a 32-row chunk")
+                     f"leaves no room for a 32-row chunk")
 
 
 def conv_tc_images_per_block(band_pixels: int) -> int:
-    """Images one K4 block runs, folding its filters' weights once: two
+    """Images one block runs, making its filters' B operand once: two
     where a band is a single tile of pixels (the fold then costs about as
     much as the tile's products, as at the paper CNN's conv3), else one (a
-    band of several tiles already shares its fold). It never changes a bit
-    of the result."""
+    band of several tiles already shares its B operand). It never changes
+    a bit of the result."""
     return 2 if band_pixels <= TC_BM else 1
 
 
 def conv_smem_bytes(h: int, w: int, c: int, *, kernel: int, stride: int = 1,
                     rows_per_band: int | None = None) -> int:
-    """Shared memory (bytes) of one block of the banded kernels at a band
-    size, the largest of the three: K2/K5 stage the int8 input band,
-    ((rpb-1)*stride + k) rows of (W + 2*(k//2)) * C, beside fixed tiles; K4
-    stages it with 16-byte aligned rows beside its smallest tile (one
-    32-row chunk at Pw > 8). The output channels, Pw and the plane counts do
-    not change it."""
+    """Shared memory (bytes) one block needs at a band size: the int8
+    input band with 16-byte aligned rows, ((rpb-1)*stride + k) of them,
+    beside the smallest tile (one 32-row chunk of the reduction, two
+    slices of B as at Pw > 8). The output channels, Pw and the plane
+    counts do not change it."""
     ho, wo = -(-h // stride), -(-w // stride)
-    rpb, _, band_rows = band_geometry(ho, wo, rows_per_band, kernel, stride)
-    return max(band_rows * (w + 2 * (kernel // 2)) * c + _STATIC_SMEM,
-               conv_tc_layout(w, c, kernel=kernel, stride=stride, rpb=rpb,
-                              kc=32, wide=True)["bytes"])
+    rpb, _, _ = band_geometry(ho, wo, rows_per_band, kernel, stride)
+    return conv_tc_layout(w, c, kernel=kernel, stride=stride, rpb=rpb, kc=32,
+                          wide=True)["bytes"]
+
+
+def conv_tc_layout_bytes(w: int, c: int, *, kernel: int, stride: int,
+                         rpb: int, kc: int, wide: bool) -> int:
+    """The built kernel's own ``tcconv::Layout`` total (bytes), computed on
+    the host from the library, to hold :func:`conv_tc_layout` equal to it.
+    Builds the library at first use (needs ``nvcc``, not a card)."""
+    fn = _build.load("bitserial_conv").conv_tc_layout_bytes
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_int
+    return fn(w, c, kernel, stride, rpb, kc, int(wide))
 
 
 @functools.cache
@@ -174,11 +187,11 @@ def _check_counts(counts: torch.Tensor, shape: tuple, x: torch.Tensor) -> None:
 
 def _launch(entry: str, kernel_fn, x: torch.Tensor, pointers: tuple, n: int,
             ints: tuple, *, kernel: int, stride: int,
-            rows_per_band: int | None) -> torch.Tensor:
+            rows_per_band: int | None, wide: bool) -> torch.Tensor:
     """Check the CUDA operands, allocate the output and launch ``entry`` on
     the current stream. ``ints`` is (head, tail) of the C signature
     (x, *pointers, out, B, H, W, C, N, k, stride, *head, rows_per_band,
-    *tail, stream)."""
+    *tail, kc, ipb, stream); ``wide``: two slices of B (Pw > 8)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if not all(t.is_contiguous() for t in (x, *pointers)):
@@ -196,7 +209,10 @@ def _launch(entry: str, kernel_fn, x: torch.Tensor, pointers: tuple, n: int,
     out = torch.empty((b, ho, wo, n), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
+    kc = conv_tc_chunk(h, w, c, kernel=kernel, stride=stride, rpb=rpb,
+                       wide=wide)
     head, tail = ints
+    tail = (*tail, kc, conv_tc_images_per_block(rpb * wo))
     with torch.cuda.device(x.device):
         err = _launcher(entry, 2 + len(pointers), 8 + len(head) + len(tail))(
             x.data_ptr(), *(t.data_ptr() for t in pointers), out.data_ptr(),
@@ -226,7 +242,8 @@ def bitserial_conv(x: torch.Tensor, w_packed: torch.Tensor, *, kernel: int,
                                     w_bits=w_bits)
     return _launch("bitserial_conv_launch", bitserial_conv, x, (w_packed,),
                    w_packed.shape[2], ((w_bits,), ()), kernel=kernel,
-                   stride=stride, rows_per_band=rows_per_band)
+                   stride=stride, rows_per_band=rows_per_band,
+                   wide=w_bits > 8)
 
 
 def bitserial_conv_wgroup(x: torch.Tensor, w_packed: torch.Tensor,
@@ -249,15 +266,10 @@ def bitserial_conv_wgroup(x: torch.Tensor, w_packed: torch.Tensor,
         return bitserial_conv_wgroup_plain(x, w_packed, counts, kernel=kernel,
                                            stride=stride, w_bits=w_bits,
                                            w_group=w_group)
-    b, h, w, c = x.shape
-    ho, wo = -(-h // stride), -(-w // stride)
-    rpb, _, _ = band_geometry(ho, wo, rows_per_band, kernel, stride)
-    kc = conv_tc_chunk(h, w, c, kernel=kernel, stride=stride, rpb=rpb,
-                       wide=w_bits > 8)
-    ipb = conv_tc_images_per_block(rpb * wo)
     return _launch("bitserial_conv_wgroup_launch", bitserial_conv_wgroup, x,
-                   (w_packed, counts), n, ((w_bits,), (w_group, kc, ipb)),
-                   kernel=kernel, stride=stride, rows_per_band=rows_per_band)
+                   (w_packed, counts), n, ((w_bits,), (w_group,)),
+                   kernel=kernel, stride=stride, rows_per_band=rows_per_band,
+                   wide=w_bits > 8)
 
 
 def bitserial_conv_dynamic(x: torch.Tensor, wq: torch.Tensor,
@@ -294,7 +306,8 @@ def bitserial_conv_dynamic(x: torch.Tensor, wq: torch.Tensor,
                                             group_size=group_size)
     return _launch("bitserial_conv_dynamic_launch", bitserial_conv_dynamic, x,
                    (wq, counts), wq.shape[1], ((), (group_size, ngroups)),
-                   kernel=kernel, stride=stride, rows_per_band=rows_per_band)
+                   kernel=kernel, stride=stride, rows_per_band=rows_per_band,
+                   wide=False)
 
 
 bitserial_conv.launches = 0

@@ -88,21 +88,31 @@ def _conv_walk(xp: torch.Tensor, w3: torch.Tensor, kernel: int, stride: int,
 
 
 def _conv_exact(x: torch.Tensor, wq: torch.Tensor, *, kernel: int,
-                stride: int, counts=None, group_size: int = 256
-                ) -> torch.Tensor:
+                stride: int, counts=None, group_size: int = 256,
+                rows_per_band: int | None = None) -> torch.Tensor:
     """Exact "same"-padded conv of int x [B, H, W, C] with int weights
     [>= k*k*C, N] (rows past k*k*C are the K8 pad and are not read).
     ``counts`` [B, G]: window p of image b has its activations truncated at
-    counts[b, p // group_size]."""
+    counts[b, p // group_size]. It runs one band of ``rows_per_band``
+    output rows (None = one band) at a time, each band computed from only
+    its own input row band, halo included."""
     b, h, w, c = x.shape
     dt = _exact_dtype(x.device)
     w3 = wq[:kernel * kernel * c].to(dt).reshape(kernel * kernel, c, -1)
     pad = kernel // 2
     ho, wo = -(-h // stride), -(-w // stride)
+    rpb = ho if rows_per_band is None else max(1, min(rows_per_band, ho))
+    cmap = _window_counts(counts, group_size, b, ho, wo)
     xp = F.pad(x.to(dt if counts is None else torch.int32),
                (0, 0, pad, pad, pad, pad))
-    return _narrow(_conv_walk(xp, w3, kernel, stride, ho, wo,
-                              _window_counts(counts, group_size, b, ho, wo)))
+    bands = []
+    for r0 in range(0, ho, rpb):
+        rows = min(rpb, ho - r0)
+        band = xp[:, r0 * stride:r0 * stride + (rows - 1) * stride + kernel]
+        bands.append(_conv_walk(band, w3, kernel, stride, rows, wo,
+                                None if cmap is None else
+                                cmap[:, r0:r0 + rows]))
+    return _narrow(torch.cat(bands, dim=1))
 
 
 def _window_counts(counts, group_size: int, b: int, ho: int, wo: int):
@@ -125,6 +135,19 @@ def bitserial_conv_ref(x: torch.Tensor, w_packed: torch.Tensor, *,
     """
     wq = bitpack.unpack_weights(w_packed, w_bits)
     return _conv_exact(x, wq, kernel=kernel, stride=stride)
+
+
+def bitserial_conv_banded_ref(x: torch.Tensor, w_packed: torch.Tensor, *,
+                              kernel: int, stride: int = 1, w_bits: int,
+                              rows_per_band: int) -> torch.Tensor:
+    """Band-by-band oracle of K2's decomposition: the conv of
+    :func:`bitserial_conv_ref`, one band of ``rows_per_band`` output rows
+    at a time, each band seeing only its own input row band (the halo).
+    It pins that banding never changes the result: for every band size it
+    equals :func:`bitserial_conv_ref` bit for bit."""
+    return _conv_exact(x, bitpack.unpack_weights(w_packed, w_bits),
+                       kernel=kernel, stride=stride,
+                       rows_per_band=rows_per_band)
 
 
 def bitserial_conv_wgroup_ref(x: torch.Tensor, w_packed: torch.Tensor,
@@ -175,22 +198,9 @@ def bitserial_conv_dynamic_banded_ref(x: torch.Tensor, w_packed: torch.Tensor,
     group's count. K5 bands as K2 does, by output rows, where the
     reference's kernel bands by window group; both decompositions equal
     :func:`bitserial_conv_dynamic_ref` for any counts."""
-    b, h, w, c = x.shape
-    dt = _exact_dtype(x.device)
-    wq = bitpack.unpack_weights(w_packed, w_bits)
-    w3 = wq[:kernel * kernel * c].to(dt).reshape(kernel * kernel, c, -1)
-    pad = kernel // 2
-    ho, wo = -(-h // stride), -(-w // stride)
-    rpb = ho if rows_per_band is None else max(1, min(rows_per_band, ho))
-    cmap = _window_counts(counts, group_size, b, ho, wo)
-    xp = F.pad(x.to(torch.int32), (0, 0, pad, pad, pad, pad))
-    bands = []
-    for r0 in range(0, ho, rpb):
-        rows = min(rpb, ho - r0)
-        band = xp[:, r0 * stride:r0 * stride + (rows - 1) * stride + kernel]
-        bands.append(_conv_walk(band, w3, kernel, stride, rows, wo,
-                                cmap[:, r0:r0 + rows]))
-    return _narrow(torch.cat(bands, dim=1))
+    return _conv_exact(x, bitpack.unpack_weights(w_packed, w_bits),
+                       kernel=kernel, stride=stride, counts=counts,
+                       group_size=group_size, rows_per_band=rows_per_band)
 
 
 def _flush_subnormals(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """PyTorch port on the card: kernels K1-K6 against their plain versions bit
-for bit (K1 and K3 on both of their tensor-core routes; K3 and K4 with
+for bit (K1 and K3 on both of their tensor-core routes; K3, K4 and K5 with
 random, full and all-1 plane counts) and K7 within its tolerance
 (on both of its routes); the ``cuda`` CNN session against
 ``torch_ref``, bit for bit, on the static, dynamic (``dynamic_a``) and
@@ -18,7 +18,8 @@ from repro_torch.core.policy import uniform_policy
 from repro_torch.models import cnn
 from repro_torch.kernels.bitserial_conv import (
     bitserial_conv, bitserial_conv_dynamic, bitserial_conv_dynamic_plain,
-    bitserial_conv_plain, bitserial_conv_wgroup, bitserial_conv_wgroup_plain)
+    bitserial_conv_plain, bitserial_conv_wgroup, bitserial_conv_wgroup_plain,
+    conv_tc_layout, conv_tc_layout_bytes)
 from repro_torch.kernels.bitserial_matmul import (
     bitserial_matmul, bitserial_matmul_dynamic, bitserial_matmul_dynamic_plain,
     bitserial_matmul_plain)
@@ -82,17 +83,41 @@ def test_matmul_kernel_wraps_like_int32(cuda, m):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("shape,kernel,stride,rows",
-                         [((4, 32, 32, 3), 3, 1, None), ((4, 9, 9, 5), 5, 2, 2),
-                          ((4, 8, 8, 64), 1, 1, 3)])
-def test_conv_kernel_equals_plain(cuda, shape, kernel, stride, rows):
-    x, wp = _operands(cuda, shape, kernel * kernel * shape[3], 40, 11,
+# K2 and K5 also at an odd batch on a one-tile band (blocks of two images,
+# the last one short), C = 512 (K = 4608, reduced in chunks) and N = 10
+# (int32 rows not a multiple of 16 bytes).
+_ODD_CHUNKED_RAGGED = [((3, 8, 8, 64), 3, 1, None, 128),
+                       ((2, 6, 6, 512), 3, 1, None, 40),
+                       ((4, 9, 9, 5), 3, 1, 3, 10)]
+
+
+@pytest.mark.parametrize("shape,kernel,stride,rows,n",
+                         [((4, 32, 32, 3), 3, 1, None, 40),
+                          ((4, 9, 9, 5), 5, 2, 2, 40),
+                          ((4, 8, 8, 64), 1, 1, 3, 40)] + _ODD_CHUNKED_RAGGED)
+def test_conv_kernel_equals_plain(cuda, shape, kernel, stride, rows, n):
+    x, wp = _operands(cuda, shape, kernel * kernel * shape[3], n, 11,
                       kernel)
+    before = bitserial_conv.launches
     got = bitserial_conv(x, wp, kernel=kernel, stride=stride, w_bits=11,
                          rows_per_band=rows)
     torch.cuda.synchronize()
+    assert bitserial_conv.launches == before + 1
     assert torch.equal(got, bitserial_conv_plain(x, wp, kernel=kernel,
                                                  stride=stride, w_bits=11))
+
+
+@pytest.mark.parametrize("w,c,kernel,stride,rpb,kc,wide", [
+    (32, 3, 3, 1, 32, 32, False), (16, 32, 3, 1, 16, 288, True),
+    (8, 64, 3, 1, 8, 576, False), (9, 5, 5, 2, 3, 128, True),
+    (6, 512, 3, 1, 6, 1152, False)])
+def test_conv_tc_layout_equals_kernel(cuda, w, c, kernel, stride, rpb, kc,
+                                      wide):
+    """The Python mirror of the block's shared memory equals the built
+    kernel's own sum (``tcconv::Layout``), the count tables included."""
+    assert conv_tc_layout(w, c, kernel=kernel, stride=stride, rpb=rpb, kc=kc,
+                          wide=wide)["bytes"] == conv_tc_layout_bytes(
+        w, c, kernel=kernel, stride=stride, rpb=rpb, kc=kc, wide=wide)
 
 
 def _counts(cuda, shape, bits, seed):
@@ -193,25 +218,27 @@ def test_conv_wgroup_kernel_equals_plain(cuda, rows):
         x, wp, counts, kernel=3, stride=1, w_bits=11))
 
 
-@pytest.mark.parametrize("shape,kernel,stride,rows,group",
-                         [((4, 9, 9, 3), 5, 2, 2, 8),
-                          ((4, 16, 16, 8), 3, 1, None, 64)])
+@pytest.mark.parametrize("shape,kernel,stride,rows,n", [
+    ((4, 9, 9, 3), 5, 2, 2, 24), ((4, 16, 16, 8), 3, 1, None, 24)]
+    + _ODD_CHUNKED_RAGGED)
+@pytest.mark.parametrize("group", [8, 64])
 def test_conv_dynamic_kernel_equals_plain(cuda, shape, kernel, stride, rows,
-                                          group):
+                                          n, group):
     g = torch.Generator().manual_seed(kernel)
     x = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8).to(cuda)
     k8 = -(-kernel * kernel * shape[3] // 8) * 8
-    wq = torch.randint(-128, 128, (k8, 24), generator=g,
+    wq = torch.randint(-128, 128, (k8, n), generator=g,
                        dtype=torch.int8).to(cuda)
     nwin = (-(-shape[1] // stride)) ** 2
-    counts = _counts(cuda, (shape[0], -(-nwin // group)), 8, group)
-    before = bitserial_conv_dynamic.launches
-    got = bitserial_conv_dynamic(x, wq, counts, kernel=kernel, stride=stride,
-                                 group_size=group, rows_per_band=rows)
-    torch.cuda.synchronize()
-    assert bitserial_conv_dynamic.launches == before + 1
-    assert torch.equal(got, bitserial_conv_dynamic_plain(
-        x, wq, counts, kernel=kernel, stride=stride, group_size=group))
+    for counts in _count_kinds(cuda, (shape[0], -(-nwin // group)), 8, group):
+        before = bitserial_conv_dynamic.launches
+        got = bitserial_conv_dynamic(x, wq, counts, kernel=kernel,
+                                     stride=stride, group_size=group,
+                                     rows_per_band=rows)
+        torch.cuda.synchronize()
+        assert bitserial_conv_dynamic.launches == before + 1
+        assert torch.equal(got, bitserial_conv_dynamic_plain(
+            x, wq, counts, kernel=kernel, stride=stride, group_size=group))
 
 
 def _skewed_params(cfg, cuda):

@@ -99,6 +99,26 @@ def test_conv_k_padding_rows():
                                w_bits=8).numpy(), want)
 
 
+# K2's banded oracle against JAX's: ragged N (13), k*k*C % 8 != 0 (C = 5),
+# stride 2, (Pa, Pw) in {(8,8), (4,4), (8,11)}, bands of 1, 2 and 4 rows
+# and one band larger than the map.
+@pytest.mark.parametrize("kernel,stride", [(1, 1), (3, 1), (3, 2), (5, 2)])
+@pytest.mark.parametrize("pa,pw", [(8, 8), (4, 4), (8, 11)])
+@pytest.mark.parametrize("rows", [1, 2, 4, 99])
+def test_conv_banded_ref_equals_jax(kernel, stride, pa, pw, rows):
+    x, wp = _conv_case(kernel, stride, pa, pw, n=13,
+                       seed=kernel * 1000 + stride * 100 + pw * 10 + rows)
+    args = dict(kernel=kernel, stride=stride, w_bits=pw)
+    want = np.asarray(jref.bitserial_conv_banded_ref(
+        jnp.asarray(x), jnp.asarray(wp), rows_per_band=rows, **args))
+    got = ref.bitserial_conv_banded_ref(_t(x), _t(wp), rows_per_band=rows,
+                                        **args)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(   # banding never changes a bit
+        ref.bitserial_conv_ref(_t(x), _t(wp), **args).numpy(), want)
+
+
 @pytest.mark.parametrize("ho,wo,rows,kernel,stride",
                          [(32, 32, None, 3, 1), (9, 9, 4, 5, 2),
                           (5, 5, 99, 1, 1), (8, 8, 0, 3, 2)])

@@ -1,4 +1,4 @@
-"""PyTorch port: the arithmetic of the tensor-core K3 and K4, on the CPU.
+"""PyTorch port: the arithmetic of the tensor-core K2-K5, on the CPU.
 
 CUDA kernels cannot run here, so plain-torch mirrors of what they compute
 (``csrc/bitfold.cuh``, ``csrc/bitserial_matmul.cu``,
@@ -13,11 +13,18 @@ on the same numpy inputs, exactly (int32):
 (b) K3: a tile loads only the planes below its columns' largest count,
     folds every column at its own count (column groups of 12, 16 and 256)
     and multiplies lo and hi slices in wrapping int32;
-(c) K4: the band staged with 16-byte aligned rows, the patches gathered
-    in runs of 16/8/4/2/1 bytes through per-pixel and per-slot offset
-    tables (conv1's C = 3, stride 2, k 1 and 5), in one chunk of the
-    reduction or several;
-(d) K3's route (K1's, whatever the counts) and K4's shared-memory layout.
+(c) the conv kernel (``tcconv::conv_tc_kernel``) that K2, K4 and K5
+    launch: the band staged with 16-byte aligned rows, the patches
+    gathered in runs of 16/8/4/2/1 bytes through per-pixel and per-slot
+    offset tables (conv1's C = 3, stride 2, k 1 and 5), in one chunk of
+    the reduction or several, blocks of one or two images. K4 folds the
+    packed planes at its counts, K2 at none (all Pw planes, against
+    ``bitserial_conv_ref``); K5 moves its dense int8 weights into the
+    tile by 8 x 8 byte transposes and truncates each gathered run at its
+    pixel's window-group count (against the Pallas
+    ``bitserial_conv_dynamic`` in interpret mode);
+(d) K3's route (K1's, whatever the counts) and the conv kernel's
+    shared-memory layout.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +33,8 @@ import torch
 
 from repro.core import bitpack as jbitpack, quantize as jq
 from repro.kernels import ref as jref
+from repro.kernels.bitserial_conv import (
+    bitserial_conv_dynamic as jbitserial_conv_dynamic)
 from repro_torch.kernels.bitserial_conv import (SMEM_BUDGET, TC_BM, TC_BN,
                                                 band_geometry, conv_smem_bytes,
                                                 conv_tc_chunk,
@@ -88,14 +97,21 @@ def _trim16(lo, hi, c):
             torch.where(small, sign, _trim8(hi, (c - 8).clamp(min=1))))
 
 
+def _byte_words(rows, n_rows):
+    """uint8 [R, K8, N] -> int64 words [K8, N]: byte i = rows[i], for i
+    below n_rows (and 8; later rows read as zero): the byte transpose of
+    8 rows of 8 columns (bitfold::transpose_bytes8)."""
+    x = torch.zeros(rows.shape[1:], dtype=torch.int64)
+    for i in range(min(n_rows, rows.shape[0], 8)):
+        x |= rows[i].to(torch.int64) << (8 * i)
+    return x
+
+
 def _fold_words(planes, n_planes):
     """uint8 plane bytes [P, K8, N] -> int64 words [K8, N] of planes
     0..n_planes-1 (fewer than 8; later ones read as zero): byte r = row
     8 kb + r, plane i at bit i (bitfold::fold8)."""
-    x = torch.zeros(planes.shape[1:], dtype=torch.int64)
-    for p in range(min(n_planes, planes.shape[0], 8)):
-        x |= planes[p].to(torch.int64) << (8 * p)
-    return _transpose8(x)
+    return _transpose8(_byte_words(planes, n_planes))
 
 
 def _bytes(words, signed):
@@ -231,7 +247,7 @@ def test_k3_mirror_wraps_like_int32():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-# -- (c) K4 ------------------------------------------------------------------
+# -- (c) the conv kernel: K4, K2, K5 --------------------------------------
 
 def _band(x_img, lay, r_in0):
     """Image [H, W, C] int8 -> the kernel's staged band bytes (uint8)."""
@@ -246,9 +262,12 @@ def _band(x_img, lay, r_in0):
     return band
 
 
-def _gather(band, lay, *, c, kernel, stride, wo, p0, band_px, ch, kc):
+def _gather(band, lay, *, c, kernel, stride, wo, p0, band_px, ch, kc,
+            pcnt=None):
     """The tile's patches [TC_BM, kc] for reduction rows [ch kc, (ch+1) kc),
-    slot by slot through the kernel's pix and k_off tables."""
+    slot by slot through the kernel's pix and k_off tables; with ``pcnt``
+    (int64 [TC_BM], K5) each pixel's bytes truncated at its count, 8 bytes
+    at a time (bitfold::trim8)."""
     kkc, run, vec = kernel * kernel * c, kernel * c, lay["vec"]
     pix = [p // wo * stride * lay["row_ld"] + lay["lpad"] + p % wo * stride * c
            if p < band_px else -1 for p in range(p0, p0 + TC_BM)]
@@ -261,52 +280,113 @@ def _gather(band, lay, *, c, kernel, stride, wo, p0, band_px, ch, kc):
         for q, ko in enumerate(k_off):
             if po >= 0 and ko >= 0:
                 a[r, q * vec:(q + 1) * vec] = band[po + ko:po + ko + vec]
+    if pcnt is not None:
+        words = _byte_words(a.reshape(TC_BM, kc // 8, 8).permute(2, 0, 1), 8)
+        a = _bytes(_trim8(words, pcnt[:, None]).T, signed=True).T
+        return a.contiguous()
     return a.view(torch.int8).to(torch.int32)
 
 
-def _k4_mirror(x, packed, counts, *, kernel, stride, w_bits, w_group,
-               rows_per_band=None, kc=None):
-    """K4's kernel: per (filter tile, band, image), the fold of each chunk
-    and, per pixel tile, the gathered patches times it."""
+def _chunk(x, kernel, stride, rows_per_band, wide):
+    """The wrappers' reduction rows per chunk for x [B, H, W, C]."""
+    h, w, c = x.shape[1:]
+    ho = -(-h // stride)
+    rpb = band_geometry(ho, ho, rows_per_band, kernel, stride)[0]
+    return conv_tc_chunk(h, w, c, kernel=kernel, stride=stride, rpb=rpb,
+                         wide=wide)
+
+
+def _tc_mirror(x, n, operand, *, kernel, stride, wide, rows_per_band, kc,
+               trim=None):
+    """``tcconv::conv_tc_kernel``: per (filter tile, band, block of ipb
+    images) the B operand of each chunk, ``operand(n0, ch, kc)`` (int32
+    [kc, cols], or the (lo, hi) slices where ``wide``), made once; per image
+    of the block and pixel tile, the gathered patches times it, each
+    pixel's bytes truncated at ``trim(img, window)`` where given (K5)."""
     b, h, w, c = x.shape
-    n = packed.shape[2]
     ho, wo = -(-h // stride), -(-w // stride)
     rpb, nb, _ = band_geometry(ho, wo, rows_per_band, kernel, stride)
-    if kc is None:
-        kc = conv_tc_chunk(h, w, c, kernel=kernel, stride=stride, rpb=rpb,
-                           wide=w_bits > 8)
     lay = conv_tc_layout(w, c, kernel=kernel, stride=stride, rpb=rpb, kc=kc,
-                         wide=w_bits > 8)
-    k8 = packed.shape[1]
-    nchunks = -(-(-(-k8 * 8 // 32) * 32) // kc)
-    kb = kc // 8
-    pad_rows = nchunks * kb - k8
-    planes = torch.cat([packed, torch.zeros((packed.shape[0], pad_rows, n),
-                                            dtype=torch.uint8)], dim=1)
-    cols = _column_counts(counts, w_group, n, w_bits)
+                         wide=wide)
+    nchunks = -(-(-(-kernel * kernel * c // 32) * 32) // kc)
+    ipb = conv_tc_images_per_block(rpb * wo)
+    bits = 16 if wide else 8       # _products: the lo/hi route where wide
     out = torch.zeros((b, ho, wo, n), dtype=torch.int32)
     for n0 in range(0, n, TC_BN):
-        c_tile = cols[n0:n0 + TC_BN]
-        folds = [_fold_counts(planes[:, ch * kb:(ch + 1) * kb, n0:n0 + TC_BN],
-                              w_bits, c_tile, n_planes=int(c_tile.max()))
-                 for ch in range(nchunks)]
+        cols = min(TC_BN, n - n0)
         for bi in range(nb):
             band_px = min(rpb, ho - bi * rpb) * wo
-            for img in range(b):
-                band = _band(x[img], lay, bi * rpb * stride - kernel // 2)
-                for p0 in range(0, band_px, TC_BM):
-                    acc = torch.zeros((TC_BM, c_tile.numel()),
-                                      dtype=torch.int32)
-                    for ch, folded in enumerate(folds):
-                        a = _gather(band, lay, c=c, kernel=kernel,
-                                    stride=stride, wo=wo, p0=p0,
-                                    band_px=band_px, ch=ch, kc=kc)
-                        acc = _narrow(acc.to(torch.int64)
-                                      + _products(a, folded, w_bits))
-                    p = torch.arange(p0, min(p0 + TC_BM, band_px))
-                    pr, pc = bi * rpb + p // wo, p % wo
-                    out[img, pr, pc, n0:n0 + TC_BN] = acc[:len(p)]
+            for b0 in range(0, b, ipb):
+                ops_ = [operand(n0, ch, kc) for ch in range(nchunks)]
+                for img in range(b0, min(b, b0 + ipb)):
+                    band = _band(x[img], lay, bi * rpb * stride - kernel // 2)
+                    for p0 in range(0, band_px, TC_BM):
+                        pcnt = None if trim is None else torch.tensor(
+                            [trim(img, bi * rpb * wo + p) if p < band_px
+                             else 8 for p in range(p0, p0 + TC_BM)])
+                        acc = torch.zeros((TC_BM, cols), dtype=torch.int32)
+                        for ch, op in enumerate(ops_):
+                            a = _gather(band, lay, c=c, kernel=kernel,
+                                        stride=stride, wo=wo, p0=p0,
+                                        band_px=band_px, ch=ch, kc=kc,
+                                        pcnt=pcnt)
+                            acc = _narrow(acc.to(torch.int64)
+                                          + _products(a, op, bits))
+                        p = torch.arange(p0, min(p0 + TC_BM, band_px))
+                        pr, pc = bi * rpb + p // wo, p % wo
+                        out[img, pr, pc, n0:n0 + TC_BN] = acc[:len(p)]
     return out
+
+
+def _rows_padded(w, kc, kernel, c):
+    """w [K8 (or its packed rows), ...] along dim -2 zero-padded to the
+    chunks' whole rows."""
+    k8 = -(-kernel * kernel * c // 8)
+    nchunks = -(-(-(-k8 * 8 // 32) * 32) // kc)
+    rows = nchunks * kc // (8 if w.dim() == 3 else 1)
+    pad = torch.zeros((*w.shape[:-2], rows - w.shape[-2], w.shape[-1]),
+                      dtype=w.dtype)
+    return torch.cat([w, pad], dim=-2)
+
+
+def _k4_mirror(x, packed, counts, *, kernel, stride, w_bits, w_group=16,
+               rows_per_band=None, kc=None):
+    """K4 (and K2 where ``counts`` is None: every filter at Pw): each
+    chunk's planes folded at the tile's counts, loading only the planes
+    below the tile's largest."""
+    n, c = packed.shape[2], x.shape[3]
+    kc = kc or _chunk(x, kernel, stride, rows_per_band, w_bits > 8)
+    planes = _rows_padded(packed, kc, kernel, c)
+    cols = (torch.full((n,), w_bits, dtype=torch.int64) if counts is None
+            else _column_counts(counts, w_group, n, w_bits))
+    kb = kc // 8
+
+    def operand(n0, ch, kc):
+        c_tile = cols[n0:n0 + TC_BN]
+        return _fold_counts(planes[:, ch * kb:(ch + 1) * kb, n0:n0 + TC_BN],
+                            w_bits, c_tile, n_planes=int(c_tile.max()))
+    return _tc_mirror(x, n, operand, kernel=kernel, stride=stride,
+                      wide=w_bits > 8, rows_per_band=rows_per_band, kc=kc)
+
+
+def _k5_mirror(x, wq, counts, *, kernel, stride, group, rows_per_band=None,
+               kc=None):
+    """K5: each chunk of the dense int8 weights moved into the tile by 8 x 8
+    byte transposes (no fold), and each pixel's gathered bytes truncated
+    at its window group's count, clamped to [1, 8], per image."""
+    n, c = wq.shape[1], x.shape[3]
+    kc = kc or _chunk(x, kernel, stride, rows_per_band, False)
+    rows = _rows_padded(wq, kc, kernel, c).view(torch.uint8)
+    cnt = torch.as_tensor(counts, dtype=torch.int64).clamp(1, 8)
+
+    def operand(n0, ch, kc):
+        chunk = rows[ch * kc:(ch + 1) * kc, n0:n0 + TC_BN]
+        words = _byte_words(chunk.reshape(kc // 8, 8, -1).permute(1, 0, 2), 8)
+        return _bytes(words, signed=True)
+
+    return _tc_mirror(x, n, operand, kernel=kernel, stride=stride, wide=False,
+                      rows_per_band=rows_per_band, kc=kc,
+                      trim=lambda img, p: int(cnt[img, p // group]))
 
 
 def _k4_case(seed, b, h, c, n, kernel, w_bits):
@@ -388,7 +468,88 @@ def test_k4_mirror_in_chunks(w_bits, kc):
         got.numpy(), _jax_conv(x, packed, counts, 3, 1, w_bits, 16))
 
 
-# -- (d) K3's route and K4's layout ------------------------------------------
+# K2: the same kernel with no counts (every filter at all Pw planes), held
+# against the static oracle: conv1's C = 3, stride 2, k 1 and 5, ragged N,
+# and B = 3 at a one-tile band (blocks of two images, the last one short).
+_K2_SHAPES = [(2, 8, 3, 32, 3, 1), (2, 9, 5, 40, 3, 2), (2, 7, 4, 24, 5, 2),
+              (2, 6, 8, 10, 1, 1), (3, 8, 16, 24, 3, 1)]
+
+
+@pytest.mark.parametrize("b,h,c,n,kernel,stride", _K2_SHAPES)
+@pytest.mark.parametrize("w_bits", [4, 8, 11, 16])
+def test_k2_mirror_equals_reference(b, h, c, n, kernel, stride, w_bits):
+    x, packed = _k4_case(h + n + w_bits, b, h, c, n, kernel, w_bits)
+    want = np.asarray(jref.bitserial_conv_ref(
+        jnp.asarray(x), jnp.asarray(packed), kernel=kernel, stride=stride,
+        w_bits=w_bits))
+    for rows in (None, 3):
+        got = _k4_mirror(_t(x), _t(packed), None, kernel=kernel,
+                         stride=stride, w_bits=w_bits, rows_per_band=rows)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("w_bits", [8, 16])
+@pytest.mark.parametrize("kc", [32, 64, 96])
+def test_k2_mirror_in_chunks(w_bits, kc):
+    x, packed = _k4_case(kc + w_bits + 1, 1, 5, 24, 20, 3, w_bits)
+    got = _k4_mirror(_t(x), _t(packed), None, kernel=3, stride=1,
+                     w_bits=w_bits, kc=kc)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jref.bitserial_conv_ref(jnp.asarray(x), jnp.asarray(packed),
+                                kernel=3, stride=1, w_bits=w_bits)))
+
+
+def _k5_case(seed, b, h, c, n, kernel, stride, group, kind):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, size=(b, h, h, c)).astype(np.int8)
+    k8 = -(-kernel * kernel * c // 8) * 8
+    wq = rng.integers(-128, 128, size=(k8, n)).astype(np.int8)
+    shape = (b, -(-(-(-h // stride)) ** 2 // group))
+    counts = {"random": rng.integers(1, 9, size=shape),
+              "full": np.full(shape, 8), "ones": np.ones(shape)}[kind]
+    return x, wq, counts.astype(np.int32)
+
+
+def _jax_conv_dynamic(x, wq, counts, kernel, stride, group):
+    return np.asarray(jbitserial_conv_dynamic(
+        jnp.asarray(x), jnp.asarray(wq), jnp.asarray(counts), kernel=kernel,
+        stride=stride, a_bits=8, group_size=group))
+
+
+# K5 against the Pallas kernel: conv1's C = 3, stride 2, k 1 and 5, ragged
+# N, window groups that do not divide Wo, and B = 3 at a one-tile band.
+_K5_SHAPES = [(2, 8, 3, 32, 3, 1, 16), (2, 9, 3, 24, 3, 1, 12),
+              (2, 9, 5, 40, 3, 2, 8), (2, 7, 4, 24, 5, 2, 3),
+              (2, 6, 8, 10, 1, 1, 16), (3, 8, 16, 24, 3, 1, 24)]
+
+
+@pytest.mark.parametrize("b,h,c,n,kernel,stride,group", _K5_SHAPES)
+@pytest.mark.parametrize("kind", ["random", "full", "ones"])
+def test_k5_mirror_equals_pallas(b, h, c, n, kernel, stride, group, kind):
+    x, wq, counts = _k5_case(h + c + n + len(kind), b, h, c, n, kernel,
+                             stride, group, kind)
+    want = _jax_conv_dynamic(x, wq, counts, kernel, stride, group)
+    for rows in (None, 3):
+        got = _k5_mirror(_t(x), _t(wq), counts, kernel=kernel, stride=stride,
+                         group=group, rows_per_band=rows)
+        np.testing.assert_array_equal(got.numpy(), want)
+    if kind == "random":     # the counts really truncate
+        assert not np.array_equal(want, _jax_conv_dynamic(
+            x, wq, np.full_like(counts, 8), kernel, stride, group))
+
+
+@pytest.mark.parametrize("kc", [32, 64, 96])
+def test_k5_mirror_in_chunks(kc):
+    """K = 216 in chunks: each chunk's dense rows transposed and its runs
+    truncated on their own."""
+    x, wq, counts = _k5_case(kc, 2, 5, 24, 20, 3, 1, 7, "random")
+    got = _k5_mirror(_t(x), _t(wq), counts, kernel=3, stride=1, group=7,
+                     kc=kc)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_conv_dynamic(x, wq, counts, 3, 1, 7))
+
+
+# -- (d) K3's route and the conv kernel's layout ------------------------------------------
 
 @pytest.mark.parametrize("m,k,n", [
     (256, 2048, 256),      # path D fc0^T
@@ -438,6 +599,20 @@ def test_k4_layout(h, c, kernel, stride, rows, wide):
     assert lay["row_ld"] % 16 == 0
     assert (lay["lpad"] + lay["pad"] * c) % 16 == 0     # interior aligned
     assert c % lay["vec"] == 0 and lay["lpad"] % lay["vec"] == 0
+    # The regions in order, each 16-byte aligned and clear of the next:
+    # band, B (two slices where wide), patches / output tile, slot offsets,
+    # filter counts, pixel offsets, then K5's [BM] pixel counts last.
+    bands, slices = lay["band_rows"] * lay["row_ld"], 2 if wide else 1
+    assert lay["b_off"] >= bands
+    assert lay["a_off"] == lay["b_off"] + slices * TC_BN * lay["lds"]
+    assert lay["koff_off"] >= lay["a_off"] + TC_BM * max(lay["lds"],
+                                                         4 * TC_BN)
+    assert lay["cnt_off"] >= lay["koff_off"] + 4 * (kc // lay["vec"])
+    assert lay["pix_off"] >= lay["cnt_off"] + 4 * (TC_BN + 1)
+    assert lay["pcnt_off"] == lay["pix_off"] + 4 * TC_BM
+    assert lay["bytes"] == lay["pcnt_off"] + 4 * TC_BM
+    assert all(lay[k] % 16 == 0 for k in ("b_off", "a_off", "koff_off",
+                                          "cnt_off", "pix_off", "pcnt_off"))
     kp = -(-kernel * kernel * c // 32) * 32
     if kc < kp:     # chunked only where the whole K does not fit
         whole = conv_tc_layout(h, c, kernel=kernel, stride=stride, rpb=rpb,
