@@ -75,6 +75,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               inputs equals its plain version, K7 on the head-repeated
               q/k/v is within K7_TOL of the port's ``chunked_attention`` in
               float32.
+   engine  -- the continuous-batching engine on the full LM (phase_lm's
+              ``cuda`` and ``dynamic_a`` sessions):
+              ``BatchingEngine(max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ)``
+              serves ENGINE_REQUESTS requests (prompt j: 96 + 64 j tokens
+              from numpy seed 2 + j, ENGINE_GEN tokens each) submitted one
+              step apart, the counts reset just before: every stream equals
+              a solo batch-1 ``generate`` over ENGINE_SEQ cache slots and
+              every batched decode row's logits equal the solo run's at the
+              same step (``torch.equal``; a difference runs a layer-by-layer
+              diagnosis that names the first op that differs, then fails);
+              K1 197 times per prefill and per decode step, nothing else.
+              The same traffic through ``compile(..., guarded=True)``, a
+              ``ServingSupervisor`` and the decode watchdog equals it with
+              ``fallback_report() == {}``. Chaos: an ``engine.step_stall``
+              past the watchdog's deadline and a ``backend.op``
+              ``TransientWorkerError`` in a decode each restart once and
+              replay to the solo streams. ``dynamic_a``: 3 requests in 2
+              slots equal their solo runs and the static tokens (K3 197
+              times per prefill and step). The serve CLI runs in two
+              subprocesses (``--server 3 --batch 2`` and a solo
+              ``--batch 1``): exit 0, row 0 equal. Prints tokens/s,
+              latency and queue-wait percentiles, occupancy, steps,
+              restarts, the median engine step and peak memory, beside the
+              card's name and power limit.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -88,8 +112,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               32768, 128] causal, the last held against the port's
               ``chunked_attention`` in float32. Each line also names the
               kernel's time in the parent (BEFORE_MS).
-6. profile -- per CNN path and for the LM's prefill, decode step and
-              ``dynamic_a`` prefill: the PyTorch operators one request
+6. profile -- per CNN path and for the LM's prefill, decode step,
+              ``dynamic_a`` prefill and one engine step at full occupancy
+              (ENGINE_BATCH requests decoding): the PyTorch operators one request
               dispatches on the host, device time by kernel
               (torch.profiler), and the device's idle share of the
               unprofiled median request time.
@@ -102,11 +127,17 @@ or one pass of the ops path) on each kernel's path; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
+
+import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -138,6 +169,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ops import conv_accum_fits_f32  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import cnn, layers as L, model as M  # noqa: E402
+from repro_torch.runtime import faults  # noqa: E402
+from repro_torch.runtime.batching import BatchingEngine, KVPool  # noqa: E402
+from repro_torch.runtime.serving import HEALTHY, ServingSupervisor  # noqa: E402
+from repro_torch.runtime.supervisor import TransientWorkerError  # noqa: E402
 
 BATCH = 256
 REQUESTS = 8
@@ -148,6 +183,11 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 CSRC = "src/repro_torch/kernels/csrc"
 LM_BATCH, LM_PROMPT, LM_GEN = 2, 512, 32
+# The engine phase: ENGINE_REQUESTS requests into ENGINE_BATCH slots of a
+# pool of ENGINE_SEQ cache slots; request j's prompt has 96 + 64 j tokens
+# (numpy seed 2 + j), and it asks for ENGINE_GEN tokens.
+ENGINE_BATCH, ENGINE_SEQ, ENGINE_GEN, ENGINE_REQUESTS = 4, 448, 24, 6
+CHAOS_GEN, CHAOS_STEP_TIMEOUT_S, CHAOS_STALL_S = 8, 2.0, 2.5
 # K7 against its plain version taken in float32 from the same inputs (bf16
 # widens exactly): (atol, rtol) by input dtype. The kernel works in float32
 # and rounds a bf16 output once, by at most half a bf16 ulp (2^-8 of the
@@ -354,7 +394,9 @@ def recorded_calls():
             setattr(backend_module, name, fn)
 
 
-def phase_device() -> tuple[str, int]:
+def phase_device() -> tuple[str, int, str]:
+    """The card's name and count, and nvidia-smi's "name, power limit"
+    line (printed on its own line, and beside the engine's numbers)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -366,7 +408,7 @@ def phase_device() -> tuple[str, int]:
     print(f"[device] {name}, {count} device(s), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     print(smi[0].strip())
-    return name, count
+    return name, count, smi[0].strip()
 
 
 # Kernels that must run on the tensor cores: (library, name fragment of
@@ -1149,6 +1191,375 @@ def phase_lm(errs: dict) -> dict:
                 max_seq=max_seq)
 
 
+def engine_prompts(cfg, n: int) -> list:
+    """Request j's prompt: 96 + 64 j tokens drawn with numpy seed 2 + j."""
+    return [np.random.default_rng(2 + j).integers(
+        1, cfg.vocab, size=96 + 64 * j).astype(np.int32) for j in range(n)]
+
+
+def solo_run(sess, prompt, gen_len: int) -> tuple:
+    """A solo batch-1 ``generate`` of ``prompt`` over the pool's
+    ENGINE_SEQ cache slots: its tokens, and the logits row behind each."""
+    rows = []
+    prefill, decode = sess._prefill, sess._decode
+
+    def rec_prefill(params, tokens, cache):
+        logits, cache = prefill(params, tokens, cache)
+        rows.append(logits[0, 0])
+        return logits, cache
+
+    def rec_decode(params, token, pos, cache):
+        logits, cache = decode(params, token, pos, cache)
+        rows.append(logits[0])
+        return logits, cache
+    rec = dataclasses.replace(sess, _prefill=rec_prefill, _decode=rec_decode)
+    return rec.generate(prompt[None, :], gen_len, max_seq=ENGINE_SEQ)[0], rows
+
+
+def recording_session(sess, rows: list, engine: list):
+    """``sess`` whose decode records, per batched step, each active
+    request's (request id, token index, logits row) of ``engine[0]``."""
+    decode = sess._decode
+
+    def recorded(params, token, pos, cache):
+        logits, cache = decode(params, token, pos, cache)
+        for slot, req in engine[0].active.items():
+            rows.append((req.request_id, req.n_generated, logits[slot]))
+        return logits, cache
+    return dataclasses.replace(sess, _decode=recorded)
+
+
+def drive_engine(eng, prompts: list, gen_len: int) -> tuple:
+    """Submit ``prompts`` one engine step apart, as the serve CLI does, then
+    step until the engine drains. Returns (stream handles, host seconds of
+    each step, kernel launches of each step)."""
+    handles, step_s, step_launches = [], [], []
+
+    def step() -> bool:
+        before = sum(read_launches().values())
+        t0 = time.perf_counter()
+        more = eng.step()          # ends with the tokens on the host
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append(sum(read_launches().values()) - before)
+        return more
+    for prompt in prompts:
+        handles.append(eng.submit(prompt, gen_len))
+        step()
+    while step():
+        pass
+    return handles, step_s, step_launches
+
+
+def drive_engine_admit(eng, prompts: list) -> None:
+    """Submit and admit ``prompts`` one step apart, leaving them decoding
+    (each asks for ENGINE_GEN tokens)."""
+    for prompt in prompts:
+        eng.submit(prompt, ENGINE_GEN)
+        eng.step()
+    check(len(eng.active) == len(prompts), "engine profile: requests not "
+          "all admitted")
+
+
+def _attend_steps(q, cache, cfg, pos) -> list:
+    """``attention.decode_attend``'s intermediates, op by op (its code,
+    spelled out for the batch-variance diagnosis)."""
+    d = q.shape[-1]
+    n_rep = q.shape[2] // cfg.n_kv_heads
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    kh = attn._repeat_kv(cache["k"], n_rep).permute(0, 2, 1, 3).to(**f32)
+    vt = attn._repeat_kv(cache["v"], n_rep).permute(0, 2, 3, 1).to(**f32)
+    qt = q.permute(0, 2, 1, 3).to(torch.float32) * d ** -0.5
+    logits = (qt * kh).sum(-1)[:, :, None, :]
+    valid = attn._valid_slots(cache, cfg, pos)
+    masked = torch.where(valid[:, None, None, :], logits, attn.NEG_INF)
+    p_ = torch.softmax(masked, dim=-1)
+    out = (p_ * vt).sum(-1)[:, :, None, :]
+    return [("q scaled", qt), ("q.k sum", logits), ("mask", masked),
+            ("softmax", p_), ("p.v sum", out)]
+
+
+def diagnose_batch_variance(sess, prompts: list) -> str:
+    """The first op of a decode step whose row of a batch of ENGINE_BATCH
+    differs from the same row decoded alone: RMSNorm, RoPE, every linear
+    and ``decode_attend`` (then its own ops) are traced in call order."""
+    n = min(ENGINE_BATCH, len(prompts))
+    pool = KVPool(sess, n, ENGINE_SEQ)
+    solo_caches, toks = [], []
+    for b, prompt in enumerate(prompts[:n]):
+        cache1 = sess.init_cache(1, ENGINE_SEQ)
+        logits, cache1 = sess.prefill(prompt[None, :], cache1)
+        pool.scatter_prefill(b, cache1)
+        solo_caches.append(cache1)
+        toks.append(int(torch.argmax(logits[0, 0])))
+    pos = np.array([len(p_) for p_ in prompts[:n]], np.int32)
+    tok = np.array(toks, np.int32)
+    names = {"rms_norm": L, "rope": L, "linear_apply": L,
+             "decode_attend": attn}
+    originals = {name: getattr(mod, name) for name, mod in names.items()}
+
+    def traced(trace):
+        def wrap(name, fn):
+            def call(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                trace.append((name, args, out))
+                return out
+            return call
+        for name, mod in names.items():
+            setattr(mod, name, wrap(name, originals[name]))
+
+    def run(trace, *args):
+        traced(trace)
+        try:
+            sess.decode(*args)
+        finally:
+            for name, mod in names.items():
+                setattr(mod, name, originals[name])
+        torch.cuda.synchronize()
+    batched = []
+    run(batched, tok, pos, pool.cache)
+    for b in range(n):
+        alone = []
+        run(alone, tok[b:b + 1], int(pos[b]), solo_caches[b])
+        for i, ((name, args, got), (_, args1, want)) in enumerate(
+                zip(batched, alone)):
+            row = got[b:b + 1]
+            if torch.equal(row, want):
+                continue
+            where = f"op {i} ({name}, layer {i // 14})"
+            if name == "decode_attend":
+                steps_b = _attend_steps(args[0], args[1], args[2], args[3])
+                steps_1 = _attend_steps(*args1[:4])
+                for (sname, sb), (_, s1) in zip(steps_b, steps_1):
+                    if not torch.equal(sb[b:b + 1], s1):
+                        name, row, want = f"decode_attend's {sname}", \
+                            sb[b:b + 1], s1
+                        break
+            diff = (row.float() - want.float()).abs().flatten()
+            first = int(torch.nonzero(diff).flatten()[0]) if \
+                bool(diff.any()) else -1
+            msg = (f"{where}: {name} of shape {tuple(got.shape)} (row {b}) "
+                   f"differs from the batch-1 run; first differing flat "
+                   f"index {first}: batched {row.flatten()[first].item()!r}"
+                   f", alone {want.flatten()[first].item()!r}; max abs "
+                   f"diff {diff.max().item():.3g}")
+            print(f"[engine] batch variance: {msg}")
+            return msg
+    return "no op differs when the batch is rebuilt from prefills"
+
+
+def phase_engine(lm: dict, card: str) -> dict:
+    """The continuous-batching engine on the full LM (the issue's main
+    path of this slice): a static run whose streams and decode logits
+    equal solo generates, the same traffic guarded and supervised with
+    the watchdog on, two chaos cases, a ``dynamic_a`` run, and the serve
+    CLI in a subprocess."""
+    t_phase = time.perf_counter()
+    sess, dyn, n_lin = lm["sess"], lm["dyn"], lm["n_lin"]
+    cfg = sess.cfg
+    prompts = engine_prompts(cfg, ENGINE_REQUESTS)
+    t0 = time.perf_counter()
+    solos = [solo_run(sess, p_, ENGINE_GEN) for p_ in prompts]
+    torch.cuda.synchronize()
+    print(f"[engine] {card}: solo batch-1 generate of {ENGINE_REQUESTS} "
+          f"prompts of {[len(p_) for p_ in prompts]} tokens (numpy seeds "
+          f"2-{1 + ENGINE_REQUESTS}) x {ENGINE_GEN} tokens over "
+          f"{ENGINE_SEQ} cache slots: {time.perf_counter() - t0:.2f} s")
+
+    # The static run, with the counts reset just before.
+    rows, ref = [], []
+    eng = BatchingEngine(recording_session(sess, rows, ref),
+                         max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ)
+    ref.append(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    handles, step_s, step_launches = drive_engine(eng, prompts, ENGINE_GEN)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    st, steps = eng.stats, eng.n_decode_steps
+    lm_step_launches("engine", launches, {
+        "bitserial_matmul": n_lin * (steps + ENGINE_REQUESTS)})
+    check(st.n_engine_restarts == 0 and st.n_ok == ENGINE_REQUESTS,
+          f"engine static run: {st.n_ok} done, "
+          f"{st.n_engine_restarts} restarts")
+    check(len(rows) == ENGINE_REQUESTS * (ENGINE_GEN - 1),
+          f"engine recorded {len(rows)} batched rows")
+    # A row's logits equal the solo run's only while its tokens so far do;
+    # the first differing row of each request is the finding.
+    differ = [(rid, idx) for rid, idx, row in rows
+              if not torch.equal(row, solos[rid][1][idx])]
+    if differ:
+        cause = diagnose_batch_variance(sess, prompts)
+        check(False, f"engine: {len(differ)} of {len(rows)} batched decode "
+              f"rows' logits differ from the solo run's (first: request "
+              f"{differ[0][0]}, token {differ[0][1]}); {cause}")
+    tokens = []
+    for j, (h, (solo, _)) in enumerate(zip(handles, solos)):
+        got = h.result(timeout=60.0)
+        check(got.shape == (ENGINE_GEN,) and np.array_equal(got, solo),
+              f"engine request {j}: stream {got.tolist()} differs from its "
+              f"solo generate {solo.tolist()}")
+        tokens.append(got)
+    decode_only = sorted(t for t, n in zip(step_s, step_launches)
+                         if n == n_lin)
+    step_med = decode_only[len(decode_only) // 2]
+    print(f"[engine] {card}: static run: {ENGINE_REQUESTS} requests into "
+          f"{ENGINE_BATCH} slots, submitted one step apart (requests 4 and "
+          f"5 queue and join mid-flight): every stream == its solo "
+          f"generate, and all {len(rows)} batched decode rows' logits == "
+          f"the solo run's at the same step (torch.equal); {steps} decode "
+          f"steps + {ENGINE_REQUESTS} prefills, launches {launches} (K1 = "
+          f"{n_lin} x {steps + ENGINE_REQUESTS})")
+    print(f"[engine] {card}: static run metrics: {st.tokens_per_s:.2f} "
+          f"tokens/s over the engine's busy time ({st.n_tokens_streamed} "
+          f"tokens in {wall:.3f} s wall), request latency p50 "
+          f"{st.p50_request_latency_s:.4f} s p95 "
+          f"{st.p95_request_latency_s:.4f} s, queue wait p50 "
+          f"{st.p50_queue_wait_s:.4f} s p95 {st.p95_queue_wait_s:.4f} s, "
+          f"occupancy {st.batch_occupancy:.3f} of {ENGINE_BATCH}, "
+          f"{steps} decode steps, {st.n_engine_restarts} restarts; one "
+          f"engine step (host clock, ends with the tokens on the host): "
+          f"median {step_med * 1e3:.3f} ms over {len(decode_only)} "
+          f"decode-only steps (min {decode_only[0] * 1e3:.3f}, max "
+          f"{decode_only[-1] * 1e3:.3f}), median "
+          f"{sorted(step_s)[len(step_s) // 2] * 1e3:.3f} ms over all "
+          f"{len(step_s)}; peak device memory {peak / 2**20:.1f} MiB")
+    del rows, solos
+
+    # The same traffic guarded and supervised, decoding on the watchdog's
+    # thread.
+    gsess = repro_torch.compile(cfg, uniform_policy(8, 8),
+                                mode="serve_packed", backend="cuda",
+                                params=sess.params, device="cuda",
+                                guarded=True)
+    sup = ServingSupervisor(gsess)
+    geng = BatchingEngine(sup, max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ,
+                          step_timeout_s=60.0)
+    reset_launches()
+    gh, gstep_s, _ = drive_engine(geng, prompts, ENGINE_GEN)
+    glaunches = read_launches()
+    for j, h in enumerate(gh):
+        check(np.array_equal(h.result(timeout=60.0), tokens[j]),
+              f"guarded supervised engine request {j} differs from the "
+              f"static run")
+    check(gsess.plan.fallback_report() == {},
+          f"guarded run fell back: {gsess.plan.fallback_report()}")
+    check(geng.health()["state"] == HEALTHY, f"guarded run health "
+          f"{geng.health()['state']}")
+    lm_step_launches("engine guarded", glaunches, {
+        "bitserial_matmul": n_lin * (geng.n_decode_steps + ENGINE_REQUESTS)})
+    geng.drain()
+    print(f"[engine] {card}: guarded + supervised run (step_timeout_s 60, "
+          f"decodes on the watchdog's thread): streams == static run, "
+          f"fallback_report() == {{}}, health healthy, launches "
+          f"{glaunches}; median step "
+          f"{sorted(gstep_s)[len(gstep_s) // 2] * 1e3:.3f} ms")
+
+    # Chaos: a stalled decode past the watchdog's deadline, and a worker
+    # lost in a decode; each restarts and replays.
+    chaos = prompts[:3]
+    want = [t[:CHAOS_GEN] for t in tokens[:3]]
+    cases = (
+        ("engine.step_stall", BatchingEngine(
+            sess, max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ,
+            step_timeout_s=CHAOS_STEP_TIMEOUT_S),
+         dict(delay=CHAOS_STALL_S)),
+        ("backend.op", BatchingEngine(
+            ServingSupervisor(gsess), max_batch=ENGINE_BATCH,
+            max_seq=ENGINE_SEQ),
+         dict(exc=TransientWorkerError("chaos: worker lost in a decode"),
+              match="matmul_planes")))
+    for point, ceng, kw in cases:
+        hs = [ceng.submit(p_, CHAOS_GEN) for p_ in chaos]
+        ceng.step()                  # every request admitted, one decode
+        with faults.inject(point, times=1, **kw) as fault:
+            ceng.run(max_steps=100)
+        check(fault.fired == 1 and ceng.stats.n_engine_restarts == 1,
+              f"chaos {point}: fired {fault.fired}, restarts "
+              f"{ceng.stats.n_engine_restarts}")
+        for j, h in enumerate(hs):
+            check(np.array_equal(h.result(timeout=60.0), want[j]),
+                  f"chaos {point}: request {j} differs from its solo run")
+        ceng.drain()
+        # The stalled call was abandoned, not stopped: wait for it to end
+        # (it writes the old pool, and would count launches of later
+        # phases).
+        t_wait = time.monotonic() + 4 * CHAOS_STALL_S
+        while any(t.name.startswith("engine-watchdog") and t.is_alive()
+                  for t in threading.enumerate()):
+            check(time.monotonic() < t_wait, "an abandoned stalled decode "
+                  "did not end")
+            time.sleep(0.05)
+        torch.cuda.synchronize()
+        print(f"[engine] {card}: chaos {point} ({kw}): 1 restart, "
+              f"{len(hs)} streams == solo after restart-and-replay")
+    check(gsess.plan.fallback_report() == {}, "chaos backend.op fell back")
+
+    # dynamic_a: K3 on every linear, transposed.
+    dprompts = prompts[:3]
+    dsolo = [dyn.generate(p_[None, :], CHAOS_GEN, max_seq=ENGINE_SEQ)[0]
+             for p_ in dprompts]
+    deng = BatchingEngine(dyn, max_batch=2, max_seq=ENGINE_SEQ)
+    reset_launches()
+    dh, dstep_s, _ = drive_engine(deng, dprompts, CHAOS_GEN)
+    dlaunches = read_launches()
+    lm_step_launches("engine dynamic_a", dlaunches, {
+        "bitserial_matmul_dynamic": n_lin * (deng.n_decode_steps + 3)})
+    for j, h in enumerate(dh):
+        got = h.result(timeout=60.0)
+        check(np.array_equal(got, dsolo[j]) and
+              np.array_equal(got, tokens[j][:CHAOS_GEN]),
+              f"engine dynamic_a request {j} differs from its solo run or "
+              f"the static engine's tokens")
+    print(f"[engine] {card}: dynamic_a run (3 requests, 2 slots, "
+          f"{CHAOS_GEN} tokens): streams == solo dynamic_a generate == the "
+          f"static engine's; launches {dlaunches}; median step "
+          f"{sorted(dstep_s)[len(dstep_s) // 2] * 1e3:.3f} ms")
+    phase_engine_cli(card)
+    print(f"[engine] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, dyn_launches=dlaunches, step_s=step_med,
+                prompts=prompts)
+
+
+def phase_engine_cli(card: str) -> None:
+    """``python -m repro_torch.launch.serve`` in two subprocesses at once:
+    server mode (3 requests, 2 slots) and a solo ``--batch 1`` run of
+    request 0's prompt; row 0 must equal the solo run."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "qwen3-1.7b", "--mode", "serve_packed"]
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [str(Path(tmp) / "server.npy"), str(Path(tmp) / "solo.npy")]
+        cmds = [base + ["--server", "3", "--batch", "2", "--out-tokens",
+                        files[0]],
+                base + ["--batch", "1", "--out-tokens", files[1]]]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(c, env=env, cwd=root, text=True,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT) for c in cmds]
+        try:
+            outs = [p_.communicate(timeout=300)[0] for p_ in procs]
+        finally:
+            for p_ in procs:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.wait()
+        for c, p_, out in zip(cmds, procs, outs):
+            check(p_.returncode == 0, f"{' '.join(c[2:])} exited "
+                  f"{p_.returncode}:\n{out[-3000:]}")
+        rows, solo = np.load(files[0]), np.load(files[1])
+    check(rows.shape == (3, 16) and np.array_equal(rows[0], solo[0]),
+          f"serve CLI: --server row 0 {rows[0].tolist()} differs from the "
+          f"solo run {solo[0].tolist()}")
+    line = [ln for ln in outs[0].splitlines() if "[serve] server:" in ln]
+    print(f"[engine] {card}: serve CLI (smoke config on the card): --server "
+          f"3 --batch 2 exit 0, row 0 == solo --batch 1 run, both in "
+          f"{time.perf_counter() - t0:.1f} s; {line[0] if line else ''}")
+
+
 def _packed_bytes(wp: torch.Tensor, counts, bn: int) -> int:
     """Bytes of the packed operand that the counts need: column j reads
     min(count, Pw) planes of K/8 bytes."""
@@ -1474,15 +1885,18 @@ def main() -> None:
     # (cuDNN's default for convolutions).
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    name, count = phase_device()
+    name, count, card = phase_device()
     phase_build()
     errs = {k: 0 for k in KERNELS}
     phase_kernels(errs)
     phase_k7(errs)
     served = phase_serve()
     lm = phase_lm(errs)
+    engine = phase_engine(lm, card)
     launches = dict(served["launches"])
     launches["LM generate"] = lm["gen_launches"]
+    launches["LM engine"] = engine["launches"]
+    launches["LM engine dynamic_a"] = engine["dyn_launches"]
     launches["ops"] = lm["ops_launches"]
     runs = {label: (lambda sess=sess, x=x: sess.classify(x))
             for label, (sess, x, _) in served["runs"].items()}
@@ -1506,6 +1920,14 @@ def main() -> None:
     phase_profile("LM dynamic_a prefill",
                   lambda: dyn.prefill(tokens, dyn_cache),
                   lm["dyn_prefill_s"], lm["n_lin"], requests=2)
+    # One engine step at full occupancy: ENGINE_BATCH requests admitted,
+    # then decode-only steps (host bookkeeping and the tokens' transfer
+    # included).
+    eng = BatchingEngine(sess, max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ)
+    drive_engine_admit(eng, engine["prompts"][:ENGINE_BATCH])
+    phase_profile(f"LM engine step ({card})", eng.step, engine["step_s"],
+                  lm["n_lin"], requests=4)
+    eng.shutdown(0.0)
     kernels = []
     for kname, spec in KERNELS.items():
         path = spec["path"]

@@ -21,13 +21,19 @@ Pack-time weight-group counts (``w_counts``, Python ints from the plan)
 that are all full keep the static kernels (K1, K2); a count below Pw
 routes ``matmul_planes`` to K3 with bn = the filter group and
 ``conv_planes`` to K4. ``dynamic_quant`` runs K6 and ``attention`` K7.
+
+:class:`GuardedBackend` (``compile(..., guarded=True)``) wraps either one
+with typed fault classification, numeric-integrity prechecks and a
+sticky per-op fallback chain ``cuda -> torch_ref``.
 """
 from __future__ import annotations
 
 import functools
+import warnings
 
 import torch
 
+from repro_torch.api import guards
 from repro_torch.core import bitpack, quantize as q
 from repro_torch.core.weightgroups import truncate_columns_grouped
 from repro_torch.kernels import ref
@@ -188,7 +194,239 @@ class CudaBackend(Backend):
         return flash_attention(q_, k_, v_, causal=causal, window=window)
 
 
+# -- Guarded dispatch -------------------------------------------------------
+
+# Degradation order: the kernels first, the plain PyTorch oracles last. A
+# GuardedBackend's chain is the suffix of this list after its inner
+# backend (an out-of-tree inner falls straight to the built-ins). Every
+# member runs on the operands' device: a fallback never moves a tensor.
+DEFAULT_FALLBACK_CHAIN = ("cuda", "torch_ref")
+
+# The uniform op surface a Backend exposes (= what a GuardedBackend guards).
+BACKEND_OPS = ("matmul_planes", "matmul_planes_dynamic", "conv_planes",
+               "conv_planes_dynamic", "dynamic_quant", "attention")
+
+
+def _silent_corrupt(out):
+    """``backend.silent_corrupt`` fault effect: wrong-but-finite values.
+
+    Reverses the last axis of the op's (primary) output: shape- and
+    dtype-preserving, deterministic, raising nothing and making no
+    NaN/Inf -- the corruption every loud guard is blind to."""
+    if isinstance(out, tuple):
+        return (torch.flip(out[0], dims=(-1,)),) + tuple(out[1:])
+    return torch.flip(out, dims=(-1,))
+
+
+class GuardedBackend(Backend):
+    """Fault-classifying wrapper: fallback chain + numeric-integrity guards.
+
+    Wraps any registered backend. Every op dispatch:
+
+    1. runs the *numeric-integrity prechecks* -- operand-shape coherence
+       against the packed layout and the accumulator-overflow bound
+       recomputed from the ACTUAL (Pa, Pw, K) of the operands (typed
+       :class:`~repro_torch.api.guards.AccumulatorOverflowError` /
+       ``BackendShapeError``; these fail loudly rather than fall back,
+       because every chain member shares the same int32 accumulator);
+    2. fires the ``backend.op`` fault point (chaos testing);
+    3. delegates to the innermost non-failed backend in the chain. A
+       non-transient failure (compile / resource / shape / unknown, per
+       :func:`~repro_torch.api.guards.classify_error`) degrades the op to
+       the next chain member with a one-line warning, and the op STAYS
+       fallen back (sticky per op, recorded in ``fallbacks_by_op`` and
+       read through the owning plan's ``fallback_report()``). Transient
+       failures re-raise unchanged: the serving supervisor owns the
+       retry, and the substrate is not the problem.
+
+    The port's ops take no activation precision (the int8 kernel ABI
+    caps it at 8), so the accumulator bound is taken at ``a_bits`` = 8
+    unless a caller passes one.
+
+    Bit-transparency contract: on the fault-free path every op returns
+    the inner backend's tensors unchanged -- guarded serving is
+    byte-identical to unguarded serving.
+    """
+
+    def __init__(self, inner, chain=None):
+        inner = resolve_backend(inner)
+        self.inner = inner
+        self.name = f"guarded:{inner.name}"
+        if chain is None:
+            names = list(DEFAULT_FALLBACK_CHAIN)
+            if inner.name in names:
+                names = names[names.index(inner.name) + 1:]
+            chain = [resolve_backend(n) for n in names]
+        else:
+            chain = [resolve_backend(b) for b in chain]
+        self.chain: list[Backend] = [inner] + [b for b in chain
+                                               if b is not inner]
+        self.fallbacks_by_op: dict[str, str] = {}   # op -> serving backend
+        self._active_idx: dict[str, int] = {}
+
+    def __repr__(self):
+        return (f"<GuardedBackend {self.inner.name} "
+                f"chain={[b.name for b in self.chain[1:]]} "
+                f"fallbacks={self.fallbacks_by_op}>")
+
+    def active_backend(self, op: str) -> Backend:
+        """The chain member currently serving ``op``."""
+        return self.chain[self._active_idx.get(op, 0)]
+
+    def _dispatch(self, op: str, *args, **kwargs):
+        from repro_torch.runtime import faults
+        start = self._active_idx.get(op, 0)
+        last_exc = None
+        for i in range(start, len(self.chain)):
+            b = self.chain[i]
+            try:
+                faults.fire("backend.op", detail=f"{op}:{b.name}")
+                out = getattr(b, op)(*args, **kwargs)
+                if faults.take("backend.silent_corrupt",
+                               detail=f"{op}:{b.name}"):
+                    out = _silent_corrupt(out)
+                return out
+            except Exception as exc:  # noqa: BLE001 -- classified below
+                kind = guards.classify_error(exc)
+                if kind == guards.TRANSIENT:
+                    raise   # substrate is fine; the supervisor retries
+                last_exc = exc
+                if i + 1 < len(self.chain):
+                    nxt = self.chain[i + 1]
+                    warnings.warn(
+                        f"[guarded] {op}: backend {b.name!r} failed "
+                        f"({kind}: {exc}) -- falling back to {nxt.name!r} "
+                        f"(sticky)", RuntimeWarning, stacklevel=3)
+                    self._active_idx[op] = i + 1
+                    self.fallbacks_by_op[op] = nxt.name
+        raise guards.FallbackExhaustedError(
+            f"{op}: every backend in the fallback chain "
+            f"{[b.name for b in self.chain]} failed") from last_exc
+
+    @staticmethod
+    def _check_packed_k(k_logical: int, w_packed, op: str) -> int:
+        """Packed-layout coherence: the packed K dim must be the logical
+        reduction length rounded up to the 8-row pack quantum."""
+        k8 = int(w_packed.shape[1]) * 8
+        if not 0 <= k8 - k_logical < 8:
+            raise guards.BackendShapeError(
+                f"{op}: packed operand covers K={k8} but the logical "
+                f"reduction length is {k_logical} (pad quantum is 8 rows) "
+                f"-- operands are incoherent")
+        return k8
+
+    @staticmethod
+    def _check_w_counts(w_counts, w_group: int, n: int, w_bits: int,
+                        op: str) -> None:
+        """Pass-law precheck on the static weight-group counts (Python
+        ints from the plan): one count per group of ``w_group`` output
+        columns, every count in [1, w_bits]. A violation means corrupt
+        plan metadata -- the dispatch would execute the wrong plane
+        partitions, silently."""
+        if w_counts is None:
+            return
+        want = -(-n // w_group)
+        if len(w_counts) != want:
+            raise guards.BackendShapeError(
+                f"{op}: {len(w_counts)} weight-group counts for N={n} at "
+                f"w_group={w_group} (pass law needs {want} groups) -- "
+                f"operands and plan metadata are incoherent")
+        bad = sorted({int(c) for c in w_counts if not 1 <= int(c) <= w_bits})
+        if bad:
+            raise guards.WeightIntegrityError(
+                f"{op}: weight-group plane counts {bad} outside "
+                f"[1, {w_bits}] -- corrupt pass-law metadata; refusing to "
+                f"dispatch wrong plane partitions")
+
+    @staticmethod
+    def _check_plane_counts(counts: torch.Tensor, bits: int,
+                            op: str) -> None:
+        """Bounds check on runtime (OR-tree) plane counts, reduced on
+        their device: two scalars cross to the host."""
+        if counts.numel() == 0:
+            return
+        lo, hi = int(counts.min()), int(counts.max())
+        if lo < 1 or hi > bits:
+            raise guards.WeightIntegrityError(
+                f"{op}: runtime plane counts span [{lo}, {hi}] outside the "
+                f"legal [1, {bits}] -- the OR-tree output is corrupt")
+
+    # -- guarded op surface -------------------------------------------------
+
+    def matmul_planes(self, xq, w_packed, *, w_bits, a_bits=8, w_counts=None,
+                      w_group=16):
+        k8 = self._check_packed_k(int(xq.shape[-1]), w_packed,
+                                  "matmul_planes")
+        guards.check_accum_bound(k8, a_bits, w_bits, "matmul_planes")
+        self._check_w_counts(w_counts, w_group, int(w_packed.shape[-1]),
+                             w_bits, "matmul_planes")
+        return self._dispatch("matmul_planes", xq, w_packed, w_bits=w_bits,
+                              w_counts=w_counts, w_group=w_group)
+
+    def matmul_planes_dynamic(self, xq, w_packed, plane_counts, *, w_bits,
+                              bn):
+        # The dense operand rides int8 (<= 8 magnitude bits) on every
+        # caller; the packed operand carries w_bits planes.
+        k8 = self._check_packed_k(int(xq.shape[-1]), w_packed,
+                                  "matmul_planes_dynamic")
+        guards.check_accum_bound(k8, 8, w_bits, "matmul_planes_dynamic")
+        self._check_plane_counts(plane_counts, w_bits,
+                                 "matmul_planes_dynamic")
+        return self._dispatch("matmul_planes_dynamic", xq, w_packed,
+                              plane_counts, w_bits=w_bits, bn=bn)
+
+    def conv_planes(self, xq, w_packed, *, kernel, stride, w_bits, a_bits=8,
+                    conv_tile=None, w_counts=None, w_group=16):
+        kkc = kernel * kernel * int(xq.shape[-1])
+        self._check_packed_k(kkc, w_packed, "conv_planes")
+        guards.check_accum_bound(kkc, a_bits, w_bits, "conv_planes")
+        self._check_w_counts(w_counts, w_group, int(w_packed.shape[-1]),
+                             w_bits, "conv_planes")
+        return self._dispatch("conv_planes", xq, w_packed, kernel=kernel,
+                              stride=stride, w_bits=w_bits,
+                              conv_tile=conv_tile, w_counts=w_counts,
+                              w_group=w_group)
+
+    def conv_planes_dynamic(self, xq, w_packed, counts, *, kernel, stride,
+                            w_bits, group_size, a_bits=8, conv_tile=None,
+                            w_counts=None, w_group=16):
+        kkc = kernel * kernel * int(xq.shape[-1])
+        self._check_packed_k(kkc, w_packed, "conv_planes_dynamic")
+        guards.check_accum_bound(kkc, a_bits, w_bits, "conv_planes_dynamic")
+        self._check_w_counts(w_counts, w_group, int(w_packed.shape[-1]),
+                             w_bits, "conv_planes_dynamic")
+        self._check_plane_counts(counts, a_bits, "conv_planes_dynamic")
+        return self._dispatch("conv_planes_dynamic", xq, w_packed, counts,
+                              kernel=kernel, stride=stride, w_bits=w_bits,
+                              group_size=group_size, conv_tile=conv_tile,
+                              w_counts=w_counts, w_group=w_group)
+
+    def dynamic_quant(self, x2, *, group_size, bits):
+        # A NaN/Inf activation quantizes to garbage silently; reject it
+        # here (the value path is untouched either way).
+        guards.check_finite(x2, "dynamic_quant input")
+        return self._dispatch("dynamic_quant", x2, group_size=group_size,
+                              bits=bits)
+
+    def attention(self, q_, k_, v_, *, causal=True, window=None):
+        return self._dispatch("attention", q_, k_, v_, causal=causal,
+                              window=window)
+
+
+def guard_backend(backend, chain=None) -> GuardedBackend:
+    """Wrap ``backend`` (object or registered name) in a GuardedBackend.
+
+    Idempotent: an already-guarded backend is returned unchanged."""
+    if isinstance(backend, GuardedBackend):
+        return backend
+    return GuardedBackend(backend, chain=chain)
+
+
 _REGISTRY: dict[str, Backend] = {}
+
+
+def list_backends() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
 
 
 def register_backend(name: str, backend: Backend) -> Backend:

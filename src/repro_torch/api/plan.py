@@ -7,6 +7,8 @@ also owns the backend.
 
 The ``dense`` and ``serve_packed`` modes are ported, for the paper CNN and
 the LM (whose plans are keyed by layer class, ``attn_q`` ... ``lm_head``).
+:meth:`ExecutionPlan.fallback_report` reads a guarded backend's sticky
+fallbacks.
 The conv band
 size is sized against one H100 thread block's shared memory
 (:data:`repro_torch.kernels.bitserial_conv.SMEM_BUDGET`), where the
@@ -117,6 +119,18 @@ class ExecutionPlan:
         self.layers[(lp.name, lp.kind)] = dataclasses.replace(
             lp, conv_tile=rpb, conv_tile_geom=geom)
         return rpb
+
+    def fallback_report(self) -> dict:
+        """Which ops degraded off the primary backend, and to where.
+
+        The plan owns the backend, so backend fallbacks are plan state: a
+        :class:`~repro_torch.api.backend.GuardedBackend` records every
+        sticky per-op fallback in ``fallbacks_by_op`` and this accessor
+        exposes it (``{}`` for unguarded backends and on the fault-free
+        path). An op that fell back stays fallen back for the plan's
+        lifetime.
+        """
+        return dict(getattr(self.backend, "fallbacks_by_op", {}))
 
     def record_weight_groups(self, named_params: dict) -> None:
         """Freeze pack-time per-filter-group weight plane counts into plans.

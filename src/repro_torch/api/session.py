@@ -13,9 +13,15 @@ PyTorch-port counterpart of ``repro/api/session.py``::
     gen = session.generate(tokens, gen_len=16)        # greedy, numpy int32
 
 The session runs on the card (``device="cuda"``) unless the caller asks
-for the CPU. PyTorch runs eagerly, so there is nothing to jit. The LM's
-cache is written in place by ``prefill`` and ``decode``. There is no
-integrity fingerprint yet (ROADMAP A.9).
+for the CPU. PyTorch runs eagerly, so there is nothing to jit: the entry
+points ``_prefill`` / ``_decode`` / ``_classify`` are plain closures over
+the config and the plan, the hooks that
+:class:`~repro_torch.runtime.serving.ServingSupervisor` wraps, as the
+reference wraps its jitted ones. The LM's cache is written in place by
+``prefill`` and ``decode``. ``compile(..., guarded=True)`` wraps the
+backend in a :class:`~repro_torch.api.backend.GuardedBackend`. There is no
+integrity fingerprint yet (``verify_integrity`` / ``refingerprint``:
+ROADMAP A.9b).
 """
 from __future__ import annotations
 
@@ -32,12 +38,21 @@ _SERVING_MODES = ("serve_packed",)
 
 @dataclasses.dataclass
 class ServingSession:
-    """A compiled model + plan, ready to serve. Built by :func:`compile`."""
+    """A compiled model + plan, ready to serve. Built by :func:`compile`.
+
+    ``_prefill(params, tokens, cache)``, ``_decode(params, token, pos,
+    cache)`` and ``_classify(params, x)`` are the entry points (None where
+    the model has none); the public methods put their inputs on the
+    session's device and call them under ``torch.inference_mode``.
+    """
 
     cfg: Any
     plan: ExecutionPlan
     params: dict
     device: torch.device
+    _prefill: Any = None
+    _decode: Any = None
+    _classify: Any = None
 
     @property
     def is_lm(self) -> bool:
@@ -60,26 +75,23 @@ class ServingSession:
         """Fill caches from a full prompt (int [B, S]). Returns
         (last-token logits [B, 1, V], cache); ``cache`` defaults to a new
         one of ``cfg.max_seq`` slots."""
-        from repro_torch.models import model as M
         self._need(lm=True)
         tokens = torch.as_tensor(tokens, device=self.device).long()
         if cache is None:
             cache = self.init_cache(tokens.shape[0])
         with torch.inference_mode():
-            return M.prefill(self.params, self.cfg, tokens, cache, self.plan)
+            return self._prefill(self.params, tokens, cache)
 
     def decode(self, token, pos, cache):
         """One decode step. token: int [B]; pos: the absolute position, an
         int for the whole batch or an int [B] tensor per row. Returns
         (logits [B, V], cache)."""
-        from repro_torch.models import model as M
         self._need(lm=True)
         token = torch.as_tensor(token, device=self.device).long()
         if not isinstance(pos, int):
             pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         with torch.inference_mode():
-            return M.decode_step(self.params, self.cfg, token, pos, cache,
-                                 self.plan)
+            return self._decode(self.params, token, pos, cache)
 
     def generate(self, tokens, gen_len: int, max_seq: int | None = None):
         """Greedy generation: prefill + gen_len - 1 decode steps over a
@@ -102,17 +114,56 @@ class ServingSession:
     def classify(self, x) -> torch.Tensor:
         """x: [B, H, W, C] float (tensor or array) -> logits [B, n_classes]
         on the session's device."""
-        from repro_torch.models import cnn
         self._need(lm=False)
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         with torch.inference_mode():
-            return cnn.forward(self.params, self.cfg, x, self.plan)
+            return self._classify(self.params, x)
+
+    # -- Plan state ---------------------------------------------------------
+
+    def rejit(self) -> "ServingSession":
+        """Fresh entry points for the same cfg/plan/params.
+
+        The reference re-jits after a backend quarantine, because a traced
+        entry point baked the old dispatch into its cache. The port runs
+        eagerly: every call already reads the plan's backend state (a
+        guarded backend's sticky fallbacks included), so the fresh
+        closures only drop any instrumentation wrapped around the old
+        ones."""
+        return dataclasses.replace(self, **entry_points(self.cfg, self.plan))
+
+    def layer_plan(self, name: str = "", kind: str = "linear"):
+        """The resolved :class:`~repro_torch.api.plan.LayerPlan` of one
+        layer (an LM's layer class, or a CNN layer's name)."""
+        return self.plan.layer(name, kind=kind)
+
+
+def entry_points(cfg, plan) -> dict:
+    """The session's entry-point closures over ``cfg`` and ``plan``
+    (``_prefill`` and ``_decode`` for an LM, ``_classify`` for a CNN);
+    ``launch.serve.make_serve_fns`` hands out the LM's pair."""
+    if hasattr(cfg, "pattern"):
+        from repro_torch.models import model as M
+
+        def prefill(params, tokens, cache):
+            return M.prefill(params, cfg, tokens, cache, plan)
+
+        def decode(params, token, pos, cache):
+            return M.decode_step(params, cfg, token, pos, cache, plan)
+
+        return dict(_prefill=prefill, _decode=decode)
+    from repro_torch.models import cnn
+
+    def classify(params, x):
+        return cnn.forward(params, cfg, x, plan)
+
+    return dict(_classify=classify)
 
 
 def compile(cfg, policy: Optional[PrecisionPolicy] = None,
             mode: str = "dense", backend="cuda", *, params=None,
             generator: torch.Generator | None = None,
-            device="cuda") -> ServingSession:
+            device="cuda", guarded: bool = False) -> ServingSession:
     """Compile a model for serving: plans + params on ``device``.
 
     ``cfg``: a CNN config (``classify``) or an LM ``ModelConfig``
@@ -124,7 +175,12 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
     the LM's on ``device``). ``backend``: registered name or Backend
     object; the default ``cuda`` launches the kernels on the card and takes
     their plain versions with ``device="cpu"``. ``device="cuda"`` without
-    a card raises.
+    a card raises. ``guarded``: wrap the backend in a
+    :class:`~repro_torch.api.backend.GuardedBackend` -- typed fault
+    classification, sticky per-op fallback down ``cuda -> torch_ref`` and
+    numeric-integrity prechecks; bit-identical to unguarded on the
+    fault-free path (pair with ``repro_torch.runtime.ServingSupervisor``
+    for request-level retry/timeout/health).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -133,6 +189,9 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
     from repro_torch import interop
     from repro_torch.models import model as M
     policy = policy if policy is not None else PrecisionPolicy()
+    if guarded:
+        from repro_torch.api.backend import guard_backend
+        backend = guard_backend(backend)
     plan = build_plan(cfg, policy, mode, backend)
     lm = hasattr(cfg, "pattern")
     if params is None:
@@ -151,4 +210,5 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
         else:
             params = M.convert_tree(params, policy, mode)
             plan.record_weight_groups(params)
-    return ServingSession(cfg=cfg, plan=plan, params=params, device=device)
+    return ServingSession(cfg=cfg, plan=plan, params=params, device=device,
+                          **entry_points(cfg, plan))

@@ -6,7 +6,8 @@ attention.py``. All four projections are Loom linears (through the plan).
 Prefill runs :func:`chunked_attention`, plain PyTorch with an online
 softmax, as the reference's prefill does; the kernel K7 is reached through
 ``kernels.ops.attention`` only. Decode repeats the KV heads and attends
-over the whole cache, masked by each slot's recorded position.
+over the whole cache, masked by each slot's recorded position, in a
+batch-invariant form (:func:`decode_attend`).
 
 The KV cache is ``{"k", "v": [B, S_cache, H_kv, D] bf16, "slot_pos": int32
 [B, S_cache]}`` (a ring of ``window`` slots for a sliding-window layer).
@@ -203,18 +204,28 @@ def _valid_slots(cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
 
 def decode_attend(q, cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
     """q: [B, 1, Hq, D] against the cache (KV heads repeated); returns
-    [B, 1, Hq, D] in q's dtype."""
+    [B, 1, Hq, D] in q's dtype.
+
+    Batch-invariant: row b's result does not depend on the other rows, so
+    a row of the batching engine's decode equals the same row decoded
+    alone. The two float32 products are an elementwise product and a sum
+    over the tensor's last, contiguous dim, not ``einsum``: cuBLAS picks
+    its kernel by the batch count, and PyTorch's reduction over a
+    contiguous last dim of at least 16 outputs sums each one in the same
+    order for any number of them. The softmax is one row per warp (or
+    block) whatever the batch."""
     _check_ported(cfg)
     d = q.shape[-1]
     n_rep = q.shape[2] // cfg.n_kv_heads
-    kh = _repeat_kv(cache["k"], n_rep).permute(0, 2, 1, 3)   # [B, Hq, S, D]
-    vh = _repeat_kv(cache["v"], n_rep).permute(0, 2, 1, 3)
-    qt = q.permute(0, 2, 1, 3).to(torch.float32) * d ** -0.5
-    logits = torch.einsum("bhqd,bhkd->bhqk", qt, kh.to(torch.float32))
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    kh = _repeat_kv(cache["k"], n_rep).permute(0, 2, 1, 3).to(**f32)
+    vt = _repeat_kv(cache["v"], n_rep).permute(0, 2, 3, 1).to(**f32)
+    qt = q.permute(0, 2, 1, 3).to(torch.float32) * d ** -0.5  # [B, Hq, 1, D]
+    logits = (qt * kh).sum(-1)[:, :, None, :]                 # [B, Hq, 1, S]
     valid = _valid_slots(cache, cfg, pos)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     p_ = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p_, vh.to(torch.float32))
+    out = (p_ * vt).sum(-1)[:, :, None, :]                    # [B, Hq, 1, D]
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 

@@ -3,7 +3,9 @@ for bit (K1 and K3 on both of their tensor-core routes; K3, K4 and K5 with
 random, full and all-1 plane counts) and K7 within its tolerance
 (on both of its routes); the ``cuda`` CNN session against
 ``torch_ref``, bit for bit, on the static, dynamic (``dynamic_a``) and
-weight-group paths, and the smoke LM's prefill and decode likewise.
+weight-group paths, and the smoke LM's prefill and decode likewise; the
+batching engine's streams and batched decode logits against solo runs,
+guarded and supervised, with the watchdog and through a restart.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -382,3 +384,90 @@ def test_lm_cuda_session_equals_torch_ref(cuda, dynamic_a):
         out[be] = (logits, step)
     assert torch.equal(out["cuda"][0], out["torch_ref"][0])
     assert torch.equal(out["cuda"][1], out["torch_ref"][1])
+
+
+def _engine_session(cuda, policy, guarded=False):
+    return repro_torch.compile(configs.get("qwen3-1.7b", smoke=True), policy,
+                               mode="serve_packed", backend="cuda",
+                               device=cuda, guarded=guarded)
+
+
+def _engine_prompts(n=3):
+    import numpy as np
+    rng = np.random.default_rng(11)
+    return [rng.integers(1, 256, size=(24 + 8 * j,)).astype(np.int32)
+            for j in range(n)]
+
+
+@pytest.mark.parametrize("dynamic_a", [False, True])
+def test_engine_streams_and_logits_equal_solo(cuda, dynamic_a):
+    """The batching engine on the card: every stream, and every batched
+    decode row's logits, equal a solo batch-1 generate over the pool's
+    cache length (K1 at M = max_batch on its skinny route, or K3)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.runtime.batching import BatchingEngine
+    sess = _engine_session(cuda, uniform_policy(8, 8, dynamic_a=dynamic_a))
+    prompts, gen, max_seq = _engine_prompts(), 5, 64
+    solo_rows = []
+    for p in prompts:
+        logits, cache = sess.prefill(p[None, :], sess.init_cache(1, max_seq))
+        tok = logits[:, 0].argmax(-1)
+        rows = [tok]
+        for i in range(gen - 1):
+            logits, cache = sess.decode(tok, len(p) + i, cache)
+            rows.append(logits[0])
+            tok = logits.argmax(-1)
+        solo_rows.append(rows)
+    seen, engine = [], []
+    decode = sess._decode
+
+    def recorded(params, token, pos, cache):
+        logits, cache = decode(params, token, pos, cache)
+        for slot, req in engine[0].active.items():
+            seen.append((req.request_id, req.n_generated, logits[slot]))
+        return logits, cache
+    eng = BatchingEngine(dataclasses.replace(sess, _decode=recorded),
+                         max_batch=4, max_seq=max_seq)
+    engine.append(eng)
+    hs = [eng.submit(p, gen) for p in prompts]
+    eng.run(max_steps=50)
+    for j, (h, p) in enumerate(zip(hs, prompts)):
+        want = sess.generate(p[None, :], gen, max_seq=max_seq)[0]
+        assert np.array_equal(h.result(timeout=30.0), want), j
+    assert len(seen) == len(prompts) * (gen - 1)
+    for rid, idx, row in seen:
+        assert torch.equal(row, solo_rows[rid][idx]), (rid, idx)
+
+
+def test_engine_guarded_supervised_watchdog_and_restart(cuda):
+    """Guarded + supervised, decoding on the watchdog's thread: the same
+    streams, no fallback; a transient backend fault in a decode restarts
+    and replays to the same streams."""
+    import numpy as np
+    from repro_torch.runtime import ServingSupervisor, faults
+    from repro_torch.runtime.batching import BatchingEngine
+    from repro_torch.runtime.supervisor import TransientWorkerError
+    plain = _engine_session(cuda, uniform_policy(8, 8))
+    sess = _engine_session(cuda, uniform_policy(8, 8), guarded=True)
+    prompts = _engine_prompts()
+    want = [plain.generate(p[None, :], 5)[0] for p in prompts]
+    eng = BatchingEngine(ServingSupervisor(sess), max_batch=4,
+                         step_timeout_s=60.0)
+    hs = [eng.submit(p, 5) for p in prompts]
+    eng.step()
+    faults.reset()
+    try:
+        with faults.inject("backend.op", exc=TransientWorkerError("lost"),
+                           times=1, match="matmul_planes") as fault:
+            eng.run(max_steps=50)
+    finally:
+        leaked = faults.active_points()
+        faults.reset()
+    assert not leaked and fault.fired == 1
+    assert eng.stats.n_engine_restarts == 1
+    for h, w in zip(hs, want):
+        assert np.array_equal(h.result(timeout=30.0), w)
+    assert sess.plan.fallback_report() == {}
+    eng.drain()

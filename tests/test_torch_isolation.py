@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch``, nor
-``chip_smoke.py``, ``chip_k7_faults.py`` or ``chip_kernel_times.py``,
-imports ``jax`` or the JAX package ``repro``."""
+``chip_smoke.py``, ``chip_k7_faults.py``, ``chip_kernel_times.py`` or
+``chip_batch_variance.py``, imports ``jax`` or the JAX package
+``repro``."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,7 @@ import pytest
 _ROOT = Path(__file__).resolve().parents[1]
 _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
     _ROOT / "chip_smoke.py", _ROOT / "chip_k7_faults.py",
-    _ROOT / "chip_kernel_times.py"]
+    _ROOT / "chip_kernel_times.py", _ROOT / "chip_batch_variance.py"]
 
 
 def _forbidden(module: str) -> bool:

@@ -1,0 +1,83 @@
+"""PyTorch port, the serve CLI (``python -m repro_torch.launch.serve``),
+called in-process with ``--device cpu`` at smoke size: the session and
+plan APIs agree, ``--guarded`` equals unguarded, ``--server N`` row j
+equals a solo run of request j's prompt, the CNN classifies, and the
+flags of ROADMAP A.9b raise."""
+import numpy as np
+import pytest
+
+from repro_torch.launch import serve
+from repro_torch.runtime import faults
+
+LM = ["--arch", "qwen3-1.7b", "--mode", "serve_packed", "--device", "cpu",
+      "--gen-len", "4"]
+CNN = ["--arch", "paper-cnn", "--mode", "serve_packed", "--device", "cpu",
+       "--batch", "3"]
+
+
+@pytest.fixture(autouse=True)
+def _no_fault_leaks():
+    """The port's fault registry starts clean, and a test that leaks an
+    armed fault fails by name."""
+    faults.reset()
+    yield
+    leaked = faults.active_points()
+    faults.reset()
+    assert not leaked, f"fault(s) still armed at teardown: {leaked}"
+
+
+@pytest.mark.parametrize("extra", [[], ["--dynamic-a", "--group-size", "8"]])
+def test_session_api_equals_plan_api(extra):
+    args = LM + ["--batch", "2"] + extra
+    a = serve.main(args + ["--api", "session"])
+    b = serve.main(args + ["--api", "plan"])
+    assert a.shape == (2, 4) and a.dtype == np.int32
+    np.testing.assert_array_equal(a, b)
+
+
+def test_guarded_equals_unguarded(capsys):
+    base = serve.main(LM + ["--batch", "2"])
+    got = serve.main(LM + ["--batch", "2", "--guarded"])
+    np.testing.assert_array_equal(base, got)
+    assert "'state': 'healthy'" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [[], ["--guarded", "--step-timeout", "60"]])
+def test_server_rows_equal_solo_runs(extra, tmp_path, capsys):
+    out = tmp_path / "rows.npy"
+    rows = serve.main(LM + ["--server", "3", "--batch", "2",
+                            "--prompt-seed", "5", "--prompt-len", "6",
+                            "--out-tokens", str(out)] + extra)
+    assert rows.shape == (3, 4)
+    np.testing.assert_array_equal(np.load(out), rows)
+    log = capsys.readouterr().out
+    assert "drained=True" in log and "restarts=0" in log
+    for j in range(3):
+        solo = serve.main(LM + ["--batch", "1", "--prompt-seed", str(5 + j),
+                                "--prompt-len", str(6 + j)])
+        np.testing.assert_array_equal(rows[j], solo[0], err_msg=f"row {j}")
+
+
+def test_cnn_classifies_on_both_apis_guarded_or_not():
+    a = serve.main(CNN)
+    assert a.shape == (3,) and (0 <= a).all() and (a < 10).all()
+    np.testing.assert_array_equal(a, serve.main(CNN + ["--api", "plan"]))
+    np.testing.assert_array_equal(a, serve.main(CNN + ["--guarded"]))
+    np.testing.assert_array_equal(
+        serve.main(CNN + ["--dynamic-a"]),
+        serve.main(CNN + ["--dynamic-a", "--api", "plan"]))
+    with pytest.raises(SystemExit, match="LM decode mode"):
+        serve.main(CNN + ["--server", "2"])
+
+
+@pytest.mark.parametrize("flag", [["--audit-rate", "0.5"],
+                                  ["--audit-backend", "torch_ref"],
+                                  ["--integrity-every", "4"]])
+def test_a9b_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
+        serve.main(LM + ["--server", "2"] + flag)
+
+
+def test_unported_mode_raises():
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+        serve.main(LM + ["--mode", "serve_int8"])
