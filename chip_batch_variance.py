@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""Is the LM's decode step batch-invariant on the card, and what does the
-batch-invariant ``decode_attend`` cost against the ``einsum`` form it
-replaced?
+"""Is the LM's decode step batch-invariant on the card, and what does it
+cost, at the batching engine's sizes?
 
     python3 chip_batch_variance.py
 
-On the full qwen3-1.7b (random weights, seed 0), four prompts of
-``chip_smoke.engine_prompts`` are prefilled alone and copied into one
-4-slot KV pool of ``chip_smoke.ENGINE_SEQ`` slots; one decode step runs
-on the pool and on each prompt's own batch-1 cache, and
+On the full qwen3-1.7b (random weights, seed 0), for two pool sizes --
+the engine phase of ``chip_smoke.py`` (``chip_smoke.ENGINE_BATCH`` slots
+of ``chip_smoke.ENGINE_SEQ``) and the ``BatchingEngine`` defaults (8
+slots of ``cfg.max_seq``) -- one prompt per slot, from the first seven
+of ``chip_smoke.engine_prompts`` (the eighth slot takes the first again),
+is prefilled alone and copied into one pool; one decode step runs on the
+pool and on each prompt's own batch-1 cache, and
 ``chip_smoke.diagnose_batch_variance`` names the first op (RMSNorm, RoPE,
 a linear or ``decode_attend``, in call order) whose row of the batch
-differs from the row decoded alone. That is done for the port's
-``decode_attend`` (an elementwise product and a sum over the contiguous
-last dim) and for the float32 ``einsum`` form it replaced. Then both
-forms' decode step at batch 4 is timed (host clock to synchronize,
-median of 15) and profiled (device busy time, ``chip_smoke.phase_profile``).
-Exits non-zero when the port's form differs, or without a CUDA device.
+differs from the row decoded alone.
+Then the decode step at that size is timed (host clock to synchronize,
+median of 15), profiled (device busy time, ``chip_smoke.phase_profile``)
+and its memory read: the pool's bytes, and the peak above what was
+allocated before the step (``torch.cuda.max_memory_allocated``). Exits
+non-zero when either size is batch-variant, or without a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,23 +35,11 @@ import chip_smoke as cs  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.core.policy import uniform_policy  # noqa: E402
-from repro_torch.models import attention as A, model as M  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 
-
-def einsum_attend(q, cache, cfg, pos):
-    """``decode_attend`` as the port had it before the batching engine:
-    two float32 ``einsum``s (batched matrix products)."""
-    d = q.shape[-1]
-    n_rep = q.shape[2] // cfg.n_kv_heads
-    kh = A._repeat_kv(cache["k"], n_rep).permute(0, 2, 1, 3)
-    vh = A._repeat_kv(cache["v"], n_rep).permute(0, 2, 1, 3)
-    qt = q.permute(0, 2, 1, 3).to(torch.float32) * d ** -0.5
-    logits = torch.einsum("bhqd,bhkd->bhqk", qt, kh.to(torch.float32))
-    valid = A._valid_slots(cache, cfg, pos)
-    logits = torch.where(valid[:, None, None, :], logits, A.NEG_INF)
-    p_ = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p_, vh.to(torch.float32))
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+# (slots, cache slots): the engine phase's pool, and the engine's defaults
+# (None: cfg.max_seq).
+SIZES = ((cs.ENGINE_BATCH, cs.ENGINE_SEQ), (8, None))
 
 
 def main() -> None:
@@ -61,42 +51,52 @@ def main() -> None:
     sess = repro_torch.compile(cfg, uniform_policy(8, 8), mode="serve_packed",
                                params=params, device="cuda")
     del params
-    prompts = cs.engine_prompts(cfg, cs.ENGINE_BATCH)
-    port = A.decode_attend
-    verdict = {}
-    for label, attend in (("port (product + last-dim sum)", port),
-                          ("einsum", einsum_attend)):
-        A.decode_attend = attend
-        try:
-            verdict[label] = cs.diagnose_batch_variance(sess, prompts)
-            pool = cs.KVPool(sess, cs.ENGINE_BATCH, cs.ENGINE_SEQ)
-            tok = torch.zeros(cs.ENGINE_BATCH, dtype=torch.long, device="cuda")
-            pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
-                               device="cuda")
+    every = cs.engine_prompts(cfg, 7)                 # 96-480 tokens
+    variant = []
+    for batch, seq in SIZES:
+        seq = seq or cfg.max_seq
+        # chunked_attention takes a prompt of up to 512 tokens or a
+        # multiple of 512: at 8 slots the first prompt comes again.
+        prompts = [every[j % len(every)] for j in range(batch)]
+        verdict = cs.diagnose_batch_variance(sess, prompts, seq)
+        if not verdict.startswith("no op"):
+            variant.append(f"batch {batch}, cache {seq}: {verdict}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        pool = cs.KVPool(sess, batch, seq)
+        pool_bytes = torch.cuda.memory_allocated() - before
+        tok = torch.zeros(batch, dtype=torch.long, device="cuda")
+        pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device="cuda")
 
-            def step():
-                sess.decode(tok, pos, pool.cache)
-            for _ in range(3):
-                step()
+        def step():
+            sess.decode(tok, pos, pool.cache)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated() - held
+        times = []
+        for _ in range(15):
+            t0 = time.perf_counter()
+            step()
             torch.cuda.synchronize()
-            times = []
-            for _ in range(15):
-                t0 = time.perf_counter()
-                step()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            med = sorted(times)[len(times) // 2]
-            print(f"[variance] {card}: decode_attend {label}: batch of "
-                  f"{cs.ENGINE_BATCH} vs alone: {verdict[label]}; decode "
-                  f"step at batch {cs.ENGINE_BATCH}, cache {cs.ENGINE_SEQ}: "
-                  f"median {med * 1e3:.3f} ms of 15 (host clock to "
-                  f"synchronize)")
-            cs.phase_profile(f"decode step, decode_attend {label}", step, med,
-                             7 * cfg.n_layers + 1, requests=4)
-        finally:
-            A.decode_attend = port
-    cs.check(verdict["port (product + last-dim sum)"].startswith("no op"),
-             "the port's decode step is batch-variant")
+            times.append(time.perf_counter() - t0)
+        med = sorted(times)[len(times) // 2]
+        print(f"[variance] {card}: batch {batch} vs alone, cache {seq} "
+              f"slots: {verdict}; decode step median {med * 1e3:.3f} ms of "
+              f"15 (host clock to synchronize); pool {pool_bytes / 2**30:.3f} "
+              f"GiB, the step's peak {transient / 2**30:.3f} GiB above the "
+              f"{held / 2**30:.3f} GiB held (weights and pool)")
+        cs.phase_profile(f"decode step, batch {batch}, cache {seq} ({card})",
+                         step, med, 7 * cfg.n_layers + 1, requests=4)
+        del pool, tok, pos
+        torch.cuda.empty_cache()
+    cs.check(not variant, f"the decode step is batch-variant: {variant}")
 
 
 if __name__ == "__main__":

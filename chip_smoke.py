@@ -88,7 +88,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               K1 197 times per prefill and per decode step, nothing else.
               The same traffic through ``compile(..., guarded=True)``, a
               ``ServingSupervisor`` and the decode watchdog equals it with
-              ``fallback_report() == {}``. Chaos: an ``engine.step_stall``
+              ``fallback_report() == {}``; K1 is then called again on the
+              operands of each distinct shape that run gave it and held
+              against its plain version (K3 likewise after the
+              ``dynamic_a`` run). Chaos: an ``engine.step_stall``
               past the watchdog's deadline and a ``backend.op``
               ``TransientWorkerError`` in a decode each restart once and
               replay to the solo streams. ``dynamic_a``: 3 requests in 2
@@ -373,16 +376,28 @@ def read_launches() -> dict:
     return {name: spec["fn"].launches for name, spec in KERNELS.items()}
 
 
+def _shape_key(name: str, args: tuple, kwargs: dict) -> tuple:
+    """A call's kernel, operand shapes and non-tensor options."""
+    return (name, tuple(tuple(a.shape) for a in args),
+            tuple(sorted((k, tuple(v.shape) if isinstance(v, torch.Tensor)
+                          else v) for k, v in kwargs.items())))
+
+
 @contextlib.contextmanager
-def recorded_calls():
+def recorded_calls(distinct: bool = False):
     """Yield a list that collects (kernel, args, kwargs) of every kernel
-    wrapper call the backend makes inside the block (for phase 5)."""
-    calls = []
+    wrapper call the backend makes inside the block (for phase 5); with
+    ``distinct``, only the first call of each kernel and shape."""
+    calls, seen = [], set()
     originals = {name: getattr(backend_module, name) for name in KERNELS}
 
     def recorder(name, fn):
         def call(*args, **kwargs):
-            calls.append((name, args, kwargs))
+            key = _shape_key(name, args, kwargs) if distinct else None
+            if key not in seen:
+                calls.append((name, args, kwargs))
+                if distinct:
+                    seen.add(key)
             return fn(*args, **kwargs)
         return call
     for name, fn in originals.items():
@@ -981,6 +996,26 @@ def phase_serve() -> dict:
     return dict(runs=runs, launches=all_launches)
 
 
+def hold_path_calls(errs: dict, calls: list, label: str) -> str:
+    """Call each kernel again on the operands ``recorded_calls(distinct=
+    True)`` kept from a path's run, and hold the result against its plain
+    version on the same inputs (bit for bit); returns the M and N of
+    each kernel's shapes held. Run after the path's launches are read."""
+    ms = {}
+    for name, args, kw in calls:
+        spec = KERNELS[name]
+        got = spec["fn"](*args, **kw)
+        torch.cuda.synchronize()
+        _hold(errs, name, got, spec["plain"](*args, **kw),
+              f"{label}: the path's call {_shape_key(name, args, kw)}")
+        ms.setdefault(name, []).append((int(args[0].shape[0]),
+                                        int(args[1].shape[-1])))
+    return "; ".join(f"{name} at {len(m)} shapes, M "
+                     f"{sorted({m_ for m_, _ in m})} N "
+                     f"{sorted({n_ for _, n_ in m})}"
+                     for name, m in ms.items())
+
+
 def lm_step_launches(label: str, launches: dict, expect: dict) -> None:
     for name in KERNELS:
         check(launches[name] == expect.get(name, 0),
@@ -1260,38 +1295,27 @@ def drive_engine_admit(eng, prompts: list) -> None:
           "all admitted")
 
 
-def _attend_steps(q, cache, cfg, pos) -> list:
-    """``attention.decode_attend``'s intermediates, op by op (its code,
-    spelled out for the batch-variance diagnosis)."""
-    d = q.shape[-1]
-    n_rep = q.shape[2] // cfg.n_kv_heads
-    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
-    kh = attn._repeat_kv(cache["k"], n_rep).permute(0, 2, 1, 3).to(**f32)
-    vt = attn._repeat_kv(cache["v"], n_rep).permute(0, 2, 3, 1).to(**f32)
-    qt = q.permute(0, 2, 1, 3).to(torch.float32) * d ** -0.5
-    logits = (qt * kh).sum(-1)[:, :, None, :]
-    valid = attn._valid_slots(cache, cfg, pos)
-    masked = torch.where(valid[:, None, None, :], logits, attn.NEG_INF)
-    p_ = torch.softmax(masked, dim=-1)
-    out = (p_ * vt).sum(-1)[:, :, None, :]
-    return [("q scaled", qt), ("q.k sum", logits), ("mask", masked),
-            ("softmax", p_), ("p.v sum", out)]
-
-
-def diagnose_batch_variance(sess, prompts: list) -> str:
-    """The first op of a decode step whose row of a batch of ENGINE_BATCH
+def diagnose_batch_variance(sess, prompts: list, max_seq: int) -> str:
+    """The first op of a decode step whose row of a batch of
+    ``len(prompts)`` (a pool of ``max_seq`` slots, each row a prefill)
     differs from the same row decoded alone: RMSNorm, RoPE, every linear
-    and ``decode_attend`` (then its own ops) are traced in call order."""
-    n = min(ENGINE_BATCH, len(prompts))
-    pool = KVPool(sess, n, ENGINE_SEQ)
-    solo_caches, toks = [], []
-    for b, prompt in enumerate(prompts[:n]):
-        cache1 = sess.init_cache(1, ENGINE_SEQ)
-        logits, cache1 = sess.prefill(prompt[None, :], cache1)
+    and ``decode_attend`` are traced in call order. Each row's batch-1
+    cache is prefilled again when its turn comes (a prefill is
+    deterministic), so one batch-1 cache is held beside the pool."""
+    n = len(prompts)
+    pool = KVPool(sess, n, max_seq)
+    toks = []
+
+    def prefill(prompt):
+        logits, cache1 = sess.prefill(prompt[None, :],
+                                      sess.init_cache(1, max_seq))
+        return int(torch.argmax(logits[0, 0])), cache1
+    for b, prompt in enumerate(prompts):
+        tok0, cache1 = prefill(prompt)
         pool.scatter_prefill(b, cache1)
-        solo_caches.append(cache1)
-        toks.append(int(torch.argmax(logits[0, 0])))
-    pos = np.array([len(p_) for p_ in prompts[:n]], np.int32)
+        toks.append(tok0)
+        del cache1
+    pos = np.array([len(p_) for p_ in prompts], np.int32)
     tok = np.array(toks, np.int32)
     names = {"rms_norm": L, "rope": L, "linear_apply": L,
              "decode_attend": attn}
@@ -1319,21 +1343,16 @@ def diagnose_batch_variance(sess, prompts: list) -> str:
     run(batched, tok, pos, pool.cache)
     for b in range(n):
         alone = []
-        run(alone, tok[b:b + 1], int(pos[b]), solo_caches[b])
+        _, cache1 = prefill(prompts[b])
+        run(alone, tok[b:b + 1], int(pos[b]), cache1)
+        del cache1
         for i, ((name, args, got), (_, args1, want)) in enumerate(
                 zip(batched, alone)):
             row = got[b:b + 1]
             if torch.equal(row, want):
                 continue
+            # Every earlier op's row was equal, so this op's inputs were.
             where = f"op {i} ({name}, layer {i // 14})"
-            if name == "decode_attend":
-                steps_b = _attend_steps(args[0], args[1], args[2], args[3])
-                steps_1 = _attend_steps(*args1[:4])
-                for (sname, sb), (_, s1) in zip(steps_b, steps_1):
-                    if not torch.equal(sb[b:b + 1], s1):
-                        name, row, want = f"decode_attend's {sname}", \
-                            sb[b:b + 1], s1
-                        break
             diff = (row.float() - want.float()).abs().flatten()
             first = int(torch.nonzero(diff).flatten()[0]) if \
                 bool(diff.any()) else -1
@@ -1347,12 +1366,13 @@ def diagnose_batch_variance(sess, prompts: list) -> str:
     return "no op differs when the batch is rebuilt from prefills"
 
 
-def phase_engine(lm: dict, card: str) -> dict:
+def phase_engine(lm: dict, card: str, errs: dict) -> dict:
     """The continuous-batching engine on the full LM (the issue's main
     path of this slice): a static run whose streams and decode logits
     equal solo generates, the same traffic guarded and supervised with
-    the watchdog on, two chaos cases, a ``dynamic_a`` run, and the serve
-    CLI in a subprocess."""
+    the watchdog on (K1 held against its plain version at every shape
+    the run gave it), two chaos cases, a ``dynamic_a`` run (K3 likewise),
+    and the serve CLI in a subprocess."""
     t_phase = time.perf_counter()
     sess, dyn, n_lin = lm["sess"], lm["dyn"], lm["n_lin"]
     cfg = sess.cfg
@@ -1391,7 +1411,8 @@ def phase_engine(lm: dict, card: str) -> dict:
     differ = [(rid, idx) for rid, idx, row in rows
               if not torch.equal(row, solos[rid][1][idx])]
     if differ:
-        cause = diagnose_batch_variance(sess, prompts)
+        cause = diagnose_batch_variance(sess, prompts[:ENGINE_BATCH],
+                                        ENGINE_SEQ)
         check(False, f"engine: {len(differ)} of {len(rows)} batched decode "
               f"rows' logits differ from the solo run's (first: request "
               f"{differ[0][0]}, token {differ[0][1]}); {cause}")
@@ -1438,8 +1459,10 @@ def phase_engine(lm: dict, card: str) -> dict:
     geng = BatchingEngine(sup, max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ,
                           step_timeout_s=60.0)
     reset_launches()
-    gh, gstep_s, _ = drive_engine(geng, prompts, ENGINE_GEN)
+    with recorded_calls(distinct=True) as gcalls:
+        gh, gstep_s, _ = drive_engine(geng, prompts, ENGINE_GEN)
     glaunches = read_launches()
+    gheld = hold_path_calls(errs, gcalls, "engine guarded")
     for j, h in enumerate(gh):
         check(np.array_equal(h.result(timeout=60.0), tokens[j]),
               f"guarded supervised engine request {j} differs from the "
@@ -1454,7 +1477,8 @@ def phase_engine(lm: dict, card: str) -> dict:
     print(f"[engine] {card}: guarded + supervised run (step_timeout_s 60, "
           f"decodes on the watchdog's thread): streams == static run, "
           f"fallback_report() == {{}}, health healthy, launches "
-          f"{glaunches}; median step "
+          f"{glaunches}; == plain on the run's operands: {gheld}; median "
+          f"step "
           f"{sorted(gstep_s)[len(gstep_s) // 2] * 1e3:.3f} ms")
 
     # Chaos: a stalled decode past the watchdog's deadline, and a worker
@@ -1503,8 +1527,10 @@ def phase_engine(lm: dict, card: str) -> dict:
              for p_ in dprompts]
     deng = BatchingEngine(dyn, max_batch=2, max_seq=ENGINE_SEQ)
     reset_launches()
-    dh, dstep_s, _ = drive_engine(deng, dprompts, CHAOS_GEN)
+    with recorded_calls(distinct=True) as dcalls:
+        dh, dstep_s, _ = drive_engine(deng, dprompts, CHAOS_GEN)
     dlaunches = read_launches()
+    dheld = hold_path_calls(errs, dcalls, "engine dynamic_a")
     lm_step_launches("engine dynamic_a", dlaunches, {
         "bitserial_matmul_dynamic": n_lin * (deng.n_decode_steps + 3)})
     for j, h in enumerate(dh):
@@ -1515,7 +1541,8 @@ def phase_engine(lm: dict, card: str) -> dict:
               f"the static engine's tokens")
     print(f"[engine] {card}: dynamic_a run (3 requests, 2 slots, "
           f"{CHAOS_GEN} tokens): streams == solo dynamic_a generate == the "
-          f"static engine's; launches {dlaunches}; median step "
+          f"static engine's; launches {dlaunches}; == plain on the run's "
+          f"operands: {dheld}; median step "
           f"{sorted(dstep_s)[len(dstep_s) // 2] * 1e3:.3f} ms")
     phase_engine_cli(card)
     print(f"[engine] phase took {time.perf_counter() - t_phase:.1f} s")
@@ -1892,7 +1919,7 @@ def main() -> None:
     phase_k7(errs)
     served = phase_serve()
     lm = phase_lm(errs)
-    engine = phase_engine(lm, card)
+    engine = phase_engine(lm, card, errs)
     launches = dict(served["launches"])
     launches["LM generate"] = lm["gen_launches"]
     launches["LM engine"] = engine["launches"]

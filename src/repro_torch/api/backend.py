@@ -200,7 +200,9 @@ class CudaBackend(Backend):
 # GuardedBackend's chain is the suffix of this list after its inner
 # backend (an out-of-tree inner falls straight to the built-ins). Every
 # member runs on the operands' device: a fallback never moves a tensor.
+# The plain version (``_PLAIN``) is a step of the chain on the CPU only.
 DEFAULT_FALLBACK_CHAIN = ("cuda", "torch_ref")
+_PLAIN = "torch_ref"
 
 # The uniform op surface a Backend exposes (= what a GuardedBackend guards).
 BACKEND_OPS = ("matmul_planes", "matmul_planes_dynamic", "conv_planes",
@@ -239,6 +241,15 @@ class GuardedBackend(Backend):
        failures re-raise unchanged: the serving supervisor owns the
        retry, and the substrate is not the problem.
 
+    On the card the chain ends before ``torch_ref``: a kernel that fails
+    on CUDA tensors raises (:class:`~repro_torch.api.guards.
+    BackendCompileError` for a failed build,
+    :class:`~repro_torch.api.guards.BackendResourceError` for device
+    memory, :class:`~repro_torch.api.guards.FallbackExhaustedError`
+    otherwise) and is never replaced by its plain version there. The
+    ``torch_ref`` step serves CPU tensors only, or a session that asked
+    for ``torch_ref`` itself.
+
     The port's ops take no activation precision (the int8 kernel ABI
     caps it at 8), so the accumulator bound is taken at ``a_bits`` = 8
     unless a caller passes one.
@@ -248,19 +259,15 @@ class GuardedBackend(Backend):
     byte-identical to unguarded serving.
     """
 
-    def __init__(self, inner, chain=None):
+    def __init__(self, inner):
         inner = resolve_backend(inner)
         self.inner = inner
         self.name = f"guarded:{inner.name}"
-        if chain is None:
-            names = list(DEFAULT_FALLBACK_CHAIN)
-            if inner.name in names:
-                names = names[names.index(inner.name) + 1:]
-            chain = [resolve_backend(n) for n in names]
-        else:
-            chain = [resolve_backend(b) for b in chain]
-        self.chain: list[Backend] = [inner] + [b for b in chain
-                                               if b is not inner]
+        names = list(DEFAULT_FALLBACK_CHAIN)
+        if inner.name in names:
+            names = names[names.index(inner.name) + 1:]
+        self.chain: list[Backend] = [inner] + [
+            b for b in map(resolve_backend, names) if b is not inner]
         self.fallbacks_by_op: dict[str, str] = {}   # op -> serving backend
         self._active_idx: dict[str, int] = {}
 
@@ -273,12 +280,22 @@ class GuardedBackend(Backend):
         """The chain member currently serving ``op``."""
         return self.chain[self._active_idx.get(op, 0)]
 
+    def _usable_chain(self, operand) -> list[Backend]:
+        """The chain members that may serve an op on ``operand``'s device:
+        on the card, the chain ends before the plain version (a prefix,
+        so the sticky indices hold on either device)."""
+        plain = [i for i, b in enumerate(self.chain) if i and b.name == _PLAIN]
+        if operand.is_cuda and plain:
+            return self.chain[:plain[0]]
+        return self.chain
+
     def _dispatch(self, op: str, *args, **kwargs):
         from repro_torch.runtime import faults
+        chain = self._usable_chain(args[0])
         start = self._active_idx.get(op, 0)
         last_exc = None
-        for i in range(start, len(self.chain)):
-            b = self.chain[i]
+        for i in range(start, len(chain)):
+            b = chain[i]
             try:
                 faults.fire("backend.op", detail=f"{op}:{b.name}")
                 out = getattr(b, op)(*args, **kwargs)
@@ -291,17 +308,27 @@ class GuardedBackend(Backend):
                 if kind == guards.TRANSIENT:
                     raise   # substrate is fine; the supervisor retries
                 last_exc = exc
-                if i + 1 < len(self.chain):
-                    nxt = self.chain[i + 1]
+                if i + 1 < len(chain):
+                    nxt = chain[i + 1]
                     warnings.warn(
                         f"[guarded] {op}: backend {b.name!r} failed "
                         f"({kind}: {exc}) -- falling back to {nxt.name!r} "
                         f"(sticky)", RuntimeWarning, stacklevel=3)
                     self._active_idx[op] = i + 1
                     self.fallbacks_by_op[op] = nxt.name
+        names = [b.name for b in chain]
+        if len(chain) < len(self.chain):
+            kind = guards.classify_error(last_exc)
+            typed = {guards.COMPILE: guards.BackendCompileError,
+                     guards.RESOURCE: guards.BackendResourceError}.get(
+                         kind, guards.FallbackExhaustedError)
+            raise typed(
+                f"{op}: {names} failed on CUDA tensors ({kind}: "
+                f"{last_exc}); the plain version does not stand in for a "
+                f"kernel on the card") from last_exc
         raise guards.FallbackExhaustedError(
-            f"{op}: every backend in the fallback chain "
-            f"{[b.name for b in self.chain]} failed") from last_exc
+            f"{op}: every backend in the fallback chain {names} "
+            f"failed") from last_exc
 
     @staticmethod
     def _check_packed_k(k_logical: int, w_packed, op: str) -> int:
@@ -413,13 +440,13 @@ class GuardedBackend(Backend):
                               window=window)
 
 
-def guard_backend(backend, chain=None) -> GuardedBackend:
+def guard_backend(backend) -> GuardedBackend:
     """Wrap ``backend`` (object or registered name) in a GuardedBackend.
 
     Idempotent: an already-guarded backend is returned unchanged."""
     if isinstance(backend, GuardedBackend):
         return backend
-    return GuardedBackend(backend, chain=chain)
+    return GuardedBackend(backend)
 
 
 _REGISTRY: dict[str, Backend] = {}

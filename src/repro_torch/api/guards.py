@@ -9,7 +9,9 @@ wrong answer. Two mechanisms consume this module:
     from an inner backend op (:func:`classify_error`) to decide between
     re-raising (transient: the supervisor retries the request) and
     degrading down the fallback chain (compile/resource/shape/unknown:
-    the op is re-dispatched on the next backend and *stays* there).
+    the op is re-dispatched on the next backend and *stays* there; on
+    the card, where the chain ends before the plain version, it raises
+    the typed compile / resource / exhausted fault instead).
   * :class:`repro_torch.runtime.serving.ServingSupervisor` retries
     transient faults with backoff and checks that every output is finite
     (:func:`check_finite`, reduced on the tensor's device).
@@ -102,7 +104,7 @@ class EngineClosedError(ServingFault):
 # the reference's; the port adds PyTorch's and CUDA's: the kernel build's
 # failures (``kernels/_build.py``) are compile faults, and CUDA's sticky
 # context errors are fatal -- after one, every later call on the device
-# fails, ``torch_ref`` included, so nothing may retry it.
+# fails, so nothing may retry it.
 _FATAL_MESSAGE_MARKERS = ("illegal memory access",
                           "unspecified launch failure",
                           "device-side assert", "misaligned address",
@@ -128,9 +130,9 @@ def classify_error(exc: BaseException) -> str:
     Typed errors classify by type (``torch.cuda.OutOfMemoryError`` is a
     resource fault); foreign exceptions by message markers. ``fatal``
     means "cause unknown" or a sticky CUDA context error: the guarded
-    dispatcher still walks the chain (the op may work on a simpler
-    substrate; after a sticky error it fails there too, and the chain
-    ends in :class:`FallbackExhaustedError`), but a supervisor must not
+    dispatcher still walks its chain (on the CPU the op may work on a
+    simpler substrate; on the card the chain ends at the kernels and
+    raises :class:`FallbackExhaustedError`), but a supervisor must not
     blind-retry it.
     """
     from repro_torch.runtime.supervisor import TransientWorkerError

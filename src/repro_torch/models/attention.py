@@ -206,14 +206,18 @@ def decode_attend(q, cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
     """q: [B, 1, Hq, D] against the cache (KV heads repeated); returns
     [B, 1, Hq, D] in q's dtype.
 
-    Batch-invariant: row b's result does not depend on the other rows, so
-    a row of the batching engine's decode equals the same row decoded
-    alone. The two float32 products are an elementwise product and a sum
-    over the tensor's last, contiguous dim, not ``einsum``: cuBLAS picks
-    its kernel by the batch count, and PyTorch's reduction over a
-    contiguous last dim of at least 16 outputs sums each one in the same
-    order for any number of them. The softmax is one row per warp (or
-    block) whatever the batch."""
+    Written so that row b's result does not depend on the other rows,
+    and a row of the batching engine's decode equals the same row decoded
+    alone: the two float32 products are an elementwise product and a sum
+    over the tensor's last, contiguous dim, not ``einsum`` (cuBLAS picks
+    its kernel by the batch count; an ``einsum`` gave other bits at batch
+    4 than at batch 1 on an H100). Shown on an H100 at batch 4 against 1
+    with 448 cache slots and at batch 8 against 1 with 32768
+    (``chip_batch_variance.py``); other sizes rest on PyTorch's reduction
+    heuristics and are not measured. It materialises float32 copies of
+    K and V and their products: at batch 8 and 32768 slots a decode step
+    is about 0.4 s of device time and 6 GiB of transient memory on the
+    H100 (PERF.md)."""
     _check_ported(cfg)
     d = q.shape[-1]
     n_rep = q.shape[2] // cfg.n_kv_heads

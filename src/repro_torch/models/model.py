@@ -86,8 +86,9 @@ def prefill(params, cfg: T.ModelConfig, tokens, cache, plan):
 def decode_step(params, cfg: T.ModelConfig, token, pos, cache, plan):
     """One decode step. token: int [B]; pos: the absolute position, an int
     (or 0-d tensor) for the whole batch or an int [B] tensor per row.
-    Returns (logits [B, V], cache). Row b of the result does not depend on
-    the other rows, bit for bit (``attention.decode_attend``)."""
+    Returns (logits [B, V], cache). Row b of the result is written not to
+    depend on the other rows (``attention.decode_attend``: shown bit for
+    bit on an H100 at the sizes its docstring names)."""
     if isinstance(pos, torch.Tensor) and pos.ndim == 0:
         pos = int(pos)
     x = L.embed_apply(params["embed"], token[:, None]).to(torch.bfloat16)

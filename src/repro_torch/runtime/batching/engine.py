@@ -60,8 +60,9 @@ Fault composition (with or without a :class:`ServingSupervisor`): the
 decode writes the pool in place, so a fault in the middle of a step
 leaves it half written, and a stalled call abandoned by the watchdog may
 still write it later -- a naive step retry is impossible. Instead the
-engine RESTARTS-AND-REPLAYS: a fresh pool, every active request
-re-prefilled, regenerated deterministically while the tokens its stream
+engine RESTARTS-AND-REPLAYS: every active request re-prefilled into the
+pool (a new pool after a stall, whose abandoned call may still write the
+old one), regenerated deterministically while the tokens its stream
 already received are suppressed (replayed tokens are byte-identical by
 the parity property). Restarts are bounded by ``max_restarts``
 consecutive failures; prefill faults retry per request and fail only
@@ -89,6 +90,10 @@ from repro_torch.runtime.batching.scheduler import FCFSScheduler, Request
 ACCEPTING, DRAINING, STOPPED = "accepting", "draining", "stopped"
 
 _A9B = "ROADMAP A.9b"
+
+# Completions (and admissions) the latency (and queue-wait) percentiles
+# are taken over.
+_LATENCY_RING = 512
 
 
 def _retryable():
@@ -136,7 +141,6 @@ class BatchingEngine:
                  max_queue: int | None = None,
                  step_timeout_s: float | None = None,
                  overload_window_s: float = 5.0,
-                 latency_ring: int = 512,
                  audit_rate: float = 0.0,
                  integrity_every: int | None = None,
                  heal_dir: str | None = None):
@@ -182,8 +186,8 @@ class BatchingEngine:
         self._last_overload_t = -float("inf")
         self._lat_sum = 0.0
         self._lat_n = 0
-        self._lat_ring: deque[float] = deque(maxlen=int(latency_ring))
-        self._wait_ring: deque[float] = deque(maxlen=int(latency_ring))
+        self._lat_ring: deque[float] = deque(maxlen=_LATENCY_RING)
+        self._wait_ring: deque[float] = deque(maxlen=_LATENCY_RING)
 
     @property
     def session(self):
@@ -485,7 +489,7 @@ class BatchingEngine:
         byte-identical with or without the watchdog); a step that exceeds
         ``step_timeout_s`` surfaces as a typed ``StepStallError``. The
         abandoned call may still write the pool it was given, so the
-        caller routes into restart-and-replay, which builds a new one."""
+        caller routes into restart-and-replay, which allocates a new one."""
         session = self.session
         tok = self._tok.copy()     # the call owns its inputs: a restart
         pos = self._pos.copy()     # resets the engine's own arrays
@@ -548,20 +552,33 @@ class BatchingEngine:
             if self.supervisor.state == serving.HEALTHY:
                 self.supervisor.state = serving.DEGRADED
 
-    def _fresh_pool(self) -> list[Request]:
-        """Take the active requests out of their slots and replace the
-        pool with a new allocation (the old one may be half written, or
-        still written by an abandoned stalled call). Returns them in slot
-        order."""
+    def _clear_pool(self, exc: BaseException) -> list[Request]:
+        """Take the active requests out of their slots; returns them in
+        slot order. After a stall the abandoned call may still write the
+        pool, so a new one is allocated, the old one dropped first (the
+        abandoned call holds it until it ends). After any other fault
+        nothing writes the pool any more: its free list is reset and the
+        half-written rows are rewritten whole by the replays'
+        :meth:`KVPool.scatter_prefill`, so no second pool is held."""
         survivors = [self.active[s] for s in sorted(self.active)]
         self.active.clear()
         self._tok[:] = 0
         self._pos[:] = 0
-        self.pool = KVPool(self.session, self.max_batch, self.max_seq)
+        if not isinstance(exc, guards.StepStallError):
+            self.pool.reset()
+            return survivors
+        self.pool = None
+        try:
+            self.pool = KVPool(self.session, self.max_batch, self.max_seq)
+        except Exception as alloc_exc:
+            for req in survivors:      # out of the pool: fail them here
+                req.slot = -1
+                self._retire(req, streams.FAILED, alloc_exc)
+            raise
         return survivors
 
     def _restart(self, exc: BaseException) -> None:
-        """A decode step faulted: rebuild the pool and REPLAY every active
+        """A decode step faulted: clear the pool and REPLAY every active
         request from its prompt, suppressing already-delivered tokens
         (deterministic regeneration => the suppressed prefix is
         byte-identical to what the streams already saw). Past
@@ -572,7 +589,7 @@ class BatchingEngine:
         self.stats.n_engine_restarts = self._n_restarts
         self._note_overload()
         self._degrade(exc)
-        survivors = self._fresh_pool()
+        survivors = self._clear_pool(exc)
         if self._consec_restarts > self.max_restarts:
             from repro_torch.runtime import serving
             if self.supervisor is not None:

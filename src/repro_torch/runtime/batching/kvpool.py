@@ -16,8 +16,10 @@ until the row is rewritten).
 Where the reference scatters with a donated jit, the port copies in
 place: ``pool[:, slot].copy_(row[:, 0])`` for every leaf. A decode step
 writes the pool in place too, so a fault in the middle of one leaves it
-half written: the engine's restart builds a fresh pool, never reusing the
-old one.
+half written: the engine's restart frees every slot (:meth:`reset`) and
+re-places each request, which rewrites its row whole. Only after a stall,
+whose abandoned call may still write this pool, does the engine allocate
+a new one.
 """
 from __future__ import annotations
 
@@ -59,6 +61,11 @@ class KVPool:
         # keep sorted for lowest-first determinism
         self._free.append(slot)
         self._free.sort()
+
+    def reset(self) -> None:
+        """Free every slot (the engine's restart); the rows keep their
+        stale contents until :meth:`scatter_prefill` rewrites them."""
+        self._free = list(range(self.max_batch))
 
     def scatter_prefill(self, slot: int, row_cache) -> None:
         """Write a batch-1 prefilled cache into ``slot`` (all leaves), in

@@ -21,8 +21,10 @@ Per request, the supervisor:
     backoff -- the session is deterministic, so a healed retry reproduces
     the uninterrupted token stream byte-identically;
   * on a *permanent* backend fault (compile/resource), degrades the whole
-    session down ``fallback_backends`` via the ``rebuild`` hook (when
-    provided) and retries once per remaining backend;
+    session down ``FALLBACK_BACKENDS`` via the ``rebuild`` hook (when
+    provided) and retries once per remaining backend -- off the card
+    only: a session on the card fails loudly instead, since the plain
+    version does not stand in for a kernel there;
   * checks that every output's logits are finite
     (:func:`repro_torch.api.guards.check_finite`, one bool to the host):
     NaN/Inf logits raise a typed error instead of argmax-ing garbage into
@@ -57,6 +59,9 @@ from repro_torch.runtime import faults
 from repro_torch.runtime.supervisor import StepMonitor, TransientWorkerError
 
 HEALTHY, DEGRADED, FAILED = "healthy", "degraded", "failed"
+
+# The backends a degraded session is rebuilt on, in order.
+FALLBACK_BACKENDS = ("torch_ref",)
 
 # Faults a plain (same-session) retry may heal.
 _RETRYABLE = (TransientWorkerError, guards.BackendTransientError,
@@ -129,21 +134,20 @@ class ServingSupervisor:
     first attempt). ``backoff_s``: base of the exponential backoff.
     ``timeout_s``: per-request wall-clock budget (None = unbounded).
     ``rebuild``: optional ``rebuild(backend_name) -> ServingSession`` hook
-    enabling whole-session degradation on permanent faults, walked down
-    ``fallback_backends``. ``check_numerics``: verify every output's
-    logits are finite (bit-transparent: values are never modified).
+    enabling whole-session degradation on permanent faults of a session
+    off the card, walked down ``FALLBACK_BACKENDS``. Every output's
+    logits are checked finite (bit-transparent: values are never
+    modified).
     """
 
     def __init__(self, session, *, max_retries: int = 2,
                  backoff_s: float = 0.02, timeout_s: float | None = None,
-                 rebuild=None, fallback_backends=("torch_ref",),
-                 check_numerics: bool = True):
+                 rebuild=None):
         self.max_retries = max_retries
         self.backoff_s = backoff_s
         self.timeout_s = timeout_s
         self.rebuild = rebuild
-        self.fallback_backends = list(fallback_backends)
-        self.check_numerics = check_numerics
+        self.fallback_backends = list(FALLBACK_BACKENDS)   # still to try
         self.state = HEALTHY
         self.stats = ServeStats()
         self.monitor = StepMonitor()        # request-latency straggler EMA
@@ -172,8 +176,7 @@ class ServingSupervisor:
                     logits = torch.full_like(logits, float("nan"))
                     out = (logits,) + tuple(out[1:]) \
                         if isinstance(out, tuple) else logits
-                if self.check_numerics:
-                    guards.check_finite(logits, f"{what} logits")
+                guards.check_finite(logits, f"{what} logits")
                 return out
             return stepped
 
@@ -233,8 +236,10 @@ class ServingSupervisor:
 
     def _degrade_session(self, cause: Exception) -> bool:
         """Rebuild the session on the next fallback backend. True on
-        success; False when no rebuild hook / chain exhausted."""
-        if self.rebuild is None:
+        success; False when no rebuild hook / chain exhausted, or when the
+        session is on the card (its plain version does not stand in for
+        a kernel there)."""
+        if self.rebuild is None or self._session.device.type == "cuda":
             return False
         current = self._session.plan.backend.name
         names = [n for n in self.fallback_backends

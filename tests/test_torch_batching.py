@@ -435,7 +435,7 @@ def test_backend_op_fault_queue_survives():
 
 @pytest.mark.chaos
 def test_decode_fault_restart_and_replay_byte_identical():
-    """A decode-step kill triggers restart-and-replay: fresh pool,
+    """A decode-step kill triggers restart-and-replay: slots freed,
     re-prefill, deterministic regeneration with already-delivered tokens
     suppressed -- streams stay byte-identical, supervisor degrades."""
     sess = _lm_session("cuda", "dynamic_a")
@@ -458,8 +458,9 @@ def test_decode_fault_restart_and_replay_byte_identical():
 @pytest.mark.chaos
 def test_fault_mid_decode_half_written_pool_is_replaced(monkeypatch):
     """The cache is written in place: a fault after layer 0 of a decode
-    step has written its K/V leaves the pool half written. The restart
-    replays on a fresh pool, never the old one, and the streams stay
+    step has written its K/V leaves the pool half written. Nothing writes
+    it after the fault, so the restart keeps the pool and replaces every
+    half-written row whole with its replayed prefill's; the streams stay
     byte-identical."""
     sess = _lm_session(guarded=True)
     prompts = _prompts(sess.cfg, 2, seed=73)
@@ -472,6 +473,7 @@ def test_fault_mid_decode_half_written_pool_is_replaced(monkeypatch):
     # The decode's 5th backend op is layer 0's ffn_up: layer 0's K/V are
     # already in the pool.
     calls = {"n": 0}
+    at_fault = {}
     fire = faults.fire
 
     def fire_from_the_fifth(point, detail=""):
@@ -479,20 +481,65 @@ def test_fault_mid_decode_half_written_pool_is_replaced(monkeypatch):
             calls["n"] += 1
             if calls["n"] < 5:
                 return
+            at_fault.setdefault("slot_pos",
+                                old_pool.cache["p0"]["slot_pos"].clone())
         fire(point, detail)
     monkeypatch.setattr(faults, "fire", fire_from_the_fifth)
     with faults.inject("backend.op", exc=TransientWorkerError("mid-step"),
                        times=1) as fault:
         eng.step()
+    monkeypatch.setattr(faults, "fire", fire)
     assert fault.fired == 1 and eng.stats.n_engine_restarts == 1
-    assert eng.pool is not old_pool
-    half = old_pool.cache["p0"]["slot_pos"]
+    half = at_fault["slot_pos"]
     assert not torch.equal(half[0], written[0])    # layer 0 was written
     assert torch.equal(half[1], written[1])        # layer 1 was not
+    assert eng.pool is old_pool                    # no second pool held
+    plain = _lm_session()
+    for slot, p in enumerate(prompts):             # each row rewritten whole
+        _, row = plain.prefill(p[None, :], plain.init_cache(1, eng.max_seq))
+        for key in ("k", "v", "slot_pos"):
+            assert torch.equal(eng.pool.cache["p0"][key][:, slot],
+                               row["p0"][key][:, 0]), (slot, key)
     eng.run(max_steps=100)
     for i, h in enumerate(handles):
         np.testing.assert_array_equal(h.result(timeout=30.0), solos[i],
                                       err_msg=f"request {i}")
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("point", ["backend.op", "engine.step_stall"])
+def test_restart_holds_one_pool_at_a_time(monkeypatch, point):
+    """A restart never holds two pools: after a fault the pool is kept;
+    after a stall (whose abandoned call may still write the old pool) a
+    new one is allocated only once the engine has dropped the old."""
+    sess = _lm_session(guarded=True)
+    prompts = _prompts(sess.cfg, 2, seed=79)
+    solos = [_solo(_lm_session(), p, 4) for p in prompts]
+    stall = point == "engine.step_stall"
+    eng = BatchingEngine(sess, max_batch=2,
+                         step_timeout_s=0.5 if stall else None)
+    built = []
+
+    class CountingPool(KVPool):
+        def __init__(self, *args, **kwargs):
+            built.append(eng.pool)       # what the engine still held
+            super().__init__(*args, **kwargs)
+    monkeypatch.setattr(enginelib, "KVPool", CountingPool)
+    first = eng.pool
+    hs = [eng.submit(p, 4) for p in prompts]
+    eng.step()
+    kw = (dict(exc=TransientWorkerError("lost"), match="matmul_planes")
+          if not stall else dict(delay=1.5))
+    with faults.inject(point, times=1, **kw) as fault:
+        eng.run(max_steps=100)
+    assert fault.fired == 1 and eng.stats.n_engine_restarts == 1
+    if stall:
+        assert built == [None] and eng.pool is not first
+    else:
+        assert built == [] and eng.pool is first
+    for h, want in zip(hs, solos):
+        np.testing.assert_array_equal(h.result(timeout=30.0), want)
+    eng.drain()
 
 
 @pytest.mark.chaos
@@ -521,8 +568,9 @@ def test_restart_exhaustion_fails_active_but_queue_serves_on():
 @pytest.mark.chaos
 def test_sticky_cuda_error_fails_loudly_without_looping():
     """A sticky CUDA context error is fatal: the guarded chain tries
-    torch_ref on the same device, which fails as well, and the engine
-    stops with every stream failed -- no restart loop."""
+    torch_ref on these CPU tensors, which fails as well (on the card the
+    chain ends at the kernels), and the engine stops with every stream
+    failed -- no restart loop."""
     sess = _lm_session(guarded=True)
     eng = BatchingEngine(ServingSupervisor(sess), max_batch=2)
     hs = [eng.submit(p, 4) for p in _prompts(sess.cfg, 2, seed=83)]

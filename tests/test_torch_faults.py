@@ -4,8 +4,10 @@ heals or fails loudly, on the CPU at smoke size.
 Mirrors the non-checkpoint half of ``tests/test_faults.py`` (the
 checkpoint and training points come with ROADMAP A.9b and A.12):
 
-    backend.op         -> sticky fallback down ``cuda -> torch_ref``, or a
-                          typed FallbackExhaustedError; transients re-raise
+    backend.op         -> sticky fallback down ``cuda -> torch_ref`` on the
+                          CPU, or a typed FallbackExhaustedError; on the
+                          card a typed compile/resource/exhausted error,
+                          never the plain version; transients re-raise
     serve.step         -> supervisor retry (kill-and-resume byte-identical)
                           / typed RequestTimeoutError on slow steps
     serve.nan_poison   -> typed NumericIntegrityError, healed by retry
@@ -297,6 +299,41 @@ def test_backend_op_fallback_exhausted_typed_error():
             gb.matmul_planes(xq, wp, w_bits=8)
 
 
+class _OnCard:
+    """An operand that reports itself on the card (the dispatcher reads
+    ``is_cuda`` only; the planted fault raises before any op runs)."""
+    is_cuda = True
+
+
+@pytest.mark.parametrize("msg,typed", [
+    ("kernel build failed:\nbitserial_matmul: nvcc exited 1",
+     guards.BackendCompileError),
+    ("nvcc not found: set CUDA_HOME or put nvcc on PATH",
+     guards.BackendCompileError),
+    ("CUDA out of memory. Tried to allocate 2.00 GiB",
+     guards.BackendResourceError),
+    ("CUDA error: an illegal memory access was encountered",
+     guards.FallbackExhaustedError),
+    ("???", guards.FallbackExhaustedError),
+])
+def test_backend_op_on_the_card_raises_typed_never_plain(msg, typed):
+    """On CUDA tensors the chain ends at ``cuda``: a failed kernel raises
+    its typed fault, and ``torch_ref`` is neither tried nor recorded."""
+    gb = backendlib.GuardedBackend("cuda")
+    assert [b.name for b in gb._usable_chain(_OnCard())] == ["cuda"]
+    with faults.inject("backend.op", exc=RuntimeError(msg), times=None,
+                       match="matmul_planes") as fault:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")         # no fallback warning
+            with pytest.raises(typed, match="on CUDA tensors"):
+                gb._dispatch("matmul_planes", _OnCard(), None, w_bits=8)
+    assert fault.fired == 1                        # torch_ref never tried
+    assert gb.fallbacks_by_op == {}
+    assert gb.active_backend("matmul_planes").name == "cuda"
+    xq, wp = _matmul_operands()                    # the CPU keeps the step
+    assert [b.name for b in gb._usable_chain(xq)] == ["cuda", "torch_ref"]
+
+
 def test_backend_op_sticky_fallback_is_exact():
     """A permanent ``cuda`` failure degrades every op to torch_ref --
     recorded on the plan -- and the degraded output is exactly the
@@ -444,6 +481,25 @@ def test_session_level_degrade_rebuilds_on_compile_fault():
     assert sup.health()["backend"] == "torch_ref"
     assert sup.state == DEGRADED
     assert any("rebuilding" in str(w.message) for w in caught)
+
+
+def test_session_level_degrade_refused_on_the_card():
+    """A session on the card never degrades to the plain version: the
+    compile fault fails the request loudly and the hook is not called."""
+    import dataclasses
+    on_card = dataclasses.replace(_cnn_session("cuda", False),
+                                  device=torch.device("cuda"))
+    rebuilt = []
+    sup = ServingSupervisor(on_card, rebuild=rebuilt.append)
+    with faults.inject("serve.step",
+                       exc=RuntimeError("kernel build failed: nvcc exited 1"),
+                       times=1, match="classify"):
+        with pytest.raises(RuntimeError, match="kernel build failed"):
+            # the entry point itself: the fault fires before any tensor
+            # would reach the (absent) card
+            sup._request(lambda s: s._classify(s.params, None))
+    assert rebuilt == [] and sup.stats.n_session_fallbacks == 0
+    assert sup.state == FAILED and sup.health()["backend"] == "cuda"
 
 
 def test_unhealable_fault_fails_typed_without_rebuild():

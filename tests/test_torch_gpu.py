@@ -5,7 +5,9 @@ random, full and all-1 plane counts) and K7 within its tolerance
 ``torch_ref``, bit for bit, on the static, dynamic (``dynamic_a``) and
 weight-group paths, and the smoke LM's prefill and decode likewise; the
 batching engine's streams and batched decode logits against solo runs,
-guarded and supervised, with the watchdog and through a restart.
+guarded and supervised, with the watchdog and through a restart; and a
+kernel that fails on the card raising, never replaced by its plain
+version.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -471,3 +473,43 @@ def test_engine_guarded_supervised_watchdog_and_restart(cuda):
         assert np.array_equal(h.result(timeout=30.0), w)
     assert sess.plan.fallback_report() == {}
     eng.drain()
+
+
+def test_guarded_kernel_failure_raises_on_the_card(cuda):
+    """A kernel that fails to build on CUDA tensors raises a typed
+    compile error, through the guarded session, the supervisor (even with
+    a rebuild hook) and the engine; no op falls back to ``torch_ref``."""
+    import numpy as np
+    from repro_torch.api import guards
+    from repro_torch.runtime import ServingSupervisor, faults
+    from repro_torch.runtime.batching import BatchingEngine
+    sess = _engine_session(cuda, uniform_policy(8, 8), guarded=True)
+    prompts = _engine_prompts(2)
+    rebuilt = []
+    sup = ServingSupervisor(sess, rebuild=lambda name: rebuilt.append(name))
+    eng = BatchingEngine(sess, max_batch=2)
+    hs = [eng.submit(p, 4) for p in prompts]
+    eng.step()                             # both prefilled, one decode
+    faults.reset()
+    try:
+        with faults.inject("backend.op",
+                           exc=RuntimeError("kernel build failed: nvcc "
+                                            "exited 1"),
+                           times=None, match=":cuda"):
+            with pytest.raises(guards.BackendCompileError):
+                sess.generate(prompts[0][None, :], 2)
+            with pytest.raises(guards.BackendCompileError):
+                sup.generate(prompts[0][None, :], 2)
+            with pytest.raises(guards.BackendCompileError):
+                eng.run(max_steps=10)
+    finally:
+        leaked = faults.active_points()
+        faults.reset()
+    assert not leaked and rebuilt == []
+    assert sess.plan.fallback_report() == {}
+    assert sup.stats.n_session_fallbacks == 0 and sup.state == "failed"
+    for h in hs:
+        assert h.state == "failed"
+    want = sess.generate(prompts[0][None, :], 2)     # the kernels serve again
+    assert np.array_equal(want, _engine_session(
+        cuda, uniform_policy(8, 8)).generate(prompts[0][None, :], 2))
