@@ -102,6 +102,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               latency and queue-wait percentiles, occupancy, steps,
               restarts, the median engine step and peak memory, beside the
               card's name and power limit.
+   integrity -- the second half of the serving runtime on the same full LM
+              and the engine phase's first INTEGRITY_REQUESTS requests,
+              one line per check: (1) the seconds of the compile-time
+              fingerprint and of one ``verify_integrity`` (CRC32 on the
+              host), with the leaf count and bytes; (2) a guarded engine
+              auditing every request (``audit_rate=1.0``, oracle
+              ``torch_ref`` on the card): no divergence, streams == the
+              unaudited engine's, audit lag p95; (3)
+              ``backend.silent_corrupt`` on ``matmul_planes`` for request 0
+              alone: caught, bundled to a temporary directory and replayed
+              by ``replay_bundle`` on the card, one quarantine that demotes
+              nothing on the card (``fallback_report()`` {}), health
+              degraded, later requests clean; (4) ``save_checkpoint(
+              verify=True)`` of the dense seed-0 tree and its restore (bytes,
+              seconds), a newer step under ``ckpt.leaf_corrupt`` skipped by
+              ``restore_latest``; (5) ``weights.bitflip`` at the tick of
+              step 8 (``integrity_every=8``) healed from that checkpoint
+              (streams == clean), and without ``heal_dir`` a typed failure
+              of every live stream; (6) ``reload`` of a seed-1 dense tree
+              mid-traffic: later tokens == a fresh seed-1 session's, the
+              swap's seconds and peak memory. Every engine run holds K1
+              against its plain version at each shape it gave K1.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -133,11 +155,13 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -149,9 +173,11 @@ import torch.nn.functional as F  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 import repro_torch  # noqa: E402
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, interop  # noqa: E402
 from repro_torch.api import backend as backend_module  # noqa: E402
-from repro_torch.core import bitpack, quantize as q  # noqa: E402
+from repro_torch.api import guards  # noqa: E402
+from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
+from repro_torch.core import bitpack, integrity, quantize as q  # noqa: E402
 from repro_torch.core.policy import uniform_policy  # noqa: E402
 from repro_torch.core.weightgroups import truncate_columns_grouped  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -173,8 +199,10 @@ from repro_torch.kernels.ops import conv_accum_fits_f32  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import cnn, layers as L, model as M  # noqa: E402
 from repro_torch.runtime import faults  # noqa: E402
+from repro_torch.runtime.audit import replay_bundle  # noqa: E402
 from repro_torch.runtime.batching import BatchingEngine, KVPool  # noqa: E402
-from repro_torch.runtime.serving import HEALTHY, ServingSupervisor  # noqa: E402
+from repro_torch.runtime.serving import (  # noqa: E402
+    DEGRADED, HEALTHY, ServingSupervisor)
 from repro_torch.runtime.supervisor import TransientWorkerError  # noqa: E402
 
 BATCH = 256
@@ -191,6 +219,9 @@ LM_BATCH, LM_PROMPT, LM_GEN = 2, 512, 32
 # (numpy seed 2 + j), and it asks for ENGINE_GEN tokens.
 ENGINE_BATCH, ENGINE_SEQ, ENGINE_GEN, ENGINE_REQUESTS = 4, 448, 24, 6
 CHAOS_GEN, CHAOS_STEP_TIMEOUT_S, CHAOS_STALL_S = 8, 2.0, 2.5
+# The integrity phase serves the engine phase's first INTEGRITY_REQUESTS
+# requests (ENGINE_GEN tokens each).
+INTEGRITY_REQUESTS = 3
 # K7 against its plain version taken in float32 from the same inputs (bf16
 # widens exactly): (atol, rtol) by input dtype. The kernel works in float32
 # and rounds a bf16 output once, by at most half a bf16 ulp (2^-8 of the
@@ -955,6 +986,8 @@ def phase_serve() -> dict:
                                 params=wparams, device="cuda")
     expect = {}
     for (name, kind), lp in wsess.plan.layers.items():
+        if kind == "linear" and (name, "conv") in wsess.plan.layers:
+            continue                  # a conv's twin: no route reads it
         trimmed = min(lp.w_group_counts) < lp.w_bits
         kname = {("conv", True): "bitserial_conv_wgroup",
                  ("conv", False): "bitserial_conv",
@@ -1547,7 +1580,302 @@ def phase_engine(lm: dict, card: str, errs: dict) -> dict:
     phase_engine_cli(card)
     print(f"[engine] phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, dyn_launches=dlaunches, step_s=step_med,
-                prompts=prompts)
+                prompts=prompts, tokens=tokens)
+
+
+def phase_integrity(lm: dict, engine: dict, card: str, errs: dict) -> None:
+    """The second half of the serving runtime on the full LM, with the
+    engine phase's sessions and its first INTEGRITY_REQUESTS requests:
+    weight fingerprints, the shadow audit (clean and against a silent
+    corruption), checkpoints in the reference's format, the bitflip heal
+    and a hot reload. Every engine run holds K1 against its plain version
+    at every shape it gave K1."""
+    t_phase = time.perf_counter()
+    sess, n_lin = lm["sess"], lm["n_lin"]
+    cfg, device = sess.cfg, sess.device
+    prompts = engine["prompts"][:INTEGRITY_REQUESTS]
+    clean = engine["tokens"][:INTEGRITY_REQUESTS]
+    policy = sess.plan.policy
+
+    def shared(guarded: bool = False):
+        """A session on ``sess``'s packed weights (compile fingerprints
+        them again)."""
+        return repro_torch.compile(cfg, policy, mode="serve_packed",
+                                   backend="cuda", params=sess.params,
+                                   device=device, guarded=guarded)
+
+    # 1. Fingerprint: the compile-time hash and one verify_integrity.
+    leaves = interop.flatten_with_paths(sess.params)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    t0 = time.perf_counter()
+    fp = integrity.fingerprint_session(sess.params, sess.plan)
+    fp_s = time.perf_counter() - t0
+    check(fp == sess.fingerprint, "integrity: the fingerprint taken again "
+          "differs from compile's")
+    t0 = time.perf_counter()
+    n = sess.verify_integrity("chip smoke")
+    verify_s = time.perf_counter() - t0
+    check(n == len(leaves), f"verify_integrity checked {n} of "
+          f"{len(leaves)} leaves")
+    print(f"[integrity] {card}: fingerprint (as compile takes it) "
+          f"{fp_s:.3f} s, verify_integrity {verify_s:.3f} s: {n} leaves, "
+          f"{n_bytes} bytes ({n_bytes / 2**30:.3f} GiB) hashed on the host "
+          f"(CRC32, each leaf copied from the card); digest {fp.digest()}")
+
+    # 2. Clean audit: every request replayed on torch_ref on the card.
+    gsess = shared(guarded=True)
+    t0 = time.perf_counter()
+    eng = BatchingEngine(gsess, max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ,
+                         audit_rate=1.0)
+    reset_launches()
+    with recorded_calls(distinct=True) as calls:
+        handles, _, _ = drive_engine(eng, prompts, ENGINE_GEN)
+    launches = read_launches()
+    held = hold_path_calls(errs, calls, "integrity clean audit")
+    lm_step_launches("integrity clean audit", launches, {
+        "bitserial_matmul": n_lin * (eng.n_decode_steps + len(prompts))})
+    got = [h.result(timeout=60.0) for h in handles]
+    st = eng.stats
+    check(st.n_audits == len(prompts) and st.n_divergences == 0
+          and st.n_quarantines == 0, f"clean audit: {st.n_audits} audits, "
+          f"{st.n_divergences} divergences, {st.n_quarantines} quarantines")
+    for j, (g, c) in enumerate(zip(got, clean)):
+        check(np.array_equal(g, c), f"clean audit: request {j} "
+              f"{g.tolist()} differs from the unaudited engine's "
+              f"{c.tolist()}")
+    check(eng.health()["state"] == HEALTHY, f"clean audit health "
+          f"{eng.health()['state']}")
+    eng.drain()
+    print(f"[integrity] {card}: clean audit (guarded, audit_rate 1.0, "
+          f"oracle torch_ref on the card over {ENGINE_SEQ} cache slots): "
+          f"{st.n_audits} audits, 0 divergences, streams == the unaudited "
+          f"engine's; audit lag p95 {st.p95_audit_lag_s:.3f} s; launches "
+          f"{launches}; == plain on the run's operands: {held}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 3. Silent corruption of matmul_planes for request 0 alone.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as bundles:
+        sup = ServingSupervisor(gsess)
+        ceng = BatchingEngine(sup, max_batch=ENGINE_BATCH,
+                              max_seq=ENGINE_SEQ, audit_rate=1.0,
+                              audit_bundle_dir=bundles)
+        reset_launches()
+        with recorded_calls(distinct=True) as calls:
+            with faults.inject("backend.silent_corrupt", times=None,
+                               match="matmul_planes:cuda") as fault:
+                h0 = ceng.submit(prompts[0], ENGINE_GEN)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    ceng.run(max_steps=200)
+            fired = fault.fired
+            rest = [ceng.submit(p_, ENGINE_GEN) for p_ in prompts[1:]]
+            ceng.run(max_steps=200)
+        launches = read_launches()
+        held = hold_path_calls(errs, calls, "integrity silent corruption")
+        lm_step_launches("integrity silent corruption", launches, {
+            "bitserial_matmul": n_lin * (ceng.n_decode_steps + len(prompts))})
+        st = ceng.stats
+        check(fired == n_lin * ENGINE_GEN, f"silent_corrupt fired {fired} "
+              f"times, expected {n_lin * ENGINE_GEN}")
+        check(st.n_audits == len(prompts) and st.n_divergences == 1
+              and st.n_quarantines == 1, f"silent corruption: "
+              f"{st.n_audits} audits, {st.n_divergences} divergences, "
+              f"{st.n_quarantines} quarantines")
+        check(not np.array_equal(h0.result(timeout=60.0), clean[0]),
+              "silent corruption changed no token of request 0")
+        for j, h in enumerate(rest, 1):
+            check(np.array_equal(h.result(timeout=60.0), clean[j]),
+                  f"silent corruption: request {j}, served after the "
+                  f"injection ended, differs from the clean run")
+        report = gsess.plan.fallback_report()
+        demoted = gsess.plan.backend.quarantine("chip smoke probe",
+                                                device=device)
+        check(report == {} and demoted == 0
+              and gsess.plan.fallback_report() == {},
+              f"quarantine on the card demoted {demoted} ops, fallbacks "
+              f"{report}")
+        state = ceng.health()["state"]
+        check(state == DEGRADED, f"silent corruption health {state}")
+        paths = sorted(Path(bundles).glob("*.npz"))
+        check(len(paths) == 1, f"{len(paths)} repro bundles written")
+        t1 = time.perf_counter()
+        b = replay_bundle(str(paths[0]))
+        replay_s = time.perf_counter() - t1
+        check(b["diverged"] and b["reproduced"]
+              and np.array_equal(b["ref"], clean[0])
+              and b["meta"]["device"] == device.type, f"bundle replay: diverged "
+              f"{b['diverged']}, reproduced {b['reproduced']}, meta "
+              f"{b['meta']}")
+        ceng.drain()
+        sup.close()
+    print(f"[integrity] {card}: silent corruption (backend.silent_corrupt on "
+          f"matmul_planes:cuda, {fired} dispatches = request 0 alone): "
+          f"caught at position {b['meta']['diverged_at']}, 1 divergence of "
+          f"{st.n_audits} audits, 1 quarantine; quarantine on the card "
+          f"demotes 0 ops, fallback_report() {{}}, health degraded; "
+          f"requests 1-{len(prompts) - 1} after the injection == clean; "
+          f"bundle replayed on the card by replay_bundle in {replay_s:.1f} "
+          f"s (reproduced, same reference tokens); K1 launched "
+          f"{launches['bitserial_matmul']} times; == plain: {held}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del gsess, sup, ceng
+
+    # 4. Checkpoint: the dense seed-0 tree saved (verify=True) and restored.
+    with tempfile.TemporaryDirectory() as heal:
+        dense = M.init_params(cfg, torch.Generator(device=device).manual_seed(
+            0), device)
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(heal, 0, dense, verify=True)
+        save_s = time.perf_counter() - t0
+        ck_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        skel = M.param_skeleton(cfg)
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore_checkpoint(heal, 0, skel,
+                                                 device=device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want, got_ = (interop.flatten_with_paths(t) for t in (dense,
+                                                              restored))
+        check(step == 0 and list(got_) == list(want) and all(
+            torch.equal(got_[k], want[k]) for k in want),
+              "checkpoint: restored tree differs from the saved one")
+        del restored, got_, want
+        with faults.inject("ckpt.leaf_corrupt", times=1):
+            ckpt.save_checkpoint(heal, 1, dense)
+        del dense
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            skipped, step = ckpt.restore_latest(heal, skel, device=device)
+        check(step == 0 and any("corrupt" in str(w.message) for w in caught),
+              f"restore_latest took step {step} past a corrupt newer step")
+        del skipped
+        shutil.rmtree(os.path.join(heal, "step_00000001"))
+        print(f"[integrity] {card}: checkpoint of the dense seed-0 tree: "
+              f"{ck_bytes} bytes ({ck_bytes / 2**30:.3f} GiB, "
+              f"{len(os.listdir(path))} files), save (fsync, verify=True) "
+              f"{save_s:.2f} s, restore onto the card {restore_s:.2f} s, "
+              f"== the saved tree; a newer step saved under "
+              f"ckpt.leaf_corrupt is skipped by restore_latest with a "
+              f"warning")
+
+        # 5. Bitflip at an integrity tick mid-traffic, healed from the
+        # checkpoint; then the same without heal_dir fails loudly.
+        isess = shared()
+        t0 = time.perf_counter()
+        heng = BatchingEngine(isess, max_batch=ENGINE_BATCH,
+                              max_seq=ENGINE_SEQ, integrity_every=8,
+                              heal_dir=heal)
+        hs = []
+        reset_launches()
+        with recorded_calls(distinct=True) as calls:
+            for p_ in prompts:
+                hs.append(heng.submit(p_, ENGINE_GEN))
+                heng.step()
+            for _ in range(8 - len(prompts)):     # to the tick of step 8
+                heng.step()
+            with faults.inject("weights.bitflip", times=1) as fault:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    heng.run(max_steps=200)
+        launches = read_launches()
+        held = hold_path_calls(errs, calls, "integrity bitflip heal")
+        # Each request prefilled twice: at admission, and replayed after
+        # the heal's reload.
+        lm_step_launches("integrity bitflip heal", launches, {
+            "bitserial_matmul": n_lin * (heng.n_decode_steps
+                                         + 2 * len(prompts))})
+        st, heal_k1 = heng.stats, launches["bitserial_matmul"]
+        check(fault.fired == 1 and st.n_reloads == 1
+              and st.n_integrity_checks >= 2,
+              f"bitflip heal: fired {fault.fired}, {st.n_reloads} reloads, "
+              f"{st.n_integrity_checks} integrity checks")
+        for j, h in enumerate(hs):
+            check(np.array_equal(h.result(timeout=60.0), clean[j]),
+                  f"bitflip heal: request {j} differs from the clean run")
+        check(isess.verify_integrity() == len(leaves),
+              "bitflip heal: healed weights fail their fingerprint")
+        heal_s = time.perf_counter() - t0
+        heng.drain()
+        feng = BatchingEngine(isess, max_batch=ENGINE_BATCH,
+                              max_seq=ENGINE_SEQ, integrity_every=8)
+        fh = [feng.submit(p_, ENGINE_GEN) for p_ in prompts]
+        raised = None
+        with faults.inject("weights.bitflip", times=1):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                try:
+                    feng.run(max_steps=200)
+                except guards.WeightIntegrityError as exc:
+                    raised = exc
+        failed = []
+        for h in fh:
+            try:
+                h.result(timeout=5.0)
+            except guards.WeightIntegrityError:
+                failed.append(h)
+        check(raised is not None and len(failed) == len(fh),
+              f"bitflip without heal_dir: raised {raised!r}, "
+              f"{len(failed)} of {len(fh)} streams failed with it")
+    print(f"[integrity] {card}: bitflip (weights.bitflip at the tick of step "
+          f"8, integrity_every 8, {st.n_integrity_checks} checks) caught and "
+          f"healed by reload_checkpoint: 1 reload, every stream == the clean "
+          f"run, healed weights == their fingerprint; {heal_s:.1f} s; K1 "
+          f"launched {heal_k1} times; == plain: {held}; without heal_dir the engine raised "
+          f"WeightIntegrityError and all {len(fh)} live streams failed with "
+          f"it")
+    del isess, heng, feng
+
+    # 6. Hot reload of a seed-1 dense tree in memory, mid-traffic.
+    dense1 = M.init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                           device)
+    sess1 = repro_torch.compile(cfg, policy, mode="serve_packed",
+                                backend="cuda", params=dense1, device=device)
+    want1 = [sess1.generate(p_[None, :], ENGINE_GEN, max_seq=ENGINE_SEQ)[0]
+             for p_ in prompts]
+    reng = BatchingEngine(shared(), max_batch=ENGINE_BATCH,
+                          max_seq=ENGINE_SEQ)
+    rh = []
+    reset_launches()
+    with recorded_calls(distinct=True) as calls:
+        for p_ in prompts:
+            rh.append(reng.submit(p_, ENGINE_GEN))
+            reng.step()
+        pre = [len(h.tokens_so_far()) for h in rh]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_b = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        reng.reload(dense1)
+        torch.cuda.synchronize()
+        swap_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        reng.run(max_steps=200)
+    launches = read_launches()
+    held = hold_path_calls(errs, calls, "integrity hot reload")
+    lm_step_launches("integrity hot reload", launches, {
+        "bitserial_matmul": n_lin * (reng.n_decode_steps + 2 * len(prompts))})
+    for j, (h, n_pre) in enumerate(zip(rh, pre)):
+        got1 = h.result(timeout=60.0)
+        check(0 < n_pre < ENGINE_GEN
+              and np.array_equal(got1[:n_pre], clean[j][:n_pre])
+              and np.array_equal(got1[n_pre:], want1[j][n_pre:]),
+              f"hot reload: request {j} ({n_pre} tokens before the swap) "
+              f"{got1.tolist()} is not the old weights' prefix and the new "
+              f"weights' suffix {want1[j].tolist()}")
+    check(reng.stats.n_reloads == 1 and reng.session.fingerprint.digest()
+          == sess1.fingerprint.digest(), "hot reload: the fingerprint does "
+          "not follow the new weights")
+    reng.drain()
+    print(f"[integrity] {card}: hot reload of a seed-1 dense tree after "
+          f"{pre} tokens: every later token == a fresh seed-1 session's at "
+          f"that position; reload {swap_s:.3f} s (serving conversion, "
+          f"checks, fingerprint, {len(prompts)} replayed prefills), peak "
+          f"device memory {peak / 2**30:.3f} GiB ({(peak - held_b) / 2**30:.3f}"
+          f" GiB above the {held_b / 2**30:.3f} GiB held before); K1 launched "
+          f"{launches['bitserial_matmul']} times; == plain: {held}")
+    del dense1, sess1, reng
+    print(f"[integrity] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_engine_cli(card: str) -> None:
@@ -1912,6 +2240,7 @@ def main() -> None:
     # (cuDNN's default for convolutions).
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_script = time.perf_counter()
     name, count, card = phase_device()
     phase_build()
     errs = {k: 0 for k in KERNELS}
@@ -1920,6 +2249,7 @@ def main() -> None:
     served = phase_serve()
     lm = phase_lm(errs)
     engine = phase_engine(lm, card, errs)
+    phase_integrity(lm, engine, card, errs)
     launches = dict(served["launches"])
     launches["LM generate"] = lm["gen_launches"]
     launches["LM engine"] = engine["launches"]
@@ -1972,6 +2302,8 @@ def main() -> None:
             "bound_ms": max(r["bytes_s"], r["ops_s"]) * 1e3,
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": r["library_ms"] if r["library"] else None})
+    print(f"[smoke] {card}: the whole script took "
+          f"{time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -254,6 +254,9 @@ class GuardedBackend(Backend):
     caps it at 8), so the accumulator bound is taken at ``a_bits`` = 8
     unless a caller passes one.
 
+    :meth:`quarantine` demotes every op one step at once (the shadow
+    auditor's response to a silent divergence), along the same chain.
+
     Bit-transparency contract: on the fault-free path every op returns
     the inner backend's tensors unchanged -- guarded serving is
     byte-identical to unguarded serving.
@@ -280,14 +283,43 @@ class GuardedBackend(Backend):
         """The chain member currently serving ``op``."""
         return self.chain[self._active_idx.get(op, 0)]
 
-    def _usable_chain(self, operand) -> list[Backend]:
-        """The chain members that may serve an op on ``operand``'s device:
-        on the card, the chain ends before the plain version (a prefix,
-        so the sticky indices hold on either device)."""
+    def _usable_chain(self, where) -> list[Backend]:
+        """The chain members that may serve an op on the device of
+        ``where`` (an operand, or a ``torch.device``): on the card, the
+        chain ends before the plain version (a prefix, so the sticky
+        indices hold on either device)."""
+        on_card = where.type == "cuda" if isinstance(where, torch.device) \
+            else where.is_cuda
         plain = [i for i, b in enumerate(self.chain) if i and b.name == _PLAIN]
-        if operand.is_cuda and plain:
+        if on_card and plain:
             return self.chain[:plain[0]]
         return self.chain
+
+    def quarantine(self, reason: str = "", *, device) -> int:
+        """Sticky-demote EVERY op one member down the chain usable on
+        ``device`` (the shadow auditor's response to a silent divergence:
+        the active backend returned wrong-but-finite values, so no single
+        op can be trusted and no error classification exists to react
+        to). Reuses the same per-op sticky state as fault-driven
+        fallback -- ``fallback_report()`` shows the quarantine. Returns the
+        number of ops demoted: 0 once the chain is exhausted, and always
+        on the card, where the chain ends at the kernels (the plain
+        version never takes over serving there)."""
+        chain = self._usable_chain(torch.device(device))
+        n = 0
+        for op in BACKEND_OPS:
+            i = self._active_idx.get(op, 0)
+            if i + 1 < len(chain):
+                self._active_idx[op] = i + 1
+                self.fallbacks_by_op[op] = chain[i + 1].name
+                n += 1
+        if n:
+            warnings.warn(
+                f"[guarded] QUARANTINE: {self.chain[0].name!r} demoted for "
+                f"all ops ({reason or 'silent divergence'}) -- serving "
+                f"continues on the fallback chain (sticky)",
+                RuntimeWarning, stacklevel=3)
+        return n
 
     def _dispatch(self, op: str, *args, **kwargs):
         from repro_torch.runtime import faults

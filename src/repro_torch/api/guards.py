@@ -68,9 +68,20 @@ class AccumulatorOverflowError(NumericIntegrityError):
 
 
 class WeightIntegrityError(NumericIntegrityError):
-    """Serving weights or their pass-law metadata are corrupt (plane
-    counts outside [1, Pw]). The CRC fingerprint check of the reference
-    comes with ROADMAP A.9b."""
+    """In-memory serving weights no longer match their compile-time CRC32
+    fingerprint (bit flip / bad swap), or their pass-law metadata is
+    corrupt (plane counts outside [1, Pw]). Detected by the periodic
+    integrity check (``core.integrity``); the engine self-heals by
+    reloading the last good checkpoint when one is configured, else fails
+    loudly."""
+
+
+class SilentDivergenceError(NumericIntegrityError):
+    """A shadow-audited request's token stream diverged from the
+    reference-oracle replay (``runtime.audit``): the serving backend
+    returned wrong-but-finite values. The engine quarantines the backend
+    down the fallback chain usable on its device and writes a replayable
+    repro bundle."""
 
 
 class RequestTimeoutError(ServingFault):
@@ -98,6 +109,12 @@ class QueueFullError(ServingFault):
 class EngineClosedError(ServingFault):
     """A request reached an engine that is draining or stopped, or a
     stream was failed because the engine shut down before finishing it."""
+
+
+class ReloadMismatchError(ServingFault):
+    """A hot checkpoint swap was refused: the new param tree does not
+    match the compiled plan (tree structure / leaf shape / dtype / packed
+    weight-group counts). The engine keeps serving the old weights."""
 
 
 # Message markers of foreign exceptions. XLA's and Mosaic's markers are

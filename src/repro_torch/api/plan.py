@@ -144,15 +144,21 @@ class ExecutionPlan:
         from repro_torch.core import bitpack, weightgroups
         if not self.policy.w_group:
             return
+        memo = {}   # (name, w_group) -> counts: a conv's linear twin
+        #             covers the same tensor
         for (name, kind), lp in list(self.layers.items()):
             p = named_params.get(name)
             wp = p.get("w_packed") if isinstance(p, dict) else None
             if wp is None or wp.ndim != 3:
                 continue
-            w_bits = wp.shape[0]
-            counts = weightgroups.weight_group_counts(
-                bitpack.unpack_weights(wp, w_bits), w_bits, lp.w_group)
-            self.set_weight_counts(name, kind, counts.tolist())
+            counts = memo.get((name, lp.w_group))
+            if counts is None:
+                w_bits = wp.shape[0]
+                counts = weightgroups.weight_group_counts(
+                    bitpack.unpack_weights(wp, w_bits), w_bits,
+                    lp.w_group).tolist()
+                memo[(name, lp.w_group)] = counts
+            self.set_weight_counts(name, kind, counts)
 
     def set_weight_counts(self, name: str, kind: str, counts,
                           w_group: int | None = None) -> LayerPlan:
@@ -217,6 +223,11 @@ def build_plan(cfg, policy: PrecisionPolicy | None = None,
     if hasattr(cfg, "convs"):            # CNNConfig
         for c in cfg.convs:
             plan.layer(c.name, kind="conv", kernel=c.kernel, stride=c.stride)
+            # The reference's im2col A/B route (ROADMAP A.5) reads a
+            # linear twin of each conv; resolved here too, so the plans'
+            # metadata (and the weight fingerprints over it) agree key
+            # for key. No ported route reads it.
+            plan.layer(c.name, kind="linear")
         for i in range(len(cfg.fcs)):
             plan.layer(f"fc{i}", kind="linear")
     elif hasattr(cfg, "pattern"):        # ModelConfig

@@ -19,9 +19,10 @@ the config and the plan, the hooks that
 :class:`~repro_torch.runtime.serving.ServingSupervisor` wraps, as the
 reference wraps its jitted ones. The LM's cache is written in place by
 ``prefill`` and ``decode``. ``compile(..., guarded=True)`` wraps the
-backend in a :class:`~repro_torch.api.backend.GuardedBackend`. There is no
-integrity fingerprint yet (``verify_integrity`` / ``refingerprint``:
-ROADMAP A.9b).
+backend in a :class:`~repro_torch.api.backend.GuardedBackend`. A session
+compiled for serving carries the CRC32 fingerprint of its weights
+(``core.integrity``), taken once at ``compile``; ``verify_integrity``
+re-checks it.
 """
 from __future__ import annotations
 
@@ -53,6 +54,9 @@ class ServingSession:
     _prefill: Any = None
     _decode: Any = None
     _classify: Any = None
+    # Content identity of the compiled weights (core.integrity), computed
+    # once per compile/reload for serving modes; None = not fingerprinted.
+    fingerprint: Any = None
 
     @property
     def is_lm(self) -> bool:
@@ -119,6 +123,30 @@ class ServingSession:
         with torch.inference_mode():
             return self._classify(self.params, x)
 
+    # -- Integrity ----------------------------------------------------------
+
+    def verify_integrity(self, where: str = "") -> int:
+        """Re-verify the serving weights against the compile-time CRC32
+        fingerprint and the plan's pass-law count metadata (a typed
+        :class:`~repro_torch.api.guards.WeightIntegrityError` on any
+        mismatch). Returns the number of leaves verified; 0 when the
+        session was compiled without a fingerprint (non-serving modes).
+        Every leaf crosses to the host to be hashed."""
+        if self.fingerprint is None:
+            return 0
+        from repro_torch.core import integrity
+        where = where or self.cfg.name
+        n = integrity.verify_params(self.params, self.fingerprint, where)
+        integrity.verify_plan_counts(self.plan, self.fingerprint, where)
+        return n
+
+    def refingerprint(self) -> None:
+        """Recompute the fingerprint from the CURRENT params/plan -- only
+        legitimate after an intentional weight swap (engine reload)."""
+        from repro_torch.core import integrity
+        self.fingerprint = integrity.fingerprint_session(self.params,
+                                                         self.plan)
+
     # -- Plan state ---------------------------------------------------------
 
     def rejit(self) -> "ServingSession":
@@ -129,7 +157,7 @@ class ServingSession:
         eagerly: every call already reads the plan's backend state (a
         guarded backend's sticky fallbacks included), so the fresh
         closures only drop any instrumentation wrapped around the old
-        ones."""
+        ones. The fingerprint is kept."""
         return dataclasses.replace(self, **entry_points(self.cfg, self.plan))
 
     def layer_plan(self, name: str = "", kind: str = "linear"):
@@ -180,7 +208,9 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
     classification, sticky per-op fallback down ``cuda -> torch_ref`` and
     numeric-integrity prechecks; bit-identical to unguarded on the
     fault-free path (pair with ``repro_torch.runtime.ServingSupervisor``
-    for request-level retry/timeout/health).
+    for request-level retry/timeout/health). A serving mode fingerprints
+    the packed weights (``session.fingerprint``), hashing every leaf on
+    the host.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -210,5 +240,8 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
         else:
             params = M.convert_tree(params, policy, mode)
             plan.record_weight_groups(params)
-    return ServingSession(cfg=cfg, plan=plan, params=params, device=device,
+    sess = ServingSession(cfg=cfg, plan=plan, params=params, device=device,
                           **entry_points(cfg, plan))
+    if mode in _SERVING_MODES:
+        sess.refingerprint()
+    return sess

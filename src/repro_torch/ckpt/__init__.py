@@ -1,0 +1,1 @@
+"""Checkpoints of the PyTorch port, in the JAX package's on-disk format."""

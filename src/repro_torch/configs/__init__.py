@@ -10,6 +10,7 @@ from __future__ import annotations
 from repro_torch.configs import paper_cnn, qwen3_1_7b
 
 _ARCHS = {"paper_cnn": paper_cnn, "qwen3_1_7b": qwen3_1_7b}
+ARCHS = tuple(_ARCHS)
 
 
 def get(name: str, smoke: bool = False):

@@ -17,10 +17,13 @@ prompt seed ``prompt-seed + j``, length ``prompt-len + j``), so row j of
 its output equals a solo ``--batch 1`` run of that prompt. CNN archs
 classify. ``--out-tokens FILE`` saves the generations/predictions as
 ``.npy``. ``--device cpu`` runs the kernels' plain versions on the CPU.
+In server mode ``--audit-rate`` replays that share of the completed
+requests on the ``--audit-backend`` oracle (default ``torch_ref``, the
+plain versions, on the session's device) and ``--integrity-every N``
+re-verifies the weight fingerprint every N engine steps; the summary line
+counts both.
 
-Not ported yet: ``--audit-rate``, ``--audit-backend`` and
-``--integrity-every`` (ROADMAP A.9b) are accepted and raise when set;
-``jit_serve_steps`` (meshes) comes with A.13.
+Not ported yet: ``jit_serve_steps`` (meshes) comes with ROADMAP A.13.
 """
 from __future__ import annotations
 
@@ -135,7 +138,10 @@ def _serve_server(cfg, args, policy):
         target = sup = ServingSupervisor(sess)
     eng = BatchingEngine(target, max_batch=args.batch,
                          max_queue=args.max_queue,
-                         step_timeout_s=args.step_timeout)
+                         step_timeout_s=args.step_timeout,
+                         audit_rate=args.audit_rate,
+                         audit_backend=args.audit_backend,
+                         integrity_every=args.integrity_every)
     stop_requested = False
 
     def _on_signal(signum, frame):
@@ -180,7 +186,11 @@ def _serve_server(cfg, args, policy):
           f"streamed={st.n_tokens_streamed} "
           f"rejected={st.n_rejected} shed={st.n_shed} "
           f"expired={st.n_deadline_expired} "
-          f"restarts={st.n_engine_restarts}")
+          f"restarts={st.n_engine_restarts} "
+          f"audits={st.n_audits} divergences={st.n_divergences} "
+          f"integrity_checks={st.n_integrity_checks} "
+          f"quarantines={st.n_quarantines} "
+          f"audit_lag_p95={st.p95_audit_lag_s:.3f}s")
     return streams
 
 
@@ -268,14 +278,21 @@ def main(argv=None):
                          "freezing the queue (default: no watchdog)")
     ap.add_argument("--audit-rate", type=float, default=0.0,
                     metavar="FRACTION",
-                    help="shadow-audit sampling rate (not ported yet: "
-                         "ROADMAP A.9b; must stay 0)")
-    ap.add_argument("--audit-backend", default=None,
-                    help="reference backend for shadow audits (not ported "
-                         "yet: ROADMAP A.9b)")
+                    help="server-mode shadow-audit sampling rate in [0,1]: "
+                         "that fraction of completed requests is replayed "
+                         "off the hot path on the reference oracle and "
+                         "byte-compared; a divergence quarantines the "
+                         "backend and writes a replayable repro bundle "
+                         "(0 = auditing off)")
+    ap.add_argument("--audit-backend", default="torch_ref",
+                    choices=list(backendlib.list_backends()),
+                    help="reference oracle backend for shadow audits "
+                         "(torch_ref: the plain versions, on the session's "
+                         "device)")
     ap.add_argument("--integrity-every", type=int, default=0, metavar="N",
-                    help="weight-fingerprint check cadence (not ported "
-                         "yet: ROADMAP A.9b; must stay 0)")
+                    help="re-verify the packed weights' CRC32 fingerprint "
+                         "every N engine steps; a mismatch fails loudly "
+                         "with WeightIntegrityError (0 = off)")
     ap.add_argument("--drain-timeout", type=float, default=30.0,
                     metavar="SECONDS",
                     help="server-mode shutdown bound: in-flight requests "
@@ -289,12 +306,6 @@ def main(argv=None):
     ap.add_argument("--out-tokens", default=None, metavar="FILE",
                     help="save the generations/predictions as .npy")
     args = ap.parse_args(argv)
-    for flag, value, off in (("--audit-rate", args.audit_rate, 0.0),
-                             ("--audit-backend", args.audit_backend, None),
-                             ("--integrity-every", args.integrity_every, 0)):
-        if value != off:
-            raise NotImplementedError(f"{flag} is not ported yet "
-                                      f"(ROADMAP A.9b)")
 
     import dataclasses
 

@@ -55,6 +55,19 @@ def init_params(cfg: T.ModelConfig, generator: torch.Generator | None = None,
     return params
 
 
+def param_skeleton(cfg: T.ModelConfig, dtype=torch.bfloat16) -> dict:
+    """:func:`init_params`'s keys, shapes and dtypes as meta tensors, with
+    nothing drawn or allocated: the ``like`` tree of a checkpoint restore
+    (a full-size random tree would cost the memory of the weights)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch import interop
+    with FakeTensorMode():
+        fake = init_params(cfg, torch.Generator(), "cpu", dtype)
+    return interop.map_with_paths(
+        lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
+
+
 def init_cache(cfg: T.ModelConfig, batch: int, max_seq: int,
                device="cpu") -> dict:
     return {f"p{i}": _stack_trees([T.block_cache_init(cfg, spec, batch,

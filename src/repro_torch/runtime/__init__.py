@@ -1,11 +1,12 @@
 """Serving runtime of the PyTorch port: deterministic fault injection,
-the serving supervisor and the continuous-batching engine.
+the serving supervisor, the continuous-batching engine and the shadow
+auditor.
 
 ``faults`` and the worker-failure types are dependency-light and imported
-eagerly. The serving side (``ServingSupervisor``) and the batching engine
-pull in the model/plan stack, so they load lazily on first attribute
-access, as in the reference. The training ``Supervisor`` comes with
-ROADMAP A.12, the shadow auditor with A.9b.
+eagerly (``ckpt`` hooks fault points into checkpoint writes). The serving
+side (``ServingSupervisor``), the batching engine and the auditor pull in
+the model/plan stack, so they load lazily on first attribute access, as
+in the reference. The training ``Supervisor`` comes with ROADMAP A.12.
 """
 from repro_torch.runtime import faults as faults  # noqa: PLC0414 (re-export)
 from repro_torch.runtime.supervisor import (RunState, StepMonitor,
@@ -14,7 +15,8 @@ from repro_torch.runtime.supervisor import (RunState, StepMonitor,
 __all__ = ["StepMonitor", "RunState", "TransientWorkerError", "faults",
            "ServingSupervisor", "ServeStats", "serving",
            "HEALTHY", "DEGRADED", "FAILED",
-           "BatchingEngine", "StreamHandle", "batching"]
+           "BatchingEngine", "StreamHandle", "batching",
+           "ShadowAuditor", "audit"]
 
 _SERVING_EXPORTS = ("ServingSupervisor", "ServeStats", "serving",
                     "HEALTHY", "DEGRADED", "FAILED")
@@ -22,6 +24,9 @@ _SERVING_EXPORTS = ("ServingSupervisor", "ServeStats", "serving",
 # The batching engine sits on top of serving and the model stack -- same
 # lazy-load treatment.
 _BATCHING_EXPORTS = ("BatchingEngine", "StreamHandle", "batching")
+
+# The shadow auditor builds reference sessions (model stack) -- lazy too.
+_AUDIT_EXPORTS = ("ShadowAuditor", "audit")
 
 
 def __getattr__(name: str):
@@ -36,5 +41,10 @@ def __getattr__(name: str):
         if name == "batching":
             return batching
         return getattr(batching, name)
+    if name in _AUDIT_EXPORTS:
+        audit = importlib.import_module("repro_torch.runtime.audit")
+        if name == "audit":
+            return audit
+        return getattr(audit, name)
     raise AttributeError(
         f"module 'repro_torch.runtime' has no attribute {name!r}")

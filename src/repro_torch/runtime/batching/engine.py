@@ -41,11 +41,28 @@ Overload protection and lifecycle:
     the host, so its deadline covers the device's work and not only the
     launches.
 
-Not ported yet (ROADMAP A.9b): the integrity cadence
-(``integrity_every``, ``heal_dir``), the shadow audit (``audit_rate``) and
-hot checkpoint swap (:meth:`reload`, :meth:`reload_checkpoint`). Asking
-for one raises ``NotImplementedError``; the defaults build nothing, as in
-the reference.
+Hot checkpoint swap: :meth:`reload` validates a new DENSE param tree
+against the plan (tree/shape/dtype + packed weight-group counts;
+:meth:`reload_checkpoint` adds CRC via the checkpoint manifest, in the
+reference's on-disk format) and replays the survivors under the new
+weights between steps: every post-swap token equals what a fresh engine
+started on the new checkpoint would emit at that position.
+
+Silent-corruption defense:
+
+  * **integrity cadence** -- ``integrity_every=N`` re-verifies the weight
+    CRC32 fingerprint (``core.integrity``) every N steps, BEFORE the
+    decode, so a flipped bit (chaos point ``weights.bitflip``, applied at
+    the tick) never serves a token; ``heal_dir`` self-heals through
+    :meth:`reload_checkpoint`, else the engine fails loudly with a typed
+    ``WeightIntegrityError``.
+  * **shadow audit** -- ``audit_rate=r`` samples completed requests and
+    replays them on the reference oracle (``runtime.audit``, the plain
+    versions on the session's device) at step boundaries; a divergence
+    (chaos point ``backend.silent_corrupt``) quarantines the backend
+    (demoting nothing on the card, where the plain version never takes
+    over serving), degrades health, and writes a replayable repro bundle.
+    ``audit_rate=0`` (default) builds nothing.
 
 Byte-identity: the decode path has no cross-row coupling (per-ROW
 activation quantization scales, per-slot causal masks over per-row
@@ -75,6 +92,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import time
+import warnings
 from collections import deque
 
 import numpy as np
@@ -88,8 +106,6 @@ from repro_torch.runtime.batching.scheduler import FCFSScheduler, Request
 
 # Engine lifecycle states.
 ACCEPTING, DRAINING, STOPPED = "accepting", "draining", "stopped"
-
-_A9B = "ROADMAP A.9b"
 
 # Completions (and admissions) the latency (and queue-wait) percentiles
 # are taken over.
@@ -130,9 +146,12 @@ class BatchingEngine:
     ``step_timeout_s``: decode-watchdog deadline per step (None = no
     watchdog). ``overload_window_s``: how long after the last overload
     event (shed / rejection / deadline expiry / restart) the engine-local
-    health stays ``degraded`` before recovering. ``audit_rate``,
-    ``integrity_every`` and ``heal_dir`` come with ROADMAP A.9b: anything
-    but their defaults raises ``NotImplementedError``.
+    health stays ``degraded`` before recovering. ``audit_rate``: the
+    share of completed requests the shadow auditor replays on
+    ``audit_backend`` (0 = no auditor), writing divergence bundles to
+    ``audit_bundle_dir``. ``integrity_every``: re-verify the weight
+    fingerprint every N steps (None/0 = off); ``heal_dir``: the checkpoint
+    directory a violation self-heals from (None = fail loudly).
     """
 
     def __init__(self, session, *, max_batch: int = 8,
@@ -142,15 +161,10 @@ class BatchingEngine:
                  step_timeout_s: float | None = None,
                  overload_window_s: float = 5.0,
                  audit_rate: float = 0.0,
+                 audit_backend: str = "torch_ref",
+                 audit_bundle_dir: str = "audit_bundles",
                  integrity_every: int | None = None,
                  heal_dir: str | None = None):
-        if audit_rate > 0.0:
-            raise NotImplementedError(f"the shadow audit (audit_rate) is not "
-                                      f"ported yet ({_A9B})")
-        if integrity_every not in (None, 0) or heal_dir is not None:
-            raise NotImplementedError(
-                f"the weight-integrity cadence (integrity_every, heal_dir) "
-                f"is not ported yet ({_A9B})")
         from repro_torch.runtime import serving
         if isinstance(session, serving.ServingSupervisor):
             self.supervisor = session
@@ -183,11 +197,25 @@ class BatchingEngine:
         self._n_streamed = 0
         self._n_restarts = 0
         self._consec_restarts = 0
+        self._n_reloads = 0
         self._last_overload_t = -float("inf")
         self._lat_sum = 0.0
         self._lat_n = 0
         self._lat_ring: deque[float] = deque(maxlen=_LATENCY_RING)
         self._wait_ring: deque[float] = deque(maxlen=_LATENCY_RING)
+        # audit_rate > 0 attaches a ShadowAuditor replaying over the pool's
+        # cache length; audit_rate == 0 builds NOTHING.
+        self.auditor = None
+        if audit_rate > 0.0:
+            from repro_torch.runtime.audit import ShadowAuditor
+            self.auditor = ShadowAuditor(rate=audit_rate,
+                                         ref_backend=audit_backend,
+                                         bundle_dir=audit_bundle_dir,
+                                         max_seq=self.max_seq)
+        self.integrity_every = None if integrity_every in (None, 0) \
+            else int(integrity_every)
+        self.heal_dir = heal_dir
+        self._step_idx = 0
 
     @property
     def session(self):
@@ -253,11 +281,13 @@ class BatchingEngine:
 
     def _step_inner(self) -> bool:
         t0 = time.monotonic()
+        self._integrity_tick()
         self._retire_cancelled()
         self._retire_expired(t0)
         self._admit(t0)
         if self.active:
             self._decode_once()
+        self._audit_tick()
         self._busy_s += time.monotonic() - t0
         self._feed_stats()
         return bool(self.active) or self.scheduler.depth > 0
@@ -345,7 +375,8 @@ class BatchingEngine:
         ``degraded`` while a restart has ever happened or an overload
         event (shed / rejection / deadline expiry) is within
         ``overload_window_s``; recovers to ``healthy`` once the window
-        passes with clean serving."""
+        passes with clean serving; a quarantine keeps it ``degraded``
+        (the quarantine is sticky)."""
         if self.supervisor is not None:
             h = self.supervisor.health()
             h["engine_state"] = self.state
@@ -353,26 +384,14 @@ class BatchingEngine:
         from repro_torch.runtime import serving
         overloaded = (time.monotonic() - self._last_overload_t
                       < self.overload_window_s)
-        state = serving.DEGRADED if (self._n_restarts or overloaded) \
+        state = serving.DEGRADED if (self._n_restarts or overloaded
+                                     or self.stats.n_quarantines) \
             else serving.HEALTHY
         plan = self.session.plan
         return {"state": state, "backend": plan.backend.name,
                 "engine_state": self.state,
                 "fallbacks": plan.fallback_report(),
                 "stats": dataclasses.asdict(self.stats)}
-
-    # -- not ported yet -------------------------------------------------------
-
-    def reload(self, params) -> None:
-        """Hot checkpoint swap: not ported yet (ROADMAP A.9b)."""
-        raise NotImplementedError(f"hot checkpoint swap (reload) is not "
-                                  f"ported yet ({_A9B})")
-
-    def reload_checkpoint(self, ckpt_dir: str, step: int | None = None) -> int:
-        """Hot swap from a checkpoint directory: not ported yet (ROADMAP
-        A.9b)."""
-        raise NotImplementedError(f"hot checkpoint swap (reload_checkpoint) "
-                                  f"is not ported yet ({_A9B})")
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -391,6 +410,8 @@ class BatchingEngine:
             self._lat_sum += lat
             self._lat_n += 1
             self._lat_ring.append(lat)
+            if self.auditor is not None:
+                self.auditor.observe(req)
         elif state == streams.FAILED:
             self.stats.n_failed += 1
             self.stats.last_error = f"{type(error).__name__}: {error}"
@@ -543,6 +564,85 @@ class BatchingEngine:
             elif req.stream.cancel_requested:
                 self._retire(req, streams.CANCELLED)
 
+    # -- silent-corruption defense (integrity cadence + shadow audit) ---------
+
+    def _integrity_tick(self) -> None:
+        """Every ``integrity_every`` steps: re-verify the weight CRC32
+        fingerprint (+ pass-law plan metadata). A violation (e.g. the
+        ``weights.bitflip`` chaos point, applied right here so the
+        corrupted planes NEVER serve a decode undetected) self-heals
+        through the CRC-verified :meth:`reload_checkpoint` path when
+        ``heal_dir`` is configured, else fails the engine loudly --
+        corrupt weights are never served silently either way."""
+        if self.integrity_every is None \
+                or self.session.fingerprint is None:
+            return
+        tick = self._step_idx % self.integrity_every == 0
+        self._step_idx += 1
+        if not tick:
+            return
+        if faults.take("weights.bitflip"):
+            from repro_torch.core import integrity as integ
+            self.session.params, leaf = integ.flip_one_bit(
+                self.session.params)
+            warnings.warn(f"[chaos] weights.bitflip: flipped one bit of "
+                          f"leaf {leaf!r}", RuntimeWarning, stacklevel=2)
+        self.stats.n_integrity_checks += 1
+        try:
+            self.session.verify_integrity("engine integrity tick")
+        except guards.WeightIntegrityError as exc:
+            self._note_overload()
+            self._degrade(exc)
+            if self.heal_dir is None:
+                raise
+            warnings.warn(
+                f"[engine] weight integrity violation -- self-healing from "
+                f"the last good checkpoint in {self.heal_dir!r} ({exc})",
+                RuntimeWarning, stacklevel=2)
+            self.reload_checkpoint(self.heal_dir)
+
+    def _audit_tick(self) -> None:
+        """Drain the shadow auditor's sampled requests (off the hot path:
+        after the batched decode, never inside it). Any divergence
+        quarantines the serving backend once and counts in the stats; the
+        repro bundle was already written by the auditor."""
+        if self.auditor is None or not self.auditor.n_pending:
+            return
+        n, results = self.auditor.drain(self.session)
+        self.stats.n_audits += n
+        failures = [r for r in results if not r.ok]
+        if failures:
+            self.stats.n_divergences += len(failures)
+            self._quarantine(failures[0].error)
+
+    def _quarantine(self, exc: BaseException) -> None:
+        """Silent divergence response: sticky-demote the serving backend
+        along the chain usable on the session's device
+        (``GuardedBackend.quarantine``; on the card that chain ends at the
+        kernels, so nothing is demoted), refresh the session's entry
+        points and replay the survivors -- off the card their suffix
+        comes from the trusted substrate. Unguarded sessions, and the
+        card, cannot demote a backend; health still degrades and the
+        divergence stays counted + bundled."""
+        self.stats.n_quarantines += 1
+        self._note_overload()
+        self._degrade(exc)
+        be = self.session.plan.backend
+        if hasattr(be, "quarantine"):
+            be.quarantine(str(exc), device=self.session.device)
+        self._rejit_session()
+        self._replay_survivors()
+
+    def _rejit_session(self) -> None:
+        """Swap in fresh entry points for the current session (same
+        cfg/plan/params) -- re-instrumented when supervised, so the fault
+        points and numeric-integrity checks stay attached."""
+        fresh = self.session.rejit()
+        if self.supervisor is not None:
+            self.supervisor._session = self.supervisor._instrument(fresh)
+        else:
+            self._bare_session = fresh
+
     # -- restart-and-replay ----------------------------------------------------
 
     def _degrade(self, exc: BaseException) -> None:
@@ -552,7 +652,7 @@ class BatchingEngine:
             if self.supervisor.state == serving.HEALTHY:
                 self.supervisor.state = serving.DEGRADED
 
-    def _clear_pool(self, exc: BaseException) -> list[Request]:
+    def _clear_pool(self, exc: BaseException | None) -> list[Request]:
         """Take the active requests out of their slots; returns them in
         slot order. After a stall the abandoned call may still write the
         pool, so a new one is allocated, the old one dropped first (the
@@ -598,11 +698,146 @@ class BatchingEngine:
                 req.slot = -1
                 self._retire(req, streams.FAILED, exc)
             return
+        self._replay(survivors)
+
+    def _replay(self, survivors: list[Request]) -> None:
+        """Re-prefill ``survivors`` into the (cleared) pool; their streams
+        suppress the tokens they already received."""
         for req in survivors:
             req.n_generated = 0
             req.token = 0
             req.pos = 0
             self._place(req)
+
+    def _replay_survivors(self) -> None:
+        """Take every active request out of the pool (reused: the replays
+        rewrite their rows whole) and REPLAY it from its prompt --
+        deterministic regeneration => the suppressed prefix is
+        byte-identical to what the streams already saw under unchanged
+        weights; after a hot swap the suffix is the new checkpoint's
+        stream."""
+        self._replay(self._clear_pool(None))
+
+    # -- hot checkpoint swap ---------------------------------------------------
+
+    def reload(self, params) -> None:
+        """Hot-swap serving weights between steps (no engine restart).
+
+        ``params``: a DENSE-layout param tree (tensors or numpy arrays, as
+        ``model.init_params`` makes it or ``ckpt.restore_checkpoint``
+        restores it, the reference's trees through ``interop``); it is
+        put on the session's device, run through the serving conversion
+        ``compile`` uses, validated against the compiled plan (tree
+        structure, per-leaf shape/dtype, and -- when the plan recorded
+        pack-time weight-group counts -- count equality) and only then
+        swapped in. Survivors are re-prefilled under the new weights:
+        every token emitted after the swap is byte-identical to what a
+        fresh engine started on the new checkpoint would emit at that
+        position. A typed ``ReloadMismatchError`` leaves the engine
+        serving the old weights untouched.
+        """
+        from repro_torch import interop
+        from repro_torch.api.session import _SERVING_MODES
+        from repro_torch.models import model as M
+        if self.state == STOPPED:
+            raise guards.EngineClosedError("engine is stopped: cannot reload")
+        sess = self.session
+        plan = sess.plan
+        converted = interop.params_from_numpy(params, sess.device)
+        if plan.mode in _SERVING_MODES:
+            try:
+                converted = M.convert_params_for_serving(
+                    converted, plan.policy, plan.mode)
+            except Exception as exc:  # noqa: BLE001 -- conversion rejects
+                raise guards.ReloadMismatchError(
+                    f"new param tree failed the serving conversion for "
+                    f"mode={plan.mode!r}: {type(exc).__name__}: {exc}"
+                ) from exc
+        self._validate_swap(converted)
+        self._check_weight_groups(converted)
+        sess.params = converted
+        # The swap is intentional: re-anchor the integrity fingerprint to
+        # the new weights, and drop the auditor's reference session +
+        # pending records (they were produced by the old weights).
+        if sess.fingerprint is not None:
+            sess.refingerprint()
+        if self.auditor is not None:
+            self.auditor.invalidate_reference()
+        self._n_reloads += 1
+        self.stats.n_reloads = self._n_reloads
+        self._replay_survivors()
+
+    def reload_checkpoint(self, ckpt_dir: str, step: int | None = None) -> int:
+        """Hot-swap from an on-disk checkpoint (either package's):
+        CRC/shape/dtype-verified restore onto the session's device (the
+        manifest; corrupt steps fall back to the previous good one),
+        followed by :meth:`reload`. The restore's ``like`` tree is
+        ``model.param_skeleton``: shapes and dtypes, nothing drawn.
+        Returns the step actually loaded."""
+        from repro_torch.ckpt import checkpoint as ckpt
+        from repro_torch.models import model as M
+        skel = M.param_skeleton(self.session.cfg)
+        device = self.session.device
+        if step is None:
+            params, got = ckpt.restore_latest(ckpt_dir, skel, device=device)
+            if params is None:
+                raise guards.ReloadMismatchError(
+                    f"no checkpoints found in {ckpt_dir!r}")
+        else:
+            params, got = ckpt.restore_checkpoint(ckpt_dir, step, skel,
+                                                  device=device)
+        self.reload(params)
+        return got
+
+    def _validate_swap(self, converted) -> None:
+        """The new tree must match the compiled plan's param tree exactly
+        in structure, per-leaf shape and dtype."""
+        from repro_torch import interop
+        cur = interop.flatten_with_paths(self.session.params)
+        new = interop.flatten_with_paths(converted)
+        if list(cur) != list(new):
+            raise guards.ReloadMismatchError(
+                "new param tree structure does not match the compiled "
+                "plan's (different layers/keys) -- recompile instead of "
+                "hot-swapping")
+        for key, c in cur.items():
+            n = new[key]
+            if tuple(n.shape) != tuple(c.shape):
+                raise guards.ReloadMismatchError(
+                    f"leaf {key!r}: shape {tuple(n.shape)} != plan's "
+                    f"{tuple(c.shape)}")
+            if n.dtype != c.dtype:
+                raise guards.ReloadMismatchError(
+                    f"leaf {key!r}: dtype {n.dtype} != plan's {c.dtype}")
+
+    def _check_weight_groups(self, converted) -> None:
+        """Pack-time weight-group counts are plan constants -- a swap that
+        changes them silently would execute the wrong plane partitions.
+        Recompute from the new packed head and require equality; a
+        mismatch means the new checkpoint needs a recompile, not a hot
+        swap."""
+        plan = self.session.plan
+        if not plan.policy.w_group:
+            return
+        from repro_torch.core import bitpack, weightgroups
+        named = {"lm_head": converted.get("head", {})}
+        for (name, kind), lp in plan.layers.items():
+            if not lp.w_group_counts:
+                continue
+            p = named.get(name)
+            wp = p.get("w_packed") if isinstance(p, dict) else None
+            if wp is None or wp.ndim != 3:
+                continue
+            w_bits = wp.shape[0]
+            counts = tuple(int(v) for v in weightgroups.weight_group_counts(
+                bitpack.unpack_weights(wp, w_bits), w_bits,
+                lp.w_group).tolist())
+            if counts != lp.w_group_counts:
+                raise guards.ReloadMismatchError(
+                    f"layer {name!r} ({kind}): packed weight-group counts "
+                    f"{counts} != the plan's {lp.w_group_counts} -- the new "
+                    f"checkpoint changes the execution plan; recompile "
+                    f"instead of hot-swapping")
 
     # -- metrics ---------------------------------------------------------------
 
@@ -618,4 +853,6 @@ class BatchingEngine:
             p50_request_latency_s=_pct(self._lat_ring, 50),
             p95_request_latency_s=_pct(self._lat_ring, 95),
             p50_queue_wait_s=_pct(self._wait_ring, 50),
-            p95_queue_wait_s=_pct(self._wait_ring, 95))
+            p95_queue_wait_s=_pct(self._wait_ring, 95),
+            p95_audit_lag_s=self.auditor.lag_p95()
+            if self.auditor is not None else 0.0)

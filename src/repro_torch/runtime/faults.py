@@ -18,37 +18,44 @@ effects the injection site applies itself, e.g. byte corruption). A
 fault fires at most ``times`` times (``times=None`` = every call), so a
 transient fault heals on retry by construction.
 
-Registered points:
+Registered points, each with its site:
 
     backend.op         entry of every GuardedBackend op dispatch
-                       (detail = "<op>:<backend name>")
+                       (``api/backend.py``; detail = "<op>:<backend name>")
     serve.step         every supervised prefill/decode/classify call
-                       (exc => worker kill; delay => slow step)
+                       (``runtime/serving.py``; exc => worker kill;
+                       delay => slow step)
     serve.nan_poison   poisons supervised logits with NaN
-                       (numeric-integrity guard must catch it)
+                       (``runtime/serving.py``; the numeric-integrity
+                       guard must catch it)
     engine.step_stall  entry of every batching-engine decode step
-                       (delay => stuck step; the watchdog's per-step
-                       deadline must trip and restart-and-replay)
-    ckpt.leaf_corrupt  flips bytes of one leaf file inside a checkpoint
-                       save (CRC verification must reject it on restore)
-    ckpt.crash_rename  raises just before the atomic rename (a torn save
-                       must never shadow the previous good checkpoint)
+                       (``runtime/batching/engine.py``; delay => stuck
+                       step; the watchdog's per-step deadline must trip
+                       and restart-and-replay)
+    ckpt.leaf_corrupt  flips a byte of one leaf file inside a checkpoint
+                       save (``ckpt/checkpoint.py``; CRC verification must
+                       reject it on restore, or at save with verify=True)
+    ckpt.crash_rename  raises just before the atomic rename
+                       (``ckpt/checkpoint.py``; a torn save must never
+                       shadow the previous good checkpoint)
     weights.bitflip    flips one bit of an in-memory packed weight plane
-                       at the engine's integrity tick (the CRC
+                       at the engine's integrity tick
+                       (``runtime/batching/engine.py``; the CRC
                        fingerprint check must detect it within one
                        cadence and self-heal via reload_checkpoint)
     backend.silent_corrupt
                        perturbs a GuardedBackend op's output WITHOUT
-                       raising (detail = "<op>:<backend name>") — the
-                       silent half of the fault model; only the shadow
-                       auditor (runtime/audit.py) can catch it
+                       raising (``api/backend.py``; detail = "<op>:<backend
+                       name>") -- the silent half of the fault model; only
+                       the shadow auditor (``runtime/audit.py``) can catch
+                       it
 
-The registry matches the reference's point for point. The sites of
-``ckpt.leaf_corrupt``, ``ckpt.crash_rename`` and ``weights.bitflip`` (the
-checkpoint writer and the engine's integrity tick) and the auditor that
-catches ``backend.silent_corrupt`` come with ROADMAP A.9b; until then
-those points can be armed but nothing fires them, except
-``backend.silent_corrupt``, whose site is the guarded backend.
+The registry matches the reference's point for point. One difference by
+design: the port runs eagerly, so ``backend.silent_corrupt`` corrupts the
+dispatches it fires on and no others (in the reference it fires while a
+jitted step traces and stays baked into the cache until a re-jit): arm it
+with ``match`` on the inner backend's name and enough ``times`` to cover
+the request.
 """
 from __future__ import annotations
 

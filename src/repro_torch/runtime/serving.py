@@ -77,8 +77,7 @@ class ServeStats:
     them are fed by the continuous-batching engine
     (:class:`repro_torch.runtime.batching.BatchingEngine` calls
     :meth:`note_serving` after every step) and reflect the current or
-    most recent engine run. The reference's reload, audit and integrity
-    counters come with their mechanisms (ROADMAP A.9b)."""
+    most recent engine run."""
 
     n_requests: int = 0
     n_ok: int = 0
@@ -95,6 +94,13 @@ class ServeStats:
     n_rejected: int = 0                 # monotone: QueueFullError admissions
     n_shed: int = 0                     # monotone: expired while queued
     n_deadline_expired: int = 0         # monotone: expired in flight
+    n_reloads: int = 0                  # monotone: hot checkpoint swaps
+    # -- silent-corruption defense ------------------------------------------
+    n_audits: int = 0                   # monotone: shadow-audit replays run
+    n_divergences: int = 0              # monotone: audits that diverged
+    n_integrity_checks: int = 0         # monotone: weight-fingerprint checks
+    n_quarantines: int = 0              # monotone: backends quarantined
+    p95_audit_lag_s: float = 0.0        # gauge: completion -> audit verdict
     queue_depth: int = 0                # requests waiting for a slot
     batch_occupancy: float = 0.0        # mean active slots per decode step
     tokens_per_s: float = 0.0           # streamed throughput over busy time
@@ -112,7 +118,8 @@ class ServeStats:
                      p50_request_latency_s: float = 0.0,
                      p95_request_latency_s: float = 0.0,
                      p50_queue_wait_s: float = 0.0,
-                     p95_queue_wait_s: float = 0.0) -> None:
+                     p95_queue_wait_s: float = 0.0,
+                     p95_audit_lag_s: float = 0.0) -> None:
         """Engine hook: overwrite the serving gauges in one call."""
         self.queue_depth = queue_depth
         self.batch_occupancy = batch_occupancy
@@ -124,6 +131,7 @@ class ServeStats:
         self.p95_request_latency_s = p95_request_latency_s
         self.p50_queue_wait_s = p50_queue_wait_s
         self.p95_queue_wait_s = p95_queue_wait_s
+        self.p95_audit_lag_s = p95_audit_lag_s
 
 
 class ServingSupervisor:

@@ -2,8 +2,8 @@
 CPU at smoke size (``device="cpu"``: the ``cuda`` backend's kernel
 wrappers take their plain versions).
 
-Mirrors ``tests/test_batching.py`` and ``tests/test_lifecycle.py`` (hot
-swap aside: ROADMAP A.9b). The bar inside the port: every request's
+Mirrors ``tests/test_batching.py`` and ``tests/test_lifecycle.py`` (the
+hot swap in ``tests/test_torch_reload.py``). The bar inside the port: every request's
 stream, and every batched decode row's logits, equal a solo batch-1
 ``session.generate`` over a cache of the pool's ``max_seq`` slots, bit for
 bit, across {cuda, torch_ref} x {static, dynamic_a, w_group}. Against the
@@ -329,18 +329,30 @@ def test_engine_metrics_feed_supervisor_health():
                                     dict(integrity_every=4),
                                     dict(heal_dir="ckpt")])
 def test_a9b_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-        BatchingEngine(_lm_session(), max_batch=2, **kwargs)
+    """The options of the second half of the runtime (ROADMAP A.9b) build
+    their machinery; none of them raises any more."""
+    eng = BatchingEngine(_lm_session(), max_batch=2, **kwargs)
+    if "audit_rate" in kwargs:
+        assert eng.auditor.rate == 0.5
+        assert eng.auditor.ref_backend == "torch_ref"
+        assert eng.auditor.max_seq == eng.max_seq
+    else:
+        assert eng.auditor is None
+    assert eng.integrity_every == kwargs.get("integrity_every")
+    assert eng.heal_dir == kwargs.get("heal_dir")
 
 
-def test_a9b_hot_swap_raises_and_defaults_build_nothing():
+def test_a9b_hot_swap_raises_and_defaults_build_nothing(tmp_path):
+    """A hot swap raises only the typed refusals now; the defaults build
+    nothing."""
     eng = BatchingEngine(_lm_session(), max_batch=2, audit_rate=0.0,
                          integrity_every=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
+    with pytest.raises(guards.ReloadMismatchError):
         eng.reload({})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-        eng.reload_checkpoint("ckpt")
-    assert not hasattr(eng, "auditor")
+    with pytest.raises(guards.ReloadMismatchError, match="no checkpoints"):
+        eng.reload_checkpoint(str(tmp_path / "ckpt"))
+    assert eng.auditor is None and eng.integrity_every is None
+    assert eng.stats.n_reloads == 0
 
 
 # -- against the JAX package's engine ----------------------------------------

@@ -2,7 +2,9 @@
 heals or fails loudly, on the CPU at smoke size.
 
 Mirrors the non-checkpoint half of ``tests/test_faults.py`` (the
-checkpoint and training points come with ROADMAP A.9b and A.12):
+checkpoint points in ``tests/test_torch_ckpt.py``, the integrity and audit
+points in ``tests/test_torch_audit.py``; training comes with ROADMAP
+A.12):
 
     backend.op         -> sticky fallback down ``cuda -> torch_ref`` on the
                           CPU, or a typed FallbackExhaustedError; on the

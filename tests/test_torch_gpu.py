@@ -5,9 +5,10 @@ random, full and all-1 plane counts) and K7 within its tolerance
 ``torch_ref``, bit for bit, on the static, dynamic (``dynamic_a``) and
 weight-group paths, and the smoke LM's prefill and decode likewise; the
 batching engine's streams and batched decode logits against solo runs,
-guarded and supervised, with the watchdog and through a restart; and a
+guarded and supervised, with the watchdog and through a restart; a
 kernel that fails on the card raising, never replaced by its plain
-version.
+version; the weight fingerprint on the card equal to the CPU's; and a
+shadow audit on the card whose quarantine demotes nothing.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -513,3 +514,69 @@ def test_guarded_kernel_failure_raises_on_the_card(cuda):
     want = sess.generate(prompts[0][None, :], 2)     # the kernels serve again
     assert np.array_equal(want, _engine_session(
         cuda, uniform_policy(8, 8)).generate(prompts[0][None, :], 2))
+
+
+def test_fingerprint_on_the_card_equals_the_cpu_one(cuda):
+    """The same packed tree fingerprints alike on the card (each leaf
+    copied to the host) and on the CPU, and a bit flipped on the card is
+    caught and named."""
+    from repro_torch.api import guards
+    from repro_torch.core import integrity
+    from repro_torch.models import model as M
+    cfg = configs.get("qwen3-1.7b", smoke=True)
+    dense = M.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    on_card, on_cpu = (repro_torch.compile(cfg, uniform_policy(8, 8),
+                                           mode="serve_packed", params=dense,
+                                           device=dev)
+                       for dev in (cuda, "cpu"))
+    assert on_card.fingerprint == on_cpu.fingerprint
+    assert on_card.verify_integrity() == len(on_card.fingerprint.leaves)
+    clean = on_card.params
+    on_card.params, leaf = integrity.flip_one_bit(clean)
+    with pytest.raises(guards.WeightIntegrityError, match=leaf):
+        on_card.verify_integrity()
+    on_card.params = clean
+
+
+def test_audit_on_the_card_quarantines_nothing(cuda, tmp_path):
+    """A silent corruption of request 0 on the card is caught by the
+    ``torch_ref`` oracle (the plain versions on the card, off the serving
+    path) and bundled; the quarantine demotes nothing -- the kernels keep
+    serving, and the next request is clean."""
+    import warnings
+
+    import numpy as np
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.batching import BatchingEngine
+    plain = _engine_session(cuda, uniform_policy(8, 8))
+    sess = _engine_session(cuda, uniform_policy(8, 8), guarded=True)
+    prompts = _engine_prompts(2)
+    eng = BatchingEngine(sess, max_batch=2, audit_rate=1.0,
+                         audit_bundle_dir=str(tmp_path))
+    faults.reset()
+    try:
+        with faults.inject("backend.silent_corrupt", times=None,
+                           match="matmul_planes:cuda"):
+            h0 = eng.submit(prompts[0], 4)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                eng.run(max_steps=20)
+    finally:
+        leaked = faults.active_points()
+        faults.reset()
+    assert not leaked
+    h1 = eng.submit(prompts[1], 4)
+    eng.run(max_steps=20)
+    st = eng.stats
+    assert (st.n_audits, st.n_divergences, st.n_quarantines) == (2, 1, 1)
+    assert sess.plan.fallback_report() == {}
+    assert sess.plan.backend.quarantine("probe", device=cuda) == 0
+    assert eng.health()["state"] == "degraded"
+    assert not np.array_equal(h0.result(timeout=30.0),
+                              plain.generate(prompts[0][None, :], 4,
+                                             max_seq=eng.max_seq)[0])
+    assert np.array_equal(h1.result(timeout=30.0),
+                          plain.generate(prompts[1][None, :], 4,
+                                         max_seq=eng.max_seq)[0])
+    assert len(list(tmp_path.glob("*.npz"))) == 1
+    eng.drain()

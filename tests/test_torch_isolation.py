@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch``, nor
 ``chip_smoke.py``, ``chip_k7_faults.py``, ``chip_kernel_times.py`` or
-``chip_batch_variance.py``, imports ``jax`` or the JAX package
-``repro``."""
+``chip_batch_variance.py``, imports ``jax``, the JAX package ``repro``, or
+``ml_dtypes`` (the card's machine has none: bf16 and float8 leaves cross
+as raw integers)."""
 import ast
 from pathlib import Path
 
@@ -15,12 +16,24 @@ _FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def test_port_files_exist():
     assert all(p.is_file() for p in _FILES)
     assert len(_FILES) > 15
+    names = {str(p.relative_to(_ROOT)) for p in _FILES}
+    for new in ("src/repro_torch/ckpt/__init__.py",
+                "src/repro_torch/ckpt/checkpoint.py",
+                "src/repro_torch/core/integrity.py",
+                "src/repro_torch/runtime/audit.py"):
+        assert new in names, new
+
+
+def test_forbidden_modules():
+    assert all(_forbidden(m) for m in ("jax", "jax.numpy", "jaxlib",
+                                       "repro.api", "ml_dtypes"))
+    assert not any(_forbidden(m) for m in ("repro_torch", "torch", "numpy"))
 
 
 @pytest.mark.parametrize("path", _FILES, ids=lambda p: str(p.relative_to(_ROOT)))

@@ -2,7 +2,7 @@
 called in-process with ``--device cpu`` at smoke size: the session and
 plan APIs agree, ``--guarded`` equals unguarded, ``--server N`` row j
 equals a solo run of request j's prompt, the CNN classifies, and the
-flags of ROADMAP A.9b raise."""
+audit and integrity flags serve the same tokens and count their checks."""
 import numpy as np
 import pytest
 
@@ -73,9 +73,30 @@ def test_cnn_classifies_on_both_apis_guarded_or_not():
 @pytest.mark.parametrize("flag", [["--audit-rate", "0.5"],
                                   ["--audit-backend", "torch_ref"],
                                   ["--integrity-every", "4"]])
-def test_a9b_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9b"):
-        serve.main(LM + ["--server", "2"] + flag)
+def test_a9b_flags_raise(flag, capsys):
+    """The flags of the second half of the runtime (ROADMAP A.9b) no
+    longer raise: each serves, tokens unchanged."""
+    rows = serve.main(LM + ["--server", "2"] + flag)
+    np.testing.assert_array_equal(rows, serve.main(LM + ["--server", "2"]))
+    assert "divergences=0" in capsys.readouterr().out
+
+
+def test_server_audit_and_integrity_flags(capsys):
+    """``--audit-rate 1 --integrity-every 2`` in server mode: every request
+    audited against ``torch_ref``, the fingerprint checked every 2 steps,
+    no divergence, and the same tokens as a run without the flags."""
+    args = LM + ["--server", "3", "--batch", "2", "--prompt-seed", "5"]
+    plain = serve.main(args)
+    capsys.readouterr()
+    got = serve.main(args + ["--audit-rate", "1", "--integrity-every", "2"])
+    np.testing.assert_array_equal(got, plain)
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if "[serve] server:" in ln][0]
+    fields = dict(kv.split("=", 1) for kv in line.split() if "=" in kv)
+    assert fields["audits"] == "3" and fields["divergences"] == "0"
+    assert fields["quarantines"] == "0"
+    assert int(fields["integrity_checks"]) >= 2
+    assert fields["state"] == "healthy"
 
 
 def test_unported_mode_raises():
