@@ -109,7 +109,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               host), with the leaf count and bytes; (2) a guarded engine
               auditing every request (``audit_rate=1.0``, oracle
               ``torch_ref`` on the card): no divergence, streams == the
-              unaudited engine's, audit lag p95; (3)
+              unaudited engine's, audit lag p95, and the host-clock step
+              time and request latency p95 beside an unaudited run of the
+              same traffic (the replay stalls the serving thread); (3)
               ``backend.silent_corrupt`` on ``matmul_planes`` for request 0
               alone: caught, bundled to a temporary directory and replayed
               by ``replay_bundle`` on the card, one quarantine that demotes
@@ -1622,36 +1624,50 @@ def phase_integrity(lm: dict, engine: dict, card: str, errs: dict) -> None:
           f"{n_bytes} bytes ({n_bytes / 2**30:.3f} GiB) hashed on the host "
           f"(CRC32, each leaf copied from the card); digest {fp.digest()}")
 
-    # 2. Clean audit: every request replayed on torch_ref on the card.
+    # 2. Clean audit: every request replayed on torch_ref on the card,
+    # beside the same traffic unaudited (the audit replays on the serving
+    # thread, between steps: the steps and requests it stalls are timed).
     gsess = shared(guarded=True)
     t0 = time.perf_counter()
-    eng = BatchingEngine(gsess, max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ,
-                         audit_rate=1.0)
-    reset_launches()
+    runs = {}
     with recorded_calls(distinct=True) as calls:
-        handles, _, _ = drive_engine(eng, prompts, ENGINE_GEN)
-    launches = read_launches()
+        for rate in (0.0, 1.0):
+            eng = BatchingEngine(gsess, max_batch=ENGINE_BATCH,
+                                 max_seq=ENGINE_SEQ, audit_rate=rate)
+            reset_launches()
+            handles, step_s, _ = drive_engine(eng, prompts, ENGINE_GEN)
+            launches = read_launches()
+            label = f"integrity audit_rate {rate}"
+            lm_step_launches(label, launches, {
+                "bitserial_matmul": n_lin * (eng.n_decode_steps
+                                             + len(prompts))})
+            for j, (h, c) in enumerate(zip(handles, clean)):
+                g = h.result(timeout=60.0)
+                check(np.array_equal(g, c), f"{label}: request {j} "
+                      f"{g.tolist()} differs from the engine phase's "
+                      f"{c.tolist()}")
+            check(eng.health()["state"] == HEALTHY, f"{label}: health "
+                  f"{eng.health()['state']}")
+            eng.drain()
+            runs[rate] = (eng.stats, sorted(step_s), launches)
     held = hold_path_calls(errs, calls, "integrity clean audit")
-    lm_step_launches("integrity clean audit", launches, {
-        "bitserial_matmul": n_lin * (eng.n_decode_steps + len(prompts))})
-    got = [h.result(timeout=60.0) for h in handles]
-    st = eng.stats
+    st = runs[1.0][0]
     check(st.n_audits == len(prompts) and st.n_divergences == 0
           and st.n_quarantines == 0, f"clean audit: {st.n_audits} audits, "
           f"{st.n_divergences} divergences, {st.n_quarantines} quarantines")
-    for j, (g, c) in enumerate(zip(got, clean)):
-        check(np.array_equal(g, c), f"clean audit: request {j} "
-              f"{g.tolist()} differs from the unaudited engine's "
-              f"{c.tolist()}")
-    check(eng.health()["state"] == HEALTHY, f"clean audit health "
-          f"{eng.health()['state']}")
-    eng.drain()
+    cost = {rate: f"request latency p95 {r[0].p95_request_latency_s:.4f} s, "
+            f"engine step (host clock) median {r[1][len(r[1]) // 2] * 1e3:.3f}"
+            f" ms, max {r[1][-1] * 1e3:.3f} ms over {len(r[1])} steps"
+            for rate, r in runs.items()}
     print(f"[integrity] {card}: clean audit (guarded, audit_rate 1.0, "
           f"oracle torch_ref on the card over {ENGINE_SEQ} cache slots): "
           f"{st.n_audits} audits, 0 divergences, streams == the unaudited "
           f"engine's; audit lag p95 {st.p95_audit_lag_s:.3f} s; launches "
-          f"{launches}; == plain on the run's operands: {held}; "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{runs[1.0][2]}; == plain on the run's operands: {held}; both "
+          f"runs {time.perf_counter() - t0:.1f} s")
+    print(f"[integrity] {card}: what the audit costs the traffic it stalls "
+          f"({len(prompts)} requests x {ENGINE_GEN} tokens, guarded): "
+          f"audit_rate 1.0: {cost[1.0]}; audit_rate 0: {cost[0.0]}")
 
     # 3. Silent corruption of matmul_planes for request 0 alone.
     t0 = time.perf_counter()
@@ -1793,8 +1809,10 @@ def phase_integrity(lm: dict, engine: dict, card: str, errs: dict) -> None:
         for j, h in enumerate(hs):
             check(np.array_equal(h.result(timeout=60.0), clean[j]),
                   f"bitflip heal: request {j} differs from the clean run")
-        check(isess.verify_integrity() == len(leaves),
-              "bitflip heal: healed weights fail their fingerprint")
+        check(isess.fingerprint.digest() == fp.digest(),
+              "bitflip heal: the weights serving after the heal are not "
+              "the compiled ones (their fingerprint differs from the "
+              "compile-time one)")
         heal_s = time.perf_counter() - t0
         heng.drain()
         feng = BatchingEngine(isess, max_batch=ENGINE_BATCH,
@@ -1820,7 +1838,8 @@ def phase_integrity(lm: dict, engine: dict, card: str, errs: dict) -> None:
     print(f"[integrity] {card}: bitflip (weights.bitflip at the tick of step "
           f"8, integrity_every 8, {st.n_integrity_checks} checks) caught and "
           f"healed by reload_checkpoint: 1 reload, every stream == the clean "
-          f"run, healed weights == their fingerprint; {heal_s:.1f} s; K1 "
+          f"run, the healed weights' fingerprint == the compile-time one "
+          f"{fp.digest()}; {heal_s:.1f} s; K1 "
           f"launched {heal_k1} times; == plain: {held}; without heal_dir the engine raised "
           f"WeightIntegrityError and all {len(fh)} live streams failed with "
           f"it")

@@ -132,21 +132,23 @@ class ExecutionPlan:
         """
         return dict(getattr(self.backend, "fallbacks_by_op", {}))
 
-    def record_weight_groups(self, named_params: dict) -> None:
-        """Freeze pack-time per-filter-group weight plane counts into plans.
+    def weight_group_counts(self, named_params: dict) -> dict:
+        """Pack-time per-filter-group weight plane counts of a packed tree.
 
         ``named_params`` maps layer names to their PACKED param dicts
-        (``{"w_packed": uint8 [Pw, K/8, N], ...}``). For every resolved
-        layer with a matching packed tensor the OR-tree counts are computed
-        once and stored as a tuple of Python ints on the LayerPlan. A no-op
-        when ``policy.w_group`` is 0.
+        (``{"w_packed": uint8 [Pw, K/8, N], ...}``; :func:`counted_weights`
+        names a model's tree so). For every resolved layer with a matching
+        packed tensor the OR-tree counts are computed once; returns
+        ``{(name, kind): tuple of Python ints}``, empty when
+        ``policy.w_group`` is 0.
         """
         from repro_torch.core import bitpack, weightgroups
         if not self.policy.w_group:
-            return
+            return {}
+        out = {}
         memo = {}   # (name, w_group) -> counts: a conv's linear twin
         #             covers the same tensor
-        for (name, kind), lp in list(self.layers.items()):
+        for (name, kind), lp in self.layers.items():
             p = named_params.get(name)
             wp = p.get("w_packed") if isinstance(p, dict) else None
             if wp is None or wp.ndim != 3:
@@ -155,9 +157,17 @@ class ExecutionPlan:
             if counts is None:
                 w_bits = wp.shape[0]
                 counts = weightgroups.weight_group_counts(
-                    bitpack.unpack_weights(wp, w_bits), w_bits,
-                    lp.w_group).tolist()
+                    bitpack.unpack_weights(wp, w_bits), w_bits, lp.w_group)
+                counts = tuple(int(c) for c in counts.tolist())
                 memo[(name, lp.w_group)] = counts
+            out[(name, kind)] = counts
+        return out
+
+    def record_weight_groups(self, named_params: dict) -> None:
+        """Freeze :meth:`weight_group_counts` of ``named_params`` into the
+        layers' plans (a no-op when ``policy.w_group`` is 0)."""
+        for (name, kind), counts in self.weight_group_counts(
+                named_params).items():
             self.set_weight_counts(name, kind, counts)
 
     def set_weight_counts(self, name: str, kind: str, counts,
@@ -188,6 +198,16 @@ class ExecutionPlan:
             group_size=self.policy.group_size,
             w_group=self.policy.w_group or 16,
             kernel=kernel, stride=stride)
+
+
+def counted_weights(cfg, params: dict) -> dict:
+    """The packed tensors whose weight-group counts a plan records, keyed
+    by plan layer name. LM blocks are stacked and share one plan per layer
+    class, so of an LM only the unstacked head (``lm_head``) counts; a
+    CNN's tree is keyed by its layers' names already."""
+    if hasattr(cfg, "pattern"):
+        return {"lm_head": params.get("head", {})}
+    return params
 
 
 def conv_rows_per_band(h: int, w: int, c: int, *, kernel: int,

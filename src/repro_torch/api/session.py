@@ -31,7 +31,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.api.plan import ExecutionPlan, build_plan
+from repro_torch.api.plan import ExecutionPlan, build_plan, counted_weights
 from repro_torch.core.policy import PrecisionPolicy
 
 _SERVING_MODES = ("serve_packed",)
@@ -234,12 +234,9 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
     if mode in _SERVING_MODES:
         if lm:
             params = M.convert_params_for_serving(params, policy, mode)
-            # LM blocks are stacked and share one plan per layer class, so
-            # pack-time counts apply only to the unstacked head.
-            plan.record_weight_groups({"lm_head": params.get("head", {})})
         else:
             params = M.convert_tree(params, policy, mode)
-            plan.record_weight_groups(params)
+        plan.record_weight_groups(counted_weights(cfg, params))
     sess = ServingSession(cfg=cfg, plan=plan, params=params, device=device,
                           **entry_points(cfg, plan))
     if mode in _SERVING_MODES:

@@ -18,8 +18,9 @@ its output equals a solo ``--batch 1`` run of that prompt. CNN archs
 classify. ``--out-tokens FILE`` saves the generations/predictions as
 ``.npy``. ``--device cpu`` runs the kernels' plain versions on the CPU.
 In server mode ``--audit-rate`` replays that share of the completed
-requests on the ``--audit-backend`` oracle (default ``torch_ref``, the
-plain versions, on the session's device) and ``--integrity-every N``
+requests on the ``torch_ref`` oracle (the plain versions, on the
+session's device; ``--audit-backend`` accepts that one name, since an
+oracle on the serving kernels would audit them against themselves) and ``--integrity-every N``
 re-verifies the weight fingerprint every N engine steps; the summary line
 counts both.
 
@@ -36,6 +37,7 @@ from repro_torch import configs
 from repro_torch.api import backend as backendlib
 from repro_torch.api import plan as planlib
 from repro_torch.models import model as M
+from repro_torch.runtime.audit import REF_BACKEND
 
 
 def make_serve_fns(cfg, plan):
@@ -65,7 +67,7 @@ def _generate_plan(cfg, args, policy):
     plan = planlib.build_plan(cfg, policy, mode=args.mode,
                               backend=args.backend)
     if args.mode != "dense":
-        plan.record_weight_groups({"lm_head": params.get("head", {})})
+        plan.record_weight_groups(planlib.counted_weights(cfg, params))
     prefill_fn, decode_fn = make_serve_fns(cfg, plan)
     tokens = torch.from_numpy(_prompts(cfg, args)).long().to(device)
     b, s = tokens.shape
@@ -140,7 +142,6 @@ def _serve_server(cfg, args, policy):
                          max_queue=args.max_queue,
                          step_timeout_s=args.step_timeout,
                          audit_rate=args.audit_rate,
-                         audit_backend=args.audit_backend,
                          integrity_every=args.integrity_every)
     stop_requested = False
 
@@ -211,7 +212,7 @@ def _classify_plan(cfg, args, policy):
     plan = planlib.build_plan(cfg, policy, mode=args.mode,
                               backend=args.backend)
     if args.mode != "dense":
-        plan.record_weight_groups(params)
+        plan.record_weight_groups(planlib.counted_weights(cfg, params))
     x = torch.from_numpy(_cnn_inputs(cfg, args)).to(device)
     with torch.inference_mode():
         logits = cnn.forward(params, cfg, x, plan)
@@ -284,11 +285,11 @@ def main(argv=None):
                          "byte-compared; a divergence quarantines the "
                          "backend and writes a replayable repro bundle "
                          "(0 = auditing off)")
-    ap.add_argument("--audit-backend", default="torch_ref",
-                    choices=list(backendlib.list_backends()),
-                    help="reference oracle backend for shadow audits "
-                         "(torch_ref: the plain versions, on the session's "
-                         "device)")
+    ap.add_argument("--audit-backend", default=REF_BACKEND,
+                    choices=[REF_BACKEND],
+                    help="reference oracle backend for shadow audits: the "
+                         "plain versions, on the session's device (the "
+                         "serving kernels cannot be their own oracle)")
     ap.add_argument("--integrity-every", type=int, default=0, metavar="N",
                     help="re-verify the packed weights' CRC32 fingerprint "
                          "every N engine steps; a mismatch fails loudly "

@@ -11,9 +11,10 @@ corrupt tokens.
 The :class:`ShadowAuditor` samples COMPLETED requests at a configurable
 rate and, off the hot path (at engine step boundaries, never inside the
 batched decode), deterministically replays each sampled request's prompt
-on an independently built reference session (the ``torch_ref`` plain
-versions by default -- a different backend object, the same packed
-weights, on the serving session's device) and byte-compares the replay
+on an independently built reference session (always the ``torch_ref``
+plain versions -- a different backend object, the same packed weights,
+on the serving session's device; an oracle on the serving kernels would
+audit them against themselves) and byte-compares the replay
 against the tokens the stream actually delivered:
 
   * match      -- the serving path is certified for that request
@@ -54,6 +55,10 @@ from repro_torch.api import guards
 
 _BUNDLE_TEST = "tests/test_torch_audit.py -k replay_saved_bundle"
 _BUNDLE_ENV = "LOOM_AUDIT_BUNDLE"
+# The reference oracle's backend: the plain versions, never the kernels.
+REF_BACKEND = "torch_ref"
+# Audit verdicts the lag percentile is taken over.
+_LAG_RING = 512
 
 
 @dataclass
@@ -84,27 +89,23 @@ class ShadowAuditor:
     """Sampled reference-replay auditor for a continuous-batching engine.
 
     ``rate``: fraction of completed requests audited (deterministic
-    counter sampling; 1.0 = every request, 0.0 = disabled).
-    ``ref_backend``: registered backend name of the reference oracle
-    (default ``torch_ref``, the plain versions). ``bundle_dir``: where
+    counter sampling; 1.0 = every request, 0.0 = disabled). The oracle
+    runs on :data:`REF_BACKEND`. ``bundle_dir``: where
     divergence repro bundles are written (created on first divergence).
     ``max_seq``: the replay's cache length (the engine passes its pool's;
     None = the config's ``max_seq``).
     """
 
     rate: float = 0.0
-    ref_backend: str = "torch_ref"
     bundle_dir: str = "audit_bundles"
     max_seq: int | None = None
-    lag_ring: int = 512
     _n_seen: int = 0
     _pending: deque = field(default_factory=deque)
-    _lags: deque = field(default_factory=lambda: deque(maxlen=512))
+    _lags: deque = field(default_factory=lambda: deque(maxlen=_LAG_RING))
     _ref_session: object = None
 
     def __post_init__(self):
         self.rate = min(max(float(self.rate), 0.0), 1.0)
-        self._lags = deque(maxlen=int(self.lag_ring))
 
     # -- sampling ------------------------------------------------------------
 
@@ -150,15 +151,15 @@ class ShadowAuditor:
     def _reference(self, session):
         """Lazily build the reference session: same cfg/policy/mode, device
         and the SAME packed params, but an independent plan on
-        ``ref_backend`` -- an error in the serving backend cannot also be
-        in the oracle's."""
+        :data:`REF_BACKEND` -- an error in the serving backend cannot also
+        be in the oracle's."""
         if self._ref_session is not None:
             return self._ref_session
         from repro_torch.api import plan as planlib
         from repro_torch.api.session import ServingSession, entry_points
         plan = session.plan
         ref_plan = planlib.build_plan(session.cfg, plan.policy, plan.mode,
-                                      self.ref_backend)
+                                      REF_BACKEND)
         # Pack-time weight-group counts were derived from the shared
         # packed tensors -- copy, don't recompute.
         for (name, kind), lp in plan.layers.items():
@@ -191,7 +192,7 @@ class ShadowAuditor:
         bundle = self._write_bundle(session, rec, ref, diverged_at)
         exc = guards.SilentDivergenceError(
             f"request {rec.request_id}: served tokens diverge from the "
-            f"{self.ref_backend!r} reference replay at position "
+            f"{REF_BACKEND!r} reference replay at position "
             f"{diverged_at} (served {rec.served[diverged_at]} != ref "
             f"{ref[diverged_at]}) -- the serving backend returned wrong-"
             f"but-finite values; repro bundle: {bundle}")
@@ -237,7 +238,7 @@ class ShadowAuditor:
             "arch": session.cfg.name,
             "mode": plan.mode,
             "backend": plan.backend.name,
-            "ref_backend": self.ref_backend,
+            "ref_backend": REF_BACKEND,
             "device": session.device.type,
             "max_seq": self.max_seq,
             "policy": {"a_bits": pol.default.a_bits,

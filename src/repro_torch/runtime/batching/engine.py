@@ -147,9 +147,10 @@ class BatchingEngine:
     watchdog). ``overload_window_s``: how long after the last overload
     event (shed / rejection / deadline expiry / restart) the engine-local
     health stays ``degraded`` before recovering. ``audit_rate``: the
-    share of completed requests the shadow auditor replays on
-    ``audit_backend`` (0 = no auditor), writing divergence bundles to
-    ``audit_bundle_dir``. ``integrity_every``: re-verify the weight
+    share of completed requests the shadow auditor replays on the
+    ``torch_ref`` oracle (0 = no auditor), writing divergence bundles to
+    ``audit_bundle_dir``; a request whose stream began before the latest
+    weight swap is not audited. ``integrity_every``: re-verify the weight
     fingerprint every N steps (None/0 = off); ``heal_dir``: the checkpoint
     directory a violation self-heals from (None = fail loudly).
     """
@@ -161,7 +162,6 @@ class BatchingEngine:
                  step_timeout_s: float | None = None,
                  overload_window_s: float = 5.0,
                  audit_rate: float = 0.0,
-                 audit_backend: str = "torch_ref",
                  audit_bundle_dir: str = "audit_bundles",
                  integrity_every: int | None = None,
                  heal_dir: str | None = None):
@@ -197,7 +197,6 @@ class BatchingEngine:
         self._n_streamed = 0
         self._n_restarts = 0
         self._consec_restarts = 0
-        self._n_reloads = 0
         self._last_overload_t = -float("inf")
         self._lat_sum = 0.0
         self._lat_n = 0
@@ -209,7 +208,6 @@ class BatchingEngine:
         if audit_rate > 0.0:
             from repro_torch.runtime.audit import ShadowAuditor
             self.auditor = ShadowAuditor(rate=audit_rate,
-                                         ref_backend=audit_backend,
                                          bundle_dir=audit_bundle_dir,
                                          max_seq=self.max_seq)
         self.integrity_every = None if integrity_every in (None, 0) \
@@ -410,7 +408,10 @@ class BatchingEngine:
             self._lat_sum += lat
             self._lat_n += 1
             self._lat_ring.append(lat)
-            if self.auditor is not None:
+            # A stream begun before the latest swap holds the old
+            # weights' prefix: no replay under the new ones can match it.
+            if self.auditor is not None \
+                    and req.weights_gen == self.stats.n_reloads:
                 self.auditor.observe(req)
         elif state == streams.FAILED:
             self.stats.n_failed += 1
@@ -456,6 +457,8 @@ class BatchingEngine:
         a prefill that cannot heal fails ONLY this request's stream."""
         slot = self.pool.alloc()
         req.slot = slot
+        if req.n_emitted == 0:       # the stream begins under these weights
+            req.weights_gen = self.stats.n_reloads
         req.stream._set_state(streams.PREFILLING)
         try:
             self._prefill_into(req)
@@ -763,8 +766,7 @@ class BatchingEngine:
             sess.refingerprint()
         if self.auditor is not None:
             self.auditor.invalidate_reference()
-        self._n_reloads += 1
-        self.stats.n_reloads = self._n_reloads
+        self.stats.n_reloads += 1
         self._replay_survivors()
 
     def reload_checkpoint(self, ckpt_dir: str, step: int | None = None) -> int:
@@ -813,31 +815,21 @@ class BatchingEngine:
     def _check_weight_groups(self, converted) -> None:
         """Pack-time weight-group counts are plan constants -- a swap that
         changes them silently would execute the wrong plane partitions.
-        Recompute from the new packed head and require equality; a
+        Recompute from the new packed tree and require equality; a
         mismatch means the new checkpoint needs a recompile, not a hot
         swap."""
+        from repro_torch.api.plan import counted_weights
         plan = self.session.plan
-        if not plan.policy.w_group:
-            return
-        from repro_torch.core import bitpack, weightgroups
-        named = {"lm_head": converted.get("head", {})}
-        for (name, kind), lp in plan.layers.items():
-            if not lp.w_group_counts:
-                continue
-            p = named.get(name)
-            wp = p.get("w_packed") if isinstance(p, dict) else None
-            if wp is None or wp.ndim != 3:
-                continue
-            w_bits = wp.shape[0]
-            counts = tuple(int(v) for v in weightgroups.weight_group_counts(
-                bitpack.unpack_weights(wp, w_bits), w_bits,
-                lp.w_group).tolist())
-            if counts != lp.w_group_counts:
+        new = plan.weight_group_counts(
+            counted_weights(self.session.cfg, converted))
+        for (name, kind), counts in new.items():
+            want = plan.layers[(name, kind)].w_group_counts
+            if counts != want:
                 raise guards.ReloadMismatchError(
                     f"layer {name!r} ({kind}): packed weight-group counts "
-                    f"{counts} != the plan's {lp.w_group_counts} -- the new "
-                    f"checkpoint changes the execution plan; recompile "
-                    f"instead of hot-swapping")
+                    f"{counts} != the plan's {want} -- the new checkpoint "
+                    f"changes the execution plan; recompile instead of "
+                    f"hot-swapping")
 
     # -- metrics ---------------------------------------------------------------
 

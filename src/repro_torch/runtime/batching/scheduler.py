@@ -52,6 +52,7 @@ class Request:
     pos: int = 0                  # absolute position the next decode writes
     n_generated: int = 0          # tokens generated THIS incarnation
     n_emitted: int = 0            # tokens delivered to the stream (monotone)
+    weights_gen: int = 0          # engine weight swaps before its 1st token
 
     def emit(self, token: int) -> bool:
         """Record one generated token; deliver it unless a restart replay

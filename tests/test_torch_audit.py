@@ -155,7 +155,6 @@ def test_silent_corruption_audited_quarantined_bundled(tmp_path):
     clean = [_solo(ref, p, 4) for p in prompts]
     sess = _compile(guarded=True)
     eng = BatchingEngine(sess, max_batch=2, audit_rate=1.0,
-                         audit_backend="torch_ref",
                          audit_bundle_dir=str(tmp_path / "bundles"))
     with faults.inject("backend.silent_corrupt", times=None,
                        match=":cuda") as fault:

@@ -25,7 +25,7 @@ import repro_torch
 from repro_torch import configs
 from repro_torch.api import guards
 from repro_torch.core.policy import uniform_policy
-from repro_torch.runtime import faults
+from repro_torch.runtime import audit, faults
 from repro_torch.runtime.batching import BatchingEngine, KVPool, StreamCancelled
 from repro_torch.runtime.batching import engine as enginelib
 from repro_torch.runtime.batching import streams as streams_mod
@@ -334,7 +334,8 @@ def test_a9b_options_raise(kwargs):
     eng = BatchingEngine(_lm_session(), max_batch=2, **kwargs)
     if "audit_rate" in kwargs:
         assert eng.auditor.rate == 0.5
-        assert eng.auditor.ref_backend == "torch_ref"
+        assert audit.REF_BACKEND == "torch_ref"
+        assert eng.auditor._ref_session is None     # built on first audit
         assert eng.auditor.max_seq == eng.max_seq
     else:
         assert eng.auditor is None

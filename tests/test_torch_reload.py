@@ -81,14 +81,14 @@ def _solo(sess, prompt, gen_len):
     return sess.generate(prompt[None, :], gen_len)[0]
 
 
-def _swap_mid_traffic(sess_a, sess_b, swap):
+def _swap_mid_traffic(sess_a, sess_b, swap, **engine_kw):
     """Serve 3 requests on ``sess_a``, call ``swap(engine)`` after 3 steps
     (2 requests in flight), serve on; every post-swap token must equal
     ``sess_b``'s solo run at that position."""
     ps = _prompts(3)
     solo_a = [_solo(sess_a, p, 6) for p in ps]
     solo_b = [_solo(sess_b, p, 6) for p in ps]
-    eng = BatchingEngine(sess_a, max_batch=2)
+    eng = BatchingEngine(sess_a, max_batch=2, **engine_kw)
     h0, h1 = eng.submit(ps[0], 6), eng.submit(ps[1], 6)
     for _ in range(3):
         eng.step()
@@ -206,6 +206,20 @@ def test_reload_drops_the_auditors_pending_records():
     assert eng.stats.n_audits == 1 and eng.stats.n_divergences == 0
     assert np.array_equal(h2.result(timeout=5.0),
                           _solo(sess_b, _prompts(1)[0], 3))
+
+
+@pytest.mark.chaos
+def test_reload_audits_no_stream_begun_before_the_swap():
+    """The 2 requests in flight at the swap keep the old weights' prefix,
+    so no replay under the new weights can match them: the auditor skips
+    them, and a healthy engine auditing every request finds no divergence
+    (only the request admitted after the swap is audited)."""
+    dense1, sess_b = _alt_checkpoint()
+    eng = _swap_mid_traffic(_compile(), sess_b, lambda e: e.reload(dense1),
+                            audit_rate=1.0)
+    st = eng.stats
+    assert (st.n_audits, st.n_divergences, st.n_quarantines) == (1, 0, 0)
+    assert eng.health()["state"] == "healthy"
 
 
 # -- the checkpoint handoff between the packages ----------------------------

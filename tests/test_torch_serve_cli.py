@@ -81,6 +81,13 @@ def test_a9b_flags_raise(flag, capsys):
     assert "divergences=0" in capsys.readouterr().out
 
 
+def test_audit_backend_takes_only_the_plain_versions():
+    """An oracle on the serving kernels would audit them against
+    themselves: ``--audit-backend`` refuses every name but torch_ref."""
+    with pytest.raises(SystemExit):
+        serve.main(LM + ["--server", "2", "--audit-backend", "cuda"])
+
+
 def test_server_audit_and_integrity_flags(capsys):
     """``--audit-rate 1 --integrity-every 2`` in server mode: every request
     audited against ``torch_ref``, the fingerprint checked every 2 steps,
