@@ -75,6 +75,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               inputs equals its plain version, K7 on the head-repeated
               q/k/v is within K7_TOL of the port's ``chunked_attention`` in
               float32.
+   int8    -- ``serve_int8`` (the bit-parallel LM_8b route: int8 weights,
+              ``torch._int_mm`` per linear, ``int_conv_same`` in float32
+              per conv) beside ``serve_packed``, seed-0 weights, (8, 8).
+              CNN: the REQUESTS requests of BATCH images, no kernel of the
+              port launched, logits equal ``serve_packed``'s and a CPU
+              ``serve_int8`` session's on request 0; fused == im2col
+              (``conv_route="im2col"``) in both modes on request 0, K1 at
+              the im2col route's shapes == plain; images/s, latency median
+              and p90, device busy and idle, operators per request, both
+              modes. LM (phase_lm's prompts): prefill and all LM_GEN - 1
+              decode steps' logits equal ``serve_packed``'s; prefill ms,
+              decode ms/step, peak memory and weight bytes of both (their
+              device busy times in phase 6).
    engine  -- the continuous-batching engine on the full LM (phase_lm's
               ``cuda`` and ``dynamic_a`` sessions):
               ``BatchingEngine(max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ)``
@@ -83,8 +96,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               step apart, the counts reset just before: every stream equals
               a solo batch-1 ``generate`` over ENGINE_SEQ cache slots and
               every batched decode row's logits equal the solo run's at the
-              same step (``torch.equal``; a difference runs a layer-by-layer
-              diagnosis that names the first op that differs, then fails);
+              same step (``torch.equal``; a difference reruns the traffic
+              traced at the first differing row's step and names the first
+              op whose row differs from the solo run's, then fails);
               K1 197 times per prefill and per decode step, nothing else.
               The same traffic through ``compile(..., guarded=True)``, a
               ``ServingSupervisor`` and the decode watchdog equals it with
@@ -96,12 +110,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               ``TransientWorkerError`` in a decode each restart once and
               replay to the solo streams. ``dynamic_a``: 3 requests in 2
               slots equal their solo runs and the static tokens (K3 197
-              times per prefill and step). The serve CLI runs in two
-              subprocesses (``--server 3 --batch 2`` and a solo
-              ``--batch 1``): exit 0, row 0 equal. Prints tokens/s,
-              latency and queue-wait percentiles, occupancy, steps,
-              restarts, the median engine step and peak memory, beside the
-              card's name and power limit.
+              times per prefill and step). The serve CLI runs in three
+              subprocesses (``--server 3 --batch 2``, a solo ``--batch 1``
+              and ``--mode serve_int8 --batch 1``): exit 0, row 0 equal.
+              Prints tokens/s, latency and queue-wait percentiles,
+              occupancy, steps, restarts, the median engine step and peak
+              memory, beside the card's name and power limit.
    integrity -- the second half of the serving runtime on the same full LM
               and the engine phase's first INTEGRITY_REQUESTS requests,
               one line per check: (1) the seconds of the compile-time
@@ -126,6 +140,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               mid-traffic: later tokens == a fresh seed-1 session's, the
               swap's seconds and peak memory. Every engine run holds K1
               against its plain version at each shape it gave K1.
+   kvcache -- the int8 KV cache and the grouped decode routes on the same
+              ``serve_packed`` weights (``gqa_decode``; ``kv_cache_bits=8``;
+              with ``gqa_decode``; with ``attn_int8``): the engine phase's
+              traffic on each, every stream and batched decode row equal to
+              a solo run's, K1 == plain at the run's shapes, tokens equal
+              to the bf16 route's counted. Then one decode step at the
+              engine's defaults (LONG_SLOTS slots of 32768, a cache filled
+              directly) for the bf16 repeat route and each route: device
+              time (CUDA events; beside the bf16 repeat route's busy
+              time measured before, 408.055 ms),
+              host clock, transient peak memory and pool bytes.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -140,6 +165,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               ``chunked_attention`` in float32. Each line also names the
               kernel's time in the parent (BEFORE_MS).
 6. profile -- per CNN path and for the LM's prefill, decode step,
+              ``serve_int8`` prefill and decode step (one request each),
               ``dynamic_a`` prefill and one engine step at full occupancy
               (ENGINE_BATCH requests decoding): the PyTorch operators one request
               dispatches on the host, device time by kernel
@@ -901,7 +927,8 @@ def serve(label: str, sess, requests: list, expect: dict) -> tuple:
     return logits, launches, secs
 
 
-def latency(sess, requests: list, samples: int) -> float:
+def latency(sess, requests: list, samples: int) -> tuple[float, float]:
+    """Median and p90 of ``samples`` requests sent one at a time."""
     lat = []
     for i in range(samples):
         t0 = time.perf_counter()
@@ -914,7 +941,7 @@ def latency(sess, requests: list, samples: int) -> float:
           f"time (host clock to synchronize): median {median * 1e3:.4f} ms, "
           f"p90 {lat[int(len(lat) * 0.9)] * 1e3:.4f} ms, max "
           f"{lat[-1] * 1e3:.4f} ms")
-    return median
+    return median, lat[int(len(lat) * 0.9)]
 
 
 def phase_serve() -> dict:
@@ -950,7 +977,7 @@ def phase_serve() -> dict:
           f"on the card for all {REQUESTS} requests (argmax agreement "
           f"{agree:.3f}); cuda == CPU torch_ref on a 4-image batch")
     runs["static"] = (sess, requests[0], latency(sess, requests,
-                                                 LATENCY_SAMPLES))
+                                                 LATENCY_SAMPLES)[0])
 
     # Path D: letterboxed images, so conv window groups trim.
     boxed = [x.clone() for x in requests]
@@ -979,7 +1006,8 @@ def phase_serve() -> dict:
     print(f"[serve] path D logits == static == torch_ref path D on all "
           f"{REQUESTS} requests; mean activation plane count per window "
           f"group (Pa = 8): {', '.join(means)}")
-    runs["D"] = (dyn, boxed[0], latency(dyn, boxed, LATENCY_SAMPLES // 2))
+    runs["D"] = (dyn, boxed[0],
+                 latency(dyn, boxed, LATENCY_SAMPLES // 2)[0])
 
     # Path W: filter-group-skewed weights; the launches follow the counts.
     wparams = skewed_params(cfg)
@@ -1011,7 +1039,7 @@ def phase_serve() -> dict:
     print(f"[serve] path W logits == untrimmed static on all {REQUESTS} "
           f"requests")
     runs["W"] = (wsess, requests[0], latency(wsess, requests,
-                                             LATENCY_SAMPLES // 2))
+                                             LATENCY_SAMPLES // 2)[0])
 
     # Composition: path D on path W's weights.
     both = repro_torch.compile(cfg, uniform_policy(8, 8, dynamic_a=True),
@@ -1110,6 +1138,8 @@ def phase_lm(errs: dict) -> dict:
     dyn = repro_torch.compile(cfg, uniform_policy(8, 8, dynamic_a=True),
                               mode="serve_packed", backend="cuda",
                               params=params, device="cuda")
+    int8 = repro_torch.compile(cfg, uniform_policy(8, 8), mode="serve_int8",
+                               params=params, device="cuda")
     del params
     torch.cuda.synchronize()
     sess = sessions["cuda"]
@@ -1118,8 +1148,8 @@ def phase_lm(errs: dict) -> dict:
     print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.d_head}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}; random bf16 weights (seed 0) "
-          f"packed at (Pa, Pw) = (8, 8) for cuda, torch_ref and dynamic_a "
-          f"sessions in {time.perf_counter() - t0:.1f} s; prompts "
+          f"packed at (Pa, Pw) = (8, 8) for cuda, torch_ref, dynamic_a and "
+          f"serve_int8 sessions in {time.perf_counter() - t0:.1f} s; prompts "
           f"{LM_BATCH} x {LM_PROMPT} (seed 1), cache {max_seq} slots")
     sess.generate(tokens, 2, max_seq=max_seq)                 # warm-up
     torch.cuda.synchronize()
@@ -1255,7 +1285,8 @@ def phase_lm(errs: dict) -> dict:
           f"head-repeated q/k/v {tuple(o['q'].shape)} within K7_TOL of "
           f"chunked_attention in float32; launches "
           f"{ {k: v for k, v in ops_launches.items() if v} }")
-    return dict(sess=sess, dyn=dyn, tokens=tokens, prefill_s=prefill_med,
+    return dict(sess=sess, dyn=dyn, int8=int8, tokens=tokens,
+                prefill_s=prefill_med,
                 dyn_prefill_s=dyn_med, decode_s=decode_med, operands=o,
                 gen_launches=launches, ops_launches=ops_launches, n_lin=n_lin,
                 max_seq=max_seq)
@@ -1401,6 +1432,83 @@ def diagnose_batch_variance(sess, prompts: list, max_seq: int) -> str:
     return "no op differs when the batch is rebuilt from prefills"
 
 
+def diagnose_engine_row(sess, prompts: list, rid: int, idx: int) -> str:
+    """Rerun the engine traffic of ``prompts`` (submitted one step apart,
+    ENGINE_BATCH slots of ENGINE_SEQ) and request ``rid``'s solo run,
+    tracing RMSNorm, RoPE, every linear and ``decode_attend`` at the decode
+    step that gives request ``rid`` its token ``idx``; names the first op
+    whose row differs from the solo run's, and whether its inputs were
+    equal."""
+    names = {"rms_norm": L, "rope": L, "linear_apply": L,
+             "decode_attend": attn}
+    originals = {name: getattr(mod, name) for name, mod in names.items()}
+    trace, on, count, slot_at, ref = [], [False], [0], [], []
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if on[0]:
+                trace.append((fn.__name__, [
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args], out.clone()))
+            return out
+        return call
+    decode = sess._decode
+
+    def solo_decode(params, token, pos, cache):
+        on[0] = count[0] == idx - 1
+        count[0] += 1
+        try:
+            return decode(params, token, pos, cache)
+        finally:
+            on[0] = False
+
+    def engine_decode(params, token, pos, cache):
+        hit = [slot for slot, req in ref[0].active.items()
+               if req.request_id == rid and req.n_generated == idx]
+        on[0] = bool(hit)
+        slot_at.extend(hit)
+        try:
+            return decode(params, token, pos, cache)
+        finally:
+            on[0] = False
+    for name, mod in names.items():
+        setattr(mod, name, wrap(originals[name]))
+    try:
+        dataclasses.replace(sess, _decode=solo_decode).generate(
+            prompts[rid][None, :], idx + 1, max_seq=ENGINE_SEQ)
+        solo = list(trace)
+        trace.clear()
+        eng = BatchingEngine(dataclasses.replace(sess, _decode=engine_decode),
+                             max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ)
+        ref.append(eng)
+        drive_engine(eng, prompts, ENGINE_GEN)
+    finally:
+        for name, mod in names.items():
+            setattr(mod, name, originals[name])
+    if not slot_at:
+        return f"the step giving request {rid} token {idx} did not recur"
+    b = slot_at[0]
+    per_layer = len(solo) // sess.cfg.n_layers
+    for i, ((name, args, got), (_, args1, want)) in enumerate(
+            zip(trace, solo)):
+        row = got[b:b + 1]
+        if torch.equal(row, want):
+            continue
+        same_in = [torch.equal(x[b:b + 1], y) for x, y in zip(args, args1)
+                   if isinstance(x, torch.Tensor)
+                   and x.shape[:1] == got.shape[:1]]
+        diff = (row.float() - want.float()).abs()
+        msg = (f"op {i} ({name}, layer {i // per_layer}) of the step giving "
+               f"request {rid} token {idx}: row {b} of {tuple(got.shape)} "
+               f"differs from the solo run's, its batch-sized inputs equal: "
+               f"{same_in}; {int((diff > 0).sum())} values differ, max "
+               f"{diff.max().item():.3g}")
+        print(f"[engine] batch variance: {msg}")
+        return msg
+    return f"no traced op differs at the step giving request {rid} token {idx}"
+
+
 def phase_engine(lm: dict, card: str, errs: dict) -> dict:
     """The continuous-batching engine on the full LM (the issue's main
     path of this slice): a static run whose streams and decode logits
@@ -1446,8 +1554,7 @@ def phase_engine(lm: dict, card: str, errs: dict) -> dict:
     differ = [(rid, idx) for rid, idx, row in rows
               if not torch.equal(row, solos[rid][1][idx])]
     if differ:
-        cause = diagnose_batch_variance(sess, prompts[:ENGINE_BATCH],
-                                        ENGINE_SEQ)
+        cause = diagnose_engine_row(sess, prompts, *differ[0])
         check(False, f"engine: {len(differ)} of {len(rows)} batched decode "
               f"rows' logits differ from the solo run's (first: request "
               f"{differ[0][0]}, token {differ[0][1]}); {cause}")
@@ -1897,19 +2004,296 @@ def phase_integrity(lm: dict, engine: dict, card: str, errs: dict) -> None:
     print(f"[integrity] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _busy(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in interop.flatten_with_paths(params).values())
+
+
+def phase_int8(lm: dict, card: str, errs: dict) -> dict:
+    """``serve_int8`` (the bit-parallel LM_8b route: int8 weights, one
+    exact int8 product per linear through ``torch._int_mm``, the CNN's
+    convs as ``int_conv_same`` in float32) beside Loom's ``serve_packed``
+    on the same card, seed-0 weights, (Pa, Pw) = (8, 8). Both routes are
+    exact integer products on the same grids, so every logit must be
+    equal. Returns the CNN's launch counts of the im2col packed run."""
+    t_phase = time.perf_counter()
+    cfg = configs.get("paper_cnn")
+    params = cnn.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    requests = [torch.randn((BATCH, cfg.img, cfg.img, cfg.in_ch),
+                            generator=g).cuda() for _ in range(REQUESTS)]
+    modes = ("serve_packed", "serve_int8")
+    sess = {(mode, route): repro_torch.compile(
+        cfg, uniform_policy(8, 8), mode=mode, params=params, device="cuda",
+        conv_route=route) for mode in modes for route in ("fused", "im2col")}
+    expect = {"serve_packed": {"bitserial_conv": len(cfg.convs),
+                               "bitserial_matmul": len(cfg.fcs)},
+              "serve_int8": {}}            # no kernel of the port: _int_mm
+    logits, row = {}, {}
+    for mode in modes:
+        s_ = sess[mode, "fused"]
+        logits[mode], _, secs = serve(f"int8-phase {mode}", s_, requests,
+                                      expect[mode])
+        med, p90 = latency(s_, requests, LATENCY_SAMPLES // 2)
+        ops_, busy = phase_profile(f"CNN {mode}",
+                                   lambda s_=s_: s_.classify(requests[0]),
+                                   med, sum(expect[mode].values()))
+        row[mode] = (REQUESTS * BATCH / secs, med, p90, busy, ops_)
+    for j, (a, b) in enumerate(zip(logits["serve_int8"],
+                                   logits["serve_packed"])):
+        check(torch.equal(a, b), f"CNN request {j}: serve_int8 logits "
+              f"differ from serve_packed's")
+    cpu = repro_torch.compile(cfg, uniform_policy(8, 8), mode="serve_int8",
+                              params=params, device="cpu")
+    check(torch.equal(logits["serve_int8"][0].cpu(),
+                      cpu.classify(requests[0].cpu())),
+          "CNN serve_int8 logits on the card differ from a CPU session's")
+    reset_launches()
+    with recorded_calls(distinct=True) as calls:
+        im2col = {mode: sess[mode, "im2col"].classify(requests[0])
+                  for mode in modes}
+    im2col_launches = read_launches()
+    check(im2col_launches["bitserial_matmul"] == len(cfg.convs) + len(cfg.fcs)
+          and sum(im2col_launches.values()) == len(cfg.convs) + len(cfg.fcs),
+          f"im2col launches {im2col_launches}: K1 on every conv's patches "
+          f"and every FC, nothing else")
+    held = hold_path_calls(errs, calls, "im2col serve_packed")
+    for mode in modes:
+        check(torch.equal(im2col[mode], logits[mode][0]),
+              f"CNN {mode}: the im2col route differs from the fused conv")
+    print(f"[int8] {card}: CNN part took {time.perf_counter() - t_phase:.1f} "
+          f"s")
+    print(f"[int8] {card}: CNN serve_int8 == serve_packed on all {REQUESTS} "
+          f"requests x {BATCH} images (torch.equal), == a CPU serve_int8 "
+          f"session on request 0; fused == im2col in both modes on request "
+          f"0 (im2col serve_packed: K1 on the patches, == plain: {held})")
+    for mode in modes:
+        ips, med, p90, busy, ops_ = row[mode]
+        idle = "not measured" if busy is None else \
+            f"{1 - busy / (med * 1e3):.3f}"
+        print(f"[int8] {card}: CNN {mode}: {ips:.1f} images/s, latency "
+              f"median {med * 1e3:.4f} ms p90 {p90 * 1e3:.4f} ms, device "
+              f"busy {_busy(busy)} per request, idle share {idle}, {ops_} "
+              f"PyTorch operators per request")
+
+    # The LM: prefill and every decode step, logits equal; each call timed
+    # alone (host clock to synchronize) with its peak above what is held.
+    packed, isess, tokens = lm["sess"], lm["int8"], lm["tokens"]
+    max_seq = lm["max_seq"]
+    pair = {"serve_packed": packed, "serve_int8": isess}
+    caches = {m: s_.init_cache(LM_BATCH, max_seq) for m, s_ in pair.items()}
+    times = {m: [] for m in pair}
+    peaks = dict.fromkeys(pair, 0)
+
+    def timed(mode, fn, *args):
+        torch.cuda.synchronize()
+        held_b = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, caches[mode] = fn(*args, caches[mode])
+        torch.cuda.synchronize()
+        times[mode].append(time.perf_counter() - t0)
+        peaks[mode] = max(peaks[mode],
+                          torch.cuda.max_memory_allocated() - held_b)
+        return out
+    reset_launches()
+    li = timed("serve_int8", isess.prefill, tokens)
+    lm_step_launches("serve_int8 prefill", read_launches(), {})
+    lp = timed("serve_packed", packed.prefill, tokens)
+    check(li.shape == lp.shape and bool(torch.isfinite(li).all())
+          and torch.equal(li, lp), "LM serve_int8 prefill logits differ "
+          "from serve_packed's")
+    tok = torch.argmax(lp[:, 0], dim=-1)
+    for i in range(LM_GEN - 1):
+        step = {m: timed(m, s_.decode, tok, LM_PROMPT + i)
+                for m, s_ in pair.items()}
+        check(torch.equal(step["serve_int8"], step["serve_packed"]),
+              f"LM decode step {i}: serve_int8 logits differ from "
+              f"serve_packed's")
+        tok = torch.argmax(step["serve_packed"], dim=-1)
+    del caches
+    print(f"[int8] {card}: LM serve_int8 == serve_packed: prefill logits "
+          f"{LM_BATCH} x {LM_PROMPT} and all {LM_GEN - 1} decode steps' "
+          f"logits bit for bit; serve_int8 launched no kernel of the port")
+    medians = {}
+    for mode, s_ in pair.items():
+        dec = sorted(times[mode][1:])
+        medians[mode] = (times[mode][0], dec[len(dec) // 2])
+        print(f"[int8] {card}: LM {mode}: prefill {times[mode][0] * 1e3:.3f} "
+              f"ms, decode median {dec[len(dec) // 2] * 1e3:.3f} ms/step of "
+              f"{len(dec)} (host clock to synchronize, each call alone), "
+              f"peak {peaks[mode] / 2**20:.1f} MiB above what was held; "
+              f"weights {_param_bytes(s_.params)} B")
+    print(f"[int8] phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(im2col_launches=im2col_launches, lm_medians=medians)
+
+
+# The KV routes of the kvcache phase, on top of the bf16 repeat route.
+KV_ROUTES = {"gqa_decode": dict(gqa_decode=True),
+             "kv_cache_bits=8": dict(kv_cache_bits=8),
+             "kv_cache_bits=8 + gqa_decode": dict(kv_cache_bits=8,
+                                                  gqa_decode=True),
+             "kv_cache_bits=8 + attn_int8": dict(kv_cache_bits=8,
+                                                 attn_int8=True)}
+# The engine's defaults: BatchingEngine(max_batch=8), max_seq=cfg.max_seq.
+LONG_SLOTS = 8
+# The bf16 repeat route's decode step there, device busy ms, as
+# chip_batch_variance.py measured it before these routes (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md), printed beside this run's.
+LONG_STEP_BEFORE_MS = 408.055
+
+
+def route_session(sess, change: dict):
+    """``sess`` on another attention route: the same plan and weights, a
+    config with ``change`` (the cache and decode options)."""
+    from repro_torch.api.session import entry_points
+    cfg = dataclasses.replace(sess.cfg, **change)
+    return dataclasses.replace(sess, cfg=cfg, **entry_points(cfg, sess.plan))
+
+
+def fill_long_cache(cfg, batch: int, seq: int) -> dict:
+    """A cache of ``batch`` rows of ``seq`` slots, every slot filled
+    directly (random K/V, and scales on an int8 cache; slot j holds
+    position j), one layer at a time."""
+    cache = M.init_cache(cfg, batch, seq, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for leaves in cache.values():
+        for i in range(cfg.n_groups):
+            for key in ("k", "v"):
+                t = leaves[key][i]
+                if t.dtype == torch.int8:
+                    t.copy_(torch.randint(-128, 128, t.shape, generator=g,
+                                          device="cuda", dtype=torch.int8))
+                else:
+                    t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+            for key in ("k_scale", "v_scale"):
+                if key in leaves:
+                    leaves[key][i].uniform_(0.005, 0.05, generator=g)
+        leaves["slot_pos"].copy_(torch.arange(seq, dtype=torch.int32,
+                                              device="cuda"))
+    return cache
+
+
+def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
+    """The int8 KV cache and the grouped decode routes on the full LM
+    (``serve_packed``, (8, 8)): the engine phase's traffic on each route,
+    batched == solo and K1 == plain at its shapes; then one decode step at
+    the engine's defaults (LONG_SLOTS slots of cfg.max_seq) per route,
+    with a cache filled directly. Returns each route's launches."""
+    t_phase = time.perf_counter()
+    sess, n_lin = lm["sess"], lm["n_lin"]
+    prompts, bf16_tokens = engine["prompts"], engine["tokens"]
+    all_launches = {}
+    for label, change in KV_ROUTES.items():
+        rs = route_session(sess, change)
+        solos = [solo_run(rs, p_, ENGINE_GEN) for p_ in prompts]
+        rows, ref = [], []
+        eng = BatchingEngine(recording_session(rs, rows, ref),
+                             max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ)
+        ref.append(eng)
+        torch.cuda.synchronize()
+        reset_launches()
+        with recorded_calls(distinct=True) as calls:
+            handles, step_s, _ = drive_engine(eng, prompts, ENGINE_GEN)
+        launches = read_launches()
+        steps = eng.n_decode_steps
+        lm_step_launches(f"kvcache {label}", launches, {
+            "bitserial_matmul": n_lin * (steps + ENGINE_REQUESTS)})
+        held = hold_path_calls(errs, calls, f"kvcache {label}")
+        differ = [(rid, idx) for rid, idx, row in rows
+                  if not torch.equal(row, solos[rid][1][idx])]
+        if differ:
+            cause = diagnose_engine_row(rs, prompts, *differ[0])
+            check(False, f"kvcache {label}: {len(differ)} of {len(rows)} "
+                  f"batched decode rows differ from the solo run's (first: "
+                  f"request {differ[0][0]}, token {differ[0][1]}); {cause}")
+        agree = 0
+        for j, (h, (solo, _)) in enumerate(zip(handles, solos)):
+            got = h.result(timeout=60.0)
+            check(np.array_equal(got, solo), f"kvcache {label} request {j}: "
+                  f"stream differs from its solo generate")
+            agree += int(np.sum(got == bf16_tokens[j]))
+        eng.drain()
+        all_launches[f"LM kvcache {label}"] = launches
+        print(f"[kvcache] {card}: {label}: {ENGINE_REQUESTS} requests into "
+              f"{ENGINE_BATCH} slots of {ENGINE_SEQ}: every stream == its "
+              f"solo generate and all {len(rows)} batched decode rows' "
+              f"logits == the solo run's; K1 {launches['bitserial_matmul']} "
+              f"= {n_lin} x {steps + ENGINE_REQUESTS}, == plain: {held}; "
+              f"tokens equal to the bf16 repeat route's streams: {agree} of "
+              f"{ENGINE_REQUESTS * ENGINE_GEN}; median step "
+              f"{sorted(step_s)[len(step_s) // 2] * 1e3:.3f} ms")
+        del rows, solos, eng
+
+    # One decode step at the engine's defaults, per route.
+    seq = sess.cfg.max_seq
+    tok = torch.zeros(LONG_SLOTS, dtype=torch.long, device="cuda")
+    pos = torch.full((LONG_SLOTS,), seq - 1, dtype=torch.int32,
+                     device="cuda")
+    for label, change in [("bf16 repeat", {})] + list(KV_ROUTES.items()):
+        rs = route_session(sess, change)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        cache = fill_long_cache(rs.cfg, LONG_SLOTS, seq)
+        torch.cuda.synchronize()
+        pool_bytes = torch.cuda.memory_allocated() - before
+
+        def step(rs=rs, cache=cache):
+            rs.decode(tok, pos, cache)
+        step()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated() - held
+        times, dev = [], []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            step()
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            dev.append(ev[0].elapsed_time(ev[1]))
+        med, dev_med = sorted(times)[1], sorted(dev)[1]
+        print(f"[kvcache] {card}: {label}, {LONG_SLOTS} slots of {seq}: "
+              f"decode step {dev_med:.4f} ms on the device's clock (CUDA "
+              f"events, median of 3; the bf16 repeat route's busy time "
+              f"before: {LONG_STEP_BEFORE_MS} ms), host clock "
+              f"median {med * 1e3:.3f} ms; pool {pool_bytes} B "
+              f"({pool_bytes / 2**30:.3f} GiB), the step's transient peak "
+              f"{transient / 2**30:.3f} GiB above {held / 2**30:.3f} GiB "
+              f"held")
+        del cache, step
+    torch.cuda.empty_cache()
+    print(f"[kvcache] phase took {time.perf_counter() - t_phase:.1f} s")
+    return all_launches
+
+
 def phase_engine_cli(card: str) -> None:
-    """``python -m repro_torch.launch.serve`` in two subprocesses at once:
-    server mode (3 requests, 2 slots) and a solo ``--batch 1`` run of
-    request 0's prompt; row 0 must equal the solo run."""
+    """``python -m repro_torch.launch.serve`` in three subprocesses at
+    once: server mode (3 requests, 2 slots), a solo ``--batch 1`` run of
+    request 0's prompt, and the same on ``--mode serve_int8``; row 0 must
+    equal the solo run, and the serve_int8 run too (exact at (8, 8))."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     base = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
             "qwen3-1.7b", "--mode", "serve_packed"]
     with tempfile.TemporaryDirectory() as tmp:
-        files = [str(Path(tmp) / "server.npy"), str(Path(tmp) / "solo.npy")]
+        files = [str(Path(tmp) / f"{n}.npy") for n in ("server", "solo",
+                                                        "int8")]
+        int8 = [a if a != "serve_packed" else "serve_int8" for a in base]
         cmds = [base + ["--server", "3", "--batch", "2", "--out-tokens",
                         files[0]],
-                base + ["--batch", "1", "--out-tokens", files[1]]]
+                base + ["--batch", "1", "--out-tokens", files[1]],
+                int8 + ["--batch", "1", "--out-tokens", files[2]]]
         t0 = time.perf_counter()
         procs = [subprocess.Popen(c, env=env, cwd=root, text=True,
                                   stdout=subprocess.PIPE,
@@ -1924,13 +2308,17 @@ def phase_engine_cli(card: str) -> None:
         for c, p_, out in zip(cmds, procs, outs):
             check(p_.returncode == 0, f"{' '.join(c[2:])} exited "
                   f"{p_.returncode}:\n{out[-3000:]}")
-        rows, solo = np.load(files[0]), np.load(files[1])
+        rows, solo, int8_solo = (np.load(f) for f in files)
     check(rows.shape == (3, 16) and np.array_equal(rows[0], solo[0]),
           f"serve CLI: --server row 0 {rows[0].tolist()} differs from the "
           f"solo run {solo[0].tolist()}")
+    check(np.array_equal(int8_solo, solo), f"serve CLI: --mode serve_int8 "
+          f"{int8_solo[0].tolist()} differs from serve_packed at (8, 8) "
+          f"{solo[0].tolist()}")
     line = [ln for ln in outs[0].splitlines() if "[serve] server:" in ln]
     print(f"[engine] {card}: serve CLI (smoke config on the card): --server "
-          f"3 --batch 2 exit 0, row 0 == solo --batch 1 run, both in "
+          f"3 --batch 2 exit 0, row 0 == solo --batch 1 run == --mode "
+          f"serve_int8 --batch 1, the three in "
           f"{time.perf_counter() - t0:.1f} s; {line[0] if line else ''}")
 
 
@@ -2221,10 +2609,12 @@ class _OpCount(TorchDispatchMode):
 
 
 def phase_profile(label: str, run, request_s: float, launches: int,
-                  requests: int = 4) -> None:
+                  requests: int = 4) -> tuple:
     """Host operators per request, device time by kernel over a few
     requests (torch.profiler), and the device's idle share of the
-    unprofiled median request time. ``run`` serves one request."""
+    unprofiled median request time. ``run`` serves one request. Returns
+    (operators, busy ms per request or None where the profiler recorded
+    no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with _OpCount() as count:
@@ -2246,12 +2636,13 @@ def phase_profile(label: str, run, request_s: float, launches: int,
     if not per_kernel:
         print(f"[profile] path {label}: the profiler recorded no device "
               f"time: not measured")
-        return
+        return count.ops, None
     print(f"[profile] path {label}: device busy {busy_ms:.4f} ms per request "
           f"of {request_s * 1e3:.4f} ms (idle share "
           f"{1 - busy_ms / (request_s * 1e3):.3f}), {requests} requests")
     for t, key in per_kernel[:12]:
         print(f"[profile] path {label} {t / 1e3:.4f} ms/request  {key[:90]}")
+    return count.ops, busy_ms
 
 
 def main() -> None:
@@ -2267,12 +2658,16 @@ def main() -> None:
     phase_k7(errs)
     served = phase_serve()
     lm = phase_lm(errs)
+    int8 = phase_int8(lm, card, errs)
     engine = phase_engine(lm, card, errs)
     phase_integrity(lm, engine, card, errs)
+    kv_launches = phase_kvcache(lm, engine, card, errs)
     launches = dict(served["launches"])
+    launches["CNN im2col"] = int8["im2col_launches"]
     launches["LM generate"] = lm["gen_launches"]
     launches["LM engine"] = engine["launches"]
     launches["LM engine dynamic_a"] = engine["dyn_launches"]
+    launches.update(kv_launches)
     launches["ops"] = lm["ops_launches"]
     runs = {label: (lambda sess=sess, x=x: sess.classify(x))
             for label, (sess, x, _) in served["runs"].items()}
@@ -2286,11 +2681,27 @@ def main() -> None:
                       sum(served["launches"][label].values()) // REQUESTS)
     sess, tokens = lm["sess"], lm["tokens"]
     cache = sess.init_cache(LM_BATCH, lm["max_seq"])
-    phase_profile("LM prefill", lambda: sess.prefill(tokens, cache),
-                  lm["prefill_s"], lm["n_lin"], requests=2)
-    phase_profile("LM decode", lambda: sess.decode(tokens[:, -1], LM_PROMPT,
-                                                   cache),
-                  lm["decode_s"], lm["n_lin"], requests=4)
+    _, pre_busy = phase_profile("LM prefill",
+                                lambda: sess.prefill(tokens, cache),
+                                lm["prefill_s"], lm["n_lin"], requests=2)
+    _, dec_busy = phase_profile("LM decode",
+                                lambda: sess.decode(tokens[:, -1], LM_PROMPT,
+                                                    cache),
+                                lm["decode_s"], lm["n_lin"], requests=4)
+    isess = lm["int8"]
+    icache = isess.init_cache(LM_BATCH, lm["max_seq"])
+    ipre, idec = int8["lm_medians"]["serve_int8"]
+    _, ipre_busy = phase_profile("LM serve_int8 prefill",
+                                 lambda: isess.prefill(tokens, icache), ipre,
+                                 0, requests=1)
+    _, idec_busy = phase_profile("LM serve_int8 decode",
+                                 lambda: isess.decode(tokens[:, -1],
+                                                      LM_PROMPT, icache),
+                                 idec, 0, requests=1)
+    del icache
+    print(f"[int8] {card}: LM device busy, serve_int8 against serve_packed: "
+          f"prefill {_busy(ipre_busy)} against {_busy(pre_busy)}, decode "
+          f"step {_busy(idec_busy)} against {_busy(dec_busy)}")
     dyn = lm["dyn"]
     dyn_cache = dyn.init_cache(LM_BATCH, lm["max_seq"])
     phase_profile("LM dynamic_a prefill",

@@ -5,8 +5,11 @@ freezes a layer's kind, route, (Pa, Pw), conv geometry and band size;
 :func:`build_plan` produces the model-wide :class:`ExecutionPlan`, which
 also owns the backend.
 
-The ``dense`` and ``serve_packed`` modes are ported, for the paper CNN and
-the LM (whose plans are keyed by layer class, ``attn_q`` ... ``lm_head``).
+The ``dense``, ``serve_int8`` and ``serve_packed`` modes are ported, for
+the paper CNN and the LM (whose plans are keyed by layer class,
+``attn_q`` ... ``lm_head``). A CNN plan's ``conv_route`` picks the fused
+conv or the reference's im2col A/B route (the conv as a linear on the
+patch tensor, through the conv's linear twin).
 :meth:`ExecutionPlan.fallback_report` reads a guarded backend's sticky
 fallbacks.
 The conv band
@@ -23,16 +26,21 @@ from repro_torch.core.policy import LayerPrecision, PrecisionPolicy
 
 # Routes: the closed set of execution strategies a layer can resolve to.
 DENSE = "dense"              # float matmul / conv (DPNN-equivalent baseline)
+INT8 = "int8"                # LM_8b: dynamic act quant + int8 weights
 PACKED = "packed"            # paper-faithful bit-serial packed planes
 
 # Execution-mode names -> routes.
 MODE_ROUTES = {
     "dense": DENSE,
+    "serve_int8": INT8,
     "serve_packed": PACKED,
 }
 
 # Modes of the reference that later slices bring.
-_UNPORTED_MODES = {"fake_quant": "ROADMAP A.12", "serve_int8": "ROADMAP A.5"}
+_UNPORTED_MODES = {"fake_quant": "ROADMAP A.12"}
+
+# Conv lowerings: the fused conv, or the reference's im2col A/B route.
+CONV_ROUTES = ("fused", "im2col")
 
 # Param-tree key -> apply-time layer-class name used by PrecisionPolicy
 # (shared with models.model's serving conversion walk).
@@ -55,18 +63,21 @@ class LayerPlan:
     filled in by :meth:`ExecutionPlan.conv_tile` from the layer's
     activation geometry (recorded in ``conv_tile_geom``). ``dynamic_a``
     trims activation planes per group of ``group_size`` rows or windows at
-    run time. ``w_group`` / ``w_group_counts`` are the pack-time
-    per-filter-group weight plane counts (``None`` = none recorded).
+    run time. ``conv_route`` is ``"fused"`` or ``"im2col"`` (the conv as
+    a linear on its patch tensor). ``w_group`` / ``w_group_counts`` are
+    the pack-time per-filter-group weight plane counts (``None`` = none
+    recorded).
     """
 
     name: str
     kind: str                      # "linear" | "conv"
-    route: str                     # DENSE | PACKED
+    route: str                     # DENSE | INT8 | PACKED
     precision: LayerPrecision = LayerPrecision()
     dynamic_a: bool = False
     group_size: int = 256
     kernel: int | None = None
     stride: int | None = None
+    conv_route: str = "fused"      # "fused" | "im2col"
     conv_tile: int | None = None
     conv_tile_geom: tuple | None = None   # (h, w, c) it was sized for
     w_group: int = 16
@@ -92,6 +103,7 @@ class ExecutionPlan:
     mode: str
     policy: PrecisionPolicy
     backend: Backend
+    conv_route: str = "fused"
     layers: dict = dataclasses.field(default_factory=dict)
 
     def layer(self, name: str = "", kind: str = "linear",
@@ -197,7 +209,7 @@ class ExecutionPlan:
             dynamic_a=self.policy.dynamic_a,
             group_size=self.policy.group_size,
             w_group=self.policy.w_group or 16,
-            kernel=kernel, stride=stride)
+            kernel=kernel, stride=stride, conv_route=self.conv_route)
 
 
 def counted_weights(cfg, params: dict) -> dict:
@@ -225,7 +237,8 @@ def conv_rows_per_band(h: int, w: int, c: int, *, kernel: int,
 
 
 def build_plan(cfg, policy: PrecisionPolicy | None = None,
-               mode: str = "dense", backend="cuda") -> ExecutionPlan:
+               mode: str = "dense", backend="cuda",
+               conv_route: str = "fused") -> ExecutionPlan:
     """Compile the per-layer plans for a model config.
 
     ``cfg`` may be a :class:`repro_torch.models.cnn.CNNConfig` (pre-resolves
@@ -233,20 +246,24 @@ def build_plan(cfg, policy: PrecisionPolicy | None = None,
     :class:`repro_torch.models.transformer.ModelConfig` (pre-resolves the
     LM linear classes) or None (everything resolves on first use).
     ``backend`` is a Backend object or registered name; the default
-    ``cuda`` takes the plain versions on CPU tensors.
+    ``cuda`` takes the plain versions on CPU tensors. ``conv_route``:
+    ``"fused"`` or ``"im2col"`` (:data:`CONV_ROUTES`).
     """
+    if conv_route not in CONV_ROUTES:
+        raise ValueError(f"unknown conv_route {conv_route!r}; expected one "
+                         f"of {CONV_ROUTES}")
     policy = policy if policy is not None else PrecisionPolicy()
     plan = ExecutionPlan(mode=mode, policy=policy,
-                         backend=resolve_backend(backend))
+                         backend=resolve_backend(backend),
+                         conv_route=conv_route)
     if cfg is None:
         return plan
     if hasattr(cfg, "convs"):            # CNNConfig
         for c in cfg.convs:
             plan.layer(c.name, kind="conv", kernel=c.kernel, stride=c.stride)
-            # The reference's im2col A/B route (ROADMAP A.5) reads a
-            # linear twin of each conv; resolved here too, so the plans'
-            # metadata (and the weight fingerprints over it) agree key
-            # for key. No ported route reads it.
+            # The im2col route reads a linear twin of each conv; it is
+            # resolved on the fused route too, as the reference does, so
+            # the plans' metadata (and the fingerprints over it) agree.
             plan.layer(c.name, kind="linear")
         for i in range(len(cfg.fcs)):
             plan.layer(f"fc{i}", kind="linear")
@@ -256,3 +273,12 @@ def build_plan(cfg, policy: PrecisionPolicy | None = None,
     else:
         raise TypeError(f"unknown model config {cfg!r}")
     return plan
+
+
+def as_plan(obj) -> ExecutionPlan:
+    """``obj`` if it is an :class:`ExecutionPlan`; a TypeError otherwise
+    (build one with :func:`build_plan` or ``repro_torch.compile``)."""
+    if isinstance(obj, ExecutionPlan):
+        return obj
+    raise TypeError(f"expected ExecutionPlan, got {obj!r}; build one with "
+                    f"repro_torch.api.plan.build_plan")

@@ -34,7 +34,7 @@ import torch
 from repro_torch.api.plan import ExecutionPlan, build_plan, counted_weights
 from repro_torch.core.policy import PrecisionPolicy
 
-_SERVING_MODES = ("serve_packed",)
+_SERVING_MODES = ("serve_int8", "serve_packed")
 
 
 @dataclasses.dataclass
@@ -191,12 +191,15 @@ def entry_points(cfg, plan) -> dict:
 def compile(cfg, policy: Optional[PrecisionPolicy] = None,
             mode: str = "dense", backend="cuda", *, params=None,
             generator: torch.Generator | None = None,
-            device="cuda", guarded: bool = False) -> ServingSession:
+            device="cuda", guarded: bool = False,
+            conv_route: str = "fused") -> ServingSession:
     """Compile a model for serving: plans + params on ``device``.
 
     ``cfg``: a CNN config (``classify``) or an LM ``ModelConfig``
-    (``prefill``/``decode``/``generate``). ``params``: a tree in the dense
-    or the packed layout, as tensors or numpy arrays
+    (``prefill``/``decode``/``generate``). ``mode``: ``dense``,
+    ``serve_int8`` (int8 weights, one exact int8 product per linear) or
+    ``serve_packed`` (bit-packed planes). ``params``: a tree in the dense
+    or a serving layout, as tensors or numpy arrays
     (:func:`repro_torch.interop.params_from_numpy`; the LM's is stacked
     over its groups); dense layers are packed here when ``mode`` is a
     serving mode. Omitted -> drawn from ``generator`` (seed 0 when None;
@@ -222,7 +225,7 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
     if guarded:
         from repro_torch.api.backend import guard_backend
         backend = guard_backend(backend)
-    plan = build_plan(cfg, policy, mode, backend)
+    plan = build_plan(cfg, policy, mode, backend, conv_route)
     lm = hasattr(cfg, "pattern")
     if params is None:
         if lm:

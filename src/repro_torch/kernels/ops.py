@@ -1,8 +1,9 @@
 """Serving-path orchestration around the backend op surface.
 
 PyTorch-port counterpart of ``repro/kernels/ops.py`` (the serving linear
-and conv, static and with runtime activation trimming, and the entry
-points of the activation quantizer and of attention). These functions
+and conv, static and with runtime activation trimming, the integer
+products of the bit-parallel ``serve_int8`` route, and the entry points
+of the activation quantizer and of attention). These functions
 own the numeric steps that are the same on every backend -- activation
 quantization, K padding against the packed layout, the OR-tree plane
 counts, and the final dequantizing cast -- and hand the integer core to a
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.api.backend import (dense_weights, resolve_backend,
                                      sum_int8_subplanes)
 from repro_torch.core import bitpack, dynamic, quantize as q
+from repro_torch.kernels import ref
 
 
 def loom_linear_serve(x: torch.Tensor, w_packed: torch.Tensor,
@@ -102,6 +104,70 @@ def conv_accum_fits_f32(kkc: int, a_bits: int, w_bits: int) -> bool:
     """True when every partial sum of the integer conv is <= 2^24 in
     magnitude, i.e. exactly representable in a float32 mantissa."""
     return kkc << (a_bits - 1 + w_bits - 1) <= 1 << 24
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int8 product ``x [..., K] @ w [K, N]`` -> int32 [..., N],
+    the reference's ``dot_general(..., preferred_element_type=int32)``.
+
+    One ``torch._int_mm`` on every device. Its CUDA route takes M > 16
+    rows and K, N multiples of 8, so the operands are zero-padded at call
+    time (rows to at least 32 and a multiple of 8, K and N to multiples
+    of 8) and the result sliced back; zero rows and columns add nothing
+    to an integer sum. The stored ``w`` is never padded. A shape that
+    ``_int_mm`` still refuses raises."""
+    lead, n = x.shape[:-1], w.shape[1]
+    x2 = x.reshape(-1, x.shape[-1])
+    m, k = x2.shape
+    pad_m = max(32, _round_up(m, 8)) - m
+    pad_k, pad_n = (-k) % 8, (-n) % 8
+    if pad_m or pad_k:
+        x2 = F.pad(x2, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        w = F.pad(w, (0, pad_n, 0, pad_k))
+    y = torch._int_mm(x2.contiguous(), w.contiguous())
+    return y[:m, :n].reshape(*lead, n)
+
+
+# Stems with C <= this fold their k*k window offsets into the channel dim
+# (one product over K = k*k*C) instead of walking k*k passes of K = C.
+STEM_FOLD_MAX_C = 4
+
+
+def int_conv_same(x_int: torch.Tensor, w4: torch.Tensor, stride: int,
+                  exact_f32: bool = False,
+                  fold_kk: bool | None = None) -> torch.Tensor:
+    """Integer "same"-padded conv as k*k shift-and-matmul passes.
+
+    x_int: int [B, H, W, C]; w4: int [k, k, C, N] -> exact int32
+    [B, ceil(H/stride), ceil(W/stride), N]. Each window offset (di, dj)
+    multiplies one strided slice of the padded map by its [C, N] slab; no
+    patch tensor is built unless ``fold_kk``, which concatenates the k*k
+    slices and runs one product over K = k*k*C (default: when C <=
+    :data:`STEM_FOLD_MAX_C`). ``exact_f32``: the products run in float32;
+    the caller guarantees :func:`conv_accum_fits_f32`, so every partial
+    sum is an integer a float32 mantissa holds and the result is exact in
+    any summation order (TF32 included: the operands are below 2^11).
+    Otherwise they run in int64 on the CPU and float64 on the card (exact,
+    as :mod:`repro_torch.kernels.ref` takes them), narrowed to int32 last.
+    """
+    k, _, c, n = w4.shape
+    pad = k // 2
+    b, h, w_, _ = x_int.shape
+    ho, wo = -(-h // stride), -(-w_ // stride)
+    dt = torch.float32 if exact_f32 else ref._exact_dtype(x_int.device)
+    xp = F.pad(x_int.to(dt), (0, 0, pad, pad, pad, pad))
+    if fold_kk is None:
+        fold_kk = c <= STEM_FOLD_MAX_C
+    slices = ref.conv_window_slices(xp, k, stride, ho, wo)
+    if fold_kk:
+        patches = torch.cat(slices, dim=-1)             # [B, Ho, Wo, kkC]
+        return ref._narrow(patches @ w4.to(dt).reshape(k * k * c, n))
+    wc = w4.to(dt).reshape(k * k, c, n)
+    acc = torch.zeros((b, ho, wo, n), dtype=dt, device=x_int.device)
+    for sl, wslab in zip(slices, wc):
+        acc += sl @ wslab
+    return ref._narrow(acc)
 
 
 def loom_conv_serve(x: torch.Tensor, w_packed: torch.Tensor,

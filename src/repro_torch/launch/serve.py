@@ -4,8 +4,15 @@ execution plans, on the card unless asked otherwise.
 PyTorch-port counterpart of ``repro/launch/serve.py``::
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --mode serve_packed
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --mode serve_int8
     python -m repro_torch.launch.serve --arch qwen3-1.7b --server 3 --batch 2
     python -m repro_torch.launch.serve --arch paper-cnn --device cpu
+
+Modes: ``dense``, ``serve_int8`` (the bit-parallel LM_8b baseline: int8
+weights, one exact int8 product per linear) and ``serve_packed`` (Loom's
+bit-serial planes, Pw/16 of the weight bytes). The default is
+``serve_packed``, where the reference's is ``serve_int8``: the port's
+CLI serves Loom's own route unless asked.
 
 It serves ``configs.get(arch, smoke=True)`` with random weights (seed 0),
 either through the session API (``--api session``, the default:

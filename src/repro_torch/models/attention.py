@@ -11,12 +11,20 @@ batch-invariant form (:func:`decode_attend`).
 
 The KV cache is ``{"k", "v": [B, S_cache, H_kv, D] bf16, "slot_pos": int32
 [B, S_cache]}`` (a ring of ``window`` slots for a sliding-window layer).
-Where the reference returns a new cache, the port writes the cache it is
-given in place: a decode step then moves one slot, not the whole cache.
+With ``kv_cache_bits=8`` it is Loom's int8 cache: ``k`` and ``v`` int8,
+plus float32 ``k_scale`` / ``v_scale`` ``[B, S_cache, H_kv]``, one scale
+per (slot, head). Where the reference returns a new cache, the port
+writes the cache it is given in place: a decode step then moves one slot,
+not the whole cache.
 
-Not ported (ROADMAP A.6): the int8 KV cache (``kv_cache_bits=8``), the
-grouped decode routes (``gqa_decode``, ``attn_int8``), cross-attention,
-and the training path with its flash backward.
+Decode routes: the KV heads repeated (the default); ``gqa_decode``, the
+queries grouped ``[B, G, R, D]`` against the un-repeated cache; and on an
+int8 cache ``attn_int8``, integer QK and PV products on the stored int8
+values (:func:`_decode_attend_gqa_int8`). Every route keeps a row's
+result independent of the other rows.
+
+Not ported: cross-attention (ROADMAP A.11) and the training path with its
+flash backward (ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -24,9 +32,13 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.quantize import true_div
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
+# A run of this many int8 x int8 products (each at most 127 * 128 in
+# magnitude) sums below 2^24, exactly in float32 in any order.
+_EXACT_RUN = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,20 +50,16 @@ class AttnConfig:
     rope_theta: float = 500000.0
     qk_norm: bool = False
     window: int | None = None          # sliding-window size (None = full)
-    gqa_decode: bool = False           # grouped decode einsum (not ported)
-    attn_int8: bool = False            # integer decode attention (not ported)
+    gqa_decode: bool = False           # grouped decode (no KV repeat)
+    attn_int8: bool = False            # integer QK/PV on the int8 cache
     cross: bool = False                # cross-attention (not ported)
-    kv_cache_bits: int = 16            # 16 = bf16 cache; 8 not ported
+    kv_cache_bits: int = 16            # 16 = bf16 cache; 8 = int8 cache
 
 
 def _check_ported(cfg: AttnConfig) -> None:
-    for flag, what in ((cfg.kv_cache_bits != 16, "the int8 KV cache"),
-                       (cfg.gqa_decode or cfg.attn_int8,
-                        "the grouped decode routes"),
-                       (cfg.cross, "cross-attention")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      f"(ROADMAP A.6)")
+    if cfg.cross:
+        raise NotImplementedError("cross-attention is not ported yet "
+                                  "(ROADMAP A.11)")
 
 
 def init(cfg: AttnConfig, generator: torch.Generator,
@@ -161,31 +169,58 @@ def init_cache(cfg: AttnConfig, batch: int, max_seq: int,
     _check_ported(cfg)
     s_cache = min(cfg.window or max_seq, max_seq)
     shape = (batch, s_cache, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            # per-row slot positions: rows may decode at different
-            # absolute positions, so the causal mask is per slot
-            "slot_pos": torch.full((batch, s_cache), -1, dtype=torch.int32,
-                                   device=device)}
+    kv_dtype = torch.int8 if cfg.kv_cache_bits == 8 else dtype
+    cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device),
+             # per-row slot positions: rows may decode at different
+             # absolute positions, so the causal mask is per slot
+             "slot_pos": torch.full((batch, s_cache), -1, dtype=torch.int32,
+                                    device=device)}
+    if cfg.kv_cache_bits == 8:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=device)
+    return cache
+
+
+def _quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., H, D] -> int8 values and one float32 scale per head
+    ([..., H]): absmax / 127 (a true division, floored at 1e-20), values
+    rounded half to even and clipped to [-128, 127]."""
+    xf = x.to(torch.float32)
+    s = torch.clamp_min(true_div(torch.amax(xf.abs(), dim=-1), 127.0), 1e-20)
+    xq = torch.clamp(torch.round(xf / s[..., None]), -128, 127)
+    return xq.to(torch.int8), s
+
+
+def _cache_entries(cache: dict, cfg: AttnConfig, k_new, v_new) -> dict:
+    """The values one write stores, by cache key: K/V cast to the cache's
+    dtype, or on an int8 cache quantized with their scales."""
+    if cfg.kv_cache_bits == 8:
+        (kq, ks), (vq, vs) = _quant_kv(k_new), _quant_kv(v_new)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k_new.to(cache["k"].dtype), "v": v_new.to(cache["v"].dtype)}
 
 
 def cache_update(cache: dict, cfg: AttnConfig, k_new, v_new, pos) -> dict:
     """Write one token's K/V (k_new, v_new: [B, 1, H_kv, D]) at absolute
-    position ``pos`` (slot ``pos % S_cache``), in place. ``pos``: an int
-    (the whole batch at one position) or an int [B] tensor (each row at its
-    own position)."""
+    position ``pos`` (slot ``pos % S_cache``), in place; an int8 cache
+    stores them quantized, with their scales. ``pos``: an int (the whole
+    batch at one position) or an int [B] tensor (each row at its own
+    position)."""
     _check_ported(cfg)
     s_cache = cache["k"].shape[1]
+    new = _cache_entries(cache, cfg, k_new[:, 0], v_new[:, 0])
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         rows = torch.arange(pos.shape[0], device=pos.device)
         slot = (pos % s_cache).long()
-        cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+        for key, val in new.items():
+            cache[key][rows, slot] = val
         cache["slot_pos"][rows, slot] = pos.to(torch.int32)
         return cache
     slot = pos % s_cache
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    for key, val in new.items():
+        cache[key][:, slot] = val
     cache["slot_pos"][:, slot] = pos
     return cache
 
@@ -202,9 +237,23 @@ def _valid_slots(cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
     return valid
 
 
+def _kv_float(cache: dict, cfg: AttnConfig):
+    """The cache's K and V [B, S, H_kv, D]: bf16 as stored, or an int8
+    cache dequantized to float32 (``k.float() * k_scale[..., None]``)."""
+    k, v = cache["k"], cache["v"]
+    if cfg.kv_cache_bits == 8:
+        k = k.to(torch.float32) * cache["k_scale"][..., None]
+        v = v.to(torch.float32) * cache["v_scale"][..., None]
+    return k, v
+
+
 def decode_attend(q, cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
-    """q: [B, 1, Hq, D] against the cache (KV heads repeated); returns
-    [B, 1, Hq, D] in q's dtype.
+    """q: [B, 1, Hq, D] against the cache; returns [B, 1, Hq, D] in q's
+    dtype. The route follows the config: integer products on an int8
+    cache with ``attn_int8`` (:func:`_decode_attend_gqa_int8`), grouped
+    queries with ``gqa_decode`` (:func:`_decode_attend_gqa`), else the KV
+    heads repeated. ``attn_int8`` on a bf16 cache takes the other routes,
+    as in the reference.
 
     Written so that row b's result does not depend on the other rows,
     and a row of the batching engine's decode equals the same row decoded
@@ -214,16 +263,22 @@ def decode_attend(q, cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
     4 than at batch 1 on an H100). Shown on an H100 at batch 4 against 1
     with 448 cache slots and at batch 8 against 1 with 32768
     (``chip_batch_variance.py``); other sizes rest on PyTorch's reduction
-    heuristics and are not measured. It materialises float32 copies of
-    K and V and their products: at batch 8 and 32768 slots a decode step
-    is about 0.4 s of device time and 6 GiB of transient memory on the
-    H100 (PERF.md)."""
+    heuristics and are not measured (each of its sums runs over 16 rows
+    or more). It materialises float32 copies of K and V and their
+    products: at batch 8 and 32768 slots a decode step is about 0.4 s of
+    device time and 6 GiB of transient memory on the H100; ``gqa_decode``
+    0.25 s and 4 GiB, ``attn_int8`` 2.1 GiB (PERF.md)."""
     _check_ported(cfg)
+    if cfg.attn_int8 and cfg.kv_cache_bits == 8:
+        return _decode_attend_gqa_int8(q, cache, cfg, pos)
+    k, v = _kv_float(cache, cfg)
+    if cfg.gqa_decode:
+        return _decode_attend_gqa(q, k, v, cache, cfg, pos)
     d = q.shape[-1]
     n_rep = q.shape[2] // cfg.n_kv_heads
     f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
-    kh = _repeat_kv(cache["k"], n_rep).permute(0, 2, 1, 3).to(**f32)
-    vt = _repeat_kv(cache["v"], n_rep).permute(0, 2, 3, 1).to(**f32)
+    kh = _repeat_kv(k, n_rep).permute(0, 2, 1, 3).to(**f32)
+    vt = _repeat_kv(v, n_rep).permute(0, 2, 3, 1).to(**f32)
     qt = q.permute(0, 2, 1, 3).to(torch.float32) * d ** -0.5  # [B, Hq, 1, D]
     logits = (qt * kh).sum(-1)[:, :, None, :]                 # [B, Hq, 1, S]
     valid = _valid_slots(cache, cfg, pos)
@@ -231,6 +286,80 @@ def decode_attend(q, cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
     p_ = torch.softmax(logits, dim=-1)
     out = (p_ * vt).sum(-1)[:, :, None, :]                    # [B, Hq, 1, D]
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _decode_attend_gqa(q, k, v, cache, cfg: AttnConfig, pos):
+    """Grouped decode: queries [B, G, R, D] against the un-repeated
+    [B, G, S, D] K and V, in :func:`decode_attend`'s batch-invariant form
+    (elementwise products, sums over the contiguous last dim). The same
+    products summed over the same dim as the repeat route, without the
+    repeated copy of the cache."""
+    b, _, hq, d = q.shape
+    g = cfg.n_kv_heads
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    kt = k.permute(0, 2, 1, 3).to(**f32)                      # [B, G, S, D]
+    vt = v.permute(0, 2, 3, 1).to(**f32)                      # [B, G, D, S]
+    qt = q.reshape(b, g, hq // g, d).to(torch.float32) * d ** -0.5
+    logits = (qt[:, :, :, None, :] * kt[:, :, None]).sum(-1)  # [B, G, R, S]
+    valid = _valid_slots(cache, cfg, pos)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    p_ = torch.softmax(logits, dim=-1)
+    out = (p_[:, :, :, None, :] * vt[:, :, None]).sum(-1)     # [B, G, R, D]
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact ``a [..., M, K] @ b [..., K, N]`` of int8 operands -> int32,
+    the reference's integer ``dot_general``. It runs as float32 batched
+    products over runs of at most ``_EXACT_RUN`` of K: every product is at
+    most 127 * 128 in magnitude, so each run's sum is an integer below
+    2^24, exact in float32 (and TF32: the operands need 8 bits) in any
+    order; the runs are summed in int32. Exact, hence the same bits at any
+    batch size."""
+    k = a.shape[-1]
+    if k <= _EXACT_RUN:
+        return torch.matmul(a.to(torch.float32),
+                            b.to(torch.float32)).to(torch.int32)
+    pad = (-k) % _EXACT_RUN
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    n_runs = (k + pad) // _EXACT_RUN
+    ar = a.unflatten(-1, (n_runs, _EXACT_RUN)).transpose(-3, -2)
+    br = b.unflatten(-2, (n_runs, _EXACT_RUN))      # [..., runs, run, N]
+    part = torch.matmul(ar.to(torch.float32), br.to(torch.float32))
+    return part.to(torch.int32).sum(-3, dtype=torch.int32)
+
+
+def _decode_attend_gqa_int8(q, cache, cfg: AttnConfig, pos):
+    """Integer decode attention on the int8 cache: q quantized per (batch,
+    head) to [-127, 127], QK an exact int32 product (:func:`int8_dot`)
+    with the scales folded into the logits, softmax, ``p * v_scale``
+    quantized to [0, 127], PV an exact int32 product times its scale. No
+    float32 copy of the dequantized cache is built."""
+    b, _, hq, d = q.shape
+    g = cfg.n_kv_heads
+    r = hq // g
+    kq = cache["k"].permute(0, 2, 1, 3)                # [B, G, S, D] int8
+    vq = cache["v"].permute(0, 2, 1, 3)
+    k_scale = cache["k_scale"].permute(0, 2, 1)        # [B, G, S]
+    v_scale = cache["v_scale"].permute(0, 2, 1)
+    qf = q.reshape(b, g, r, d).to(torch.float32) * d ** -0.5
+    q_scale = torch.clamp_min(
+        true_div(torch.amax(qf.abs(), dim=-1, keepdim=True), 127.0), 1e-20)
+    qi = torch.clamp(torch.round(qf / q_scale), -127, 127).to(torch.int8)
+    logits_i = int8_dot(qi, kq.transpose(-1, -2))      # [B, G, R, S]
+    logits = logits_i.to(torch.float32) * q_scale * k_scale[:, :, None, :]
+    valid = _valid_slots(cache, cfg, pos)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    p_ = torch.softmax(logits, dim=-1)
+    pv = p_ * v_scale[:, :, None, :]                   # [B, G, R, S]
+    p_scale = torch.clamp_min(
+        true_div(torch.amax(pv, dim=-1, keepdim=True), 127.0), 1e-20)
+    pi = torch.clamp(torch.round(pv / p_scale), 0, 127).to(torch.int8)
+    out_i = int8_dot(pi, vq)                           # [B, G, R, D]
+    out = out_i.to(torch.float32) * p_scale
+    return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +380,9 @@ def apply_prefill(p, cfg: AttnConfig, x, positions, plan, cache):
     take = min(s, s_cache)
     pos_tail = positions[s - take:]
     slots = (pos_tail % s_cache).long()
-    cache["k"][:, slots] = k[:, s - take:].to(cache["k"].dtype)
-    cache["v"][:, slots] = v[:, s - take:].to(cache["v"].dtype)
+    for key, val in _cache_entries(cache, cfg, k[:, s - take:],
+                                   v[:, s - take:]).items():
+        cache[key][:, slots] = val
     cache["slot_pos"][:, slots] = pos_tail.to(torch.int32)
     return L.linear_apply(p["wo"], out, plan, "attn_o"), cache
 

@@ -3,14 +3,19 @@
 PyTorch-port counterpart of ``repro/models/cnn.py``. Activations are NHWC
 throughout: the last conv's map is flattened in (h, w, c) order into
 fc0's inputs, exactly as the reference flattens it, so the two packages
-read the same fc0 weights the same way.
+read the same fc0 weights the same way. A plan built with
+``conv_route="im2col"`` runs each conv as a linear on its patch tensor
+(the reference's A/B route, through the conv's linear twin), bit for bit
+the fused conv's result on the serving routes.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.api import plan as planlib
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.models import layers as L
 
@@ -64,12 +69,32 @@ def init_params(cfg: CNNConfig, generator: torch.Generator | None = None,
             for name, p in params.items()}
 
 
+def _im2col(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """x: [B, H, W, C] -> "same"-padded patches [B, Ho, Wo, k*k*C], features
+    in the (di, dj, c) order of the weight rows."""
+    _, h, w, _ = x.shape
+    pad = kernel // 2
+    x = F.pad(x, (0, 0, pad, pad, pad, pad))
+    return torch.cat([x[:, di:di + h:stride, dj:dj + w:stride, :]
+                      for di in range(kernel) for dj in range(kernel)],
+                     dim=-1)
+
+
 def forward(params: dict, cfg: CNNConfig, x: torch.Tensor,
             plan: ExecutionPlan) -> torch.Tensor:
     """x: [B, H, W, C] float -> logits [B, n_classes]."""
+    plan = planlib.as_plan(plan)
     for c in cfg.convs:
-        y = torch.relu(L.conv_apply(params[c.name], x, c.kernel, c.stride,
-                                    plan, c.name))
+        lp = plan.layer(c.name, kind="conv", kernel=c.kernel,
+                        stride=c.stride)
+        if lp.conv_route == "fused":
+            y = L.conv_apply(params[c.name], x, c.kernel, c.stride, plan,
+                             c.name)
+        else:    # the im2col A/B route: the conv as a linear on patches
+            y = L.linear_apply(params[c.name], _im2col(x, c.kernel,
+                                                       c.stride),
+                               plan, c.name)
+        y = torch.relu(y)
         if c.pool > 1:
             b, h, w, ch = y.shape
             y = y.reshape(b, h // c.pool, c.pool, w // c.pool, c.pool, ch)

@@ -1,16 +1,19 @@
 """The Loom linear and conv layers, dispatched through execution plans.
 
 PyTorch-port counterpart of ``repro/models/layers.py``: RMSNorm, RoPE,
-activations, embeddings, and the dense and packed routes of the Loom
-linear and conv. Every linear and conv asks the model's
+activations, embeddings, and the dense, int8 and packed routes of the
+Loom linear and conv. Every linear and conv asks the model's
 :class:`~repro_torch.api.plan.ExecutionPlan` for its resolved
 :class:`~repro_torch.api.plan.LayerPlan` and jumps to that route's
 handler. Activations stay NHWC, as in the reference; weights keep the 2-D
 [k*k*Cin, Cout] matrix layout with rows in (di, dj, c) order, so packing
 is shared between convs and FC layers.
 
-The ``serve_packed`` route needs :func:`convert_linear_for_serving` run
-once over the dense params (the paper's offline weight packing step).
+The serving routes need :func:`convert_linear_for_serving` run once over
+the dense params (the paper's offline weight packing step): ``serve_int8``
+stores ``{"wq": int8 [K, N], "w_scale"}`` and takes one exact int8
+product (``torch._int_mm``, the reference's ``dot_general``; the LM_8b
+baseline), ``serve_packed`` stores the bit-packed planes.
 """
 from __future__ import annotations
 
@@ -22,13 +25,28 @@ from repro_torch.core import bitpack, quantize as q
 from repro_torch.kernels import ops
 
 
+# PyTorch's CUDA reduction lays its threads out by the number of rows it
+# reduces until there are 16 (from 16 on, one warp sums each row in a
+# fixed order), so a row of a batch of fewer rows is summed in another
+# order than the same row alone. Row-wise means take at least this many.
+_MIN_REDUCE_ROWS = 16
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in float32 with a zero-centred gain (``1 + gamma``), cast
-    back to x's dtype."""
+    back to x's dtype. The mean of squares is taken over at least
+    ``_MIN_REDUCE_ROWS`` rows (zero rows pad a smaller batch), so a decode
+    row's result does not depend on the batch it rides in: shown on an
+    H100 at batch 4 against 1 (PERF.md, ROADMAP queue C)."""
     dt = x.dtype
     x = x.to(torch.float32)
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    sq = (x * x).reshape(-1, x.shape[-1])
+    rows = sq.shape[0]
+    if rows < _MIN_REDUCE_ROWS:
+        sq = F.pad(sq, (0, 0, 0, _MIN_REDUCE_ROWS - rows))
+    ms = torch.mean(sq, dim=-1, keepdim=True)[:rows]
+    x = x * torch.rsqrt(ms.reshape(*x.shape[:-1], 1) + eps)
     return (x * (1.0 + gamma.to(torch.float32))).to(dt)
 
 
@@ -99,6 +117,16 @@ def _token_quant_axis(x) -> int | None:
     return -1 if x.ndim <= 3 else None
 
 
+def _linear_int8(p, x, lp, be):
+    # LM_8b: one exact int8 product against the pre-quantized weights,
+    # activations on the packed route's grid (per row on token-shaped
+    # input, per tensor on im2col patches).
+    xq, x_scale = q.quantize(x.to(torch.float32), min(lp.a_bits, 8),
+                             axis=_token_quant_axis(x))
+    y = ops.int8_matmul(xq.to(torch.int8), p["wq"])
+    return (y.to(torch.float32) * (x_scale * p["w_scale"])).to(x.dtype)
+
+
 def _linear_packed(p, x, lp, be):
     # The weight precision is the packed tensor's plane count; the plan
     # sets the activation precision. ``dynamic_a`` trims activation planes
@@ -119,6 +147,7 @@ def _linear_packed(p, x, lp, be):
 
 _LINEAR_ROUTES = {
     planlib.DENSE: _linear_dense,
+    planlib.INT8: _linear_int8,
     planlib.PACKED: _linear_packed,
 }
 
@@ -126,6 +155,7 @@ _LINEAR_ROUTES = {
 def linear_apply(p: dict, x: torch.Tensor, plan: planlib.ExecutionPlan,
                  layer_name: str = "") -> torch.Tensor:
     """Dispatch a linear through its resolved LayerPlan."""
+    plan = planlib.as_plan(plan)
     lp = plan.layer(layer_name, kind="linear")
     return _LINEAR_ROUTES[lp.route](p, x, lp, plan.backend)
 
@@ -136,6 +166,18 @@ def _conv_dense(p, x, kernel, stride, lp, plan):
     y = F.conv2d(x.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1),
                  stride=stride, padding=kernel // 2)
     return y.permute(0, 2, 3, 1)
+
+
+def _conv_int8(p, x, kernel, stride, lp, plan):
+    # The integer conv in float32 where every partial sum fits its
+    # mantissa (all three convs of the paper CNN at Pa <= 8).
+    c_in = x.shape[-1]
+    a_bits = min(lp.a_bits, 8)
+    xq, x_scale = q.quantize(x.to(torch.float32), a_bits)
+    y = ops.int_conv_same(
+        xq, p["wq"].reshape(kernel, kernel, c_in, -1), stride,
+        exact_f32=ops.conv_accum_fits_f32(kernel * kernel * c_in, a_bits, 8))
+    return (y * (x_scale * p["w_scale"]).to(torch.float32)).to(x.dtype)
 
 
 def _conv_packed(p, x, kernel, stride, lp, plan):
@@ -155,6 +197,7 @@ def _conv_packed(p, x, kernel, stride, lp, plan):
 
 _CONV_ROUTES = {
     planlib.DENSE: _conv_dense,
+    planlib.INT8: _conv_int8,
     planlib.PACKED: _conv_packed,
 }
 
@@ -163,16 +206,34 @@ def conv_apply(p: dict, x: torch.Tensor, kernel: int, stride: int,
                plan: planlib.ExecutionPlan,
                layer_name: str = "") -> torch.Tensor:
     """Dispatch a "same"-padded NHWC convolution through its LayerPlan."""
+    plan = planlib.as_plan(plan)
     lp = plan.layer(layer_name, kind="conv", kernel=kernel, stride=stride)
     return _CONV_ROUTES[lp.route](p, x, kernel, stride, lp, plan)
 
 
-def convert_linear_for_serving(p: dict, prec, mode: str) -> dict:
-    """Offline weight packing for one linear or conv: per-tensor quantize
-    to ``prec.w_bits`` and pack the planes (``serve_packed``)."""
-    if mode != "serve_packed":
-        raise NotImplementedError(f"serving conversion for {mode!r} is not "
-                                  f"ported yet (ROADMAP A.5)")
+def _convert_linear_int8(p, prec):
+    wq, w_scale = q.quantize(p["w"].to(torch.float32), 8)
+    return {"wq": wq.to(torch.int8), "w_scale": w_scale.to(torch.float32)}
+
+
+def _convert_linear_packed(p, prec):
     wq, w_scale = q.quantize(p["w"].to(torch.float32), prec.w_bits)
     return {"w_packed": bitpack.pack_weights(wq, prec.w_bits),
             "w_scale": w_scale.to(torch.float32)}
+
+
+_LINEAR_CONVERTERS = {"serve_int8": _convert_linear_int8,
+                      "serve_packed": _convert_linear_packed}
+
+
+def convert_linear_for_serving(p: dict, prec, mode: str) -> dict:
+    """Offline weight conversion for one linear or conv, per-tensor scale:
+    int8 weights ``{"wq", "w_scale"}`` (``serve_int8``, always 8 bits) or
+    planes packed at ``prec.w_bits`` (``serve_packed``)."""
+    try:
+        converter = _LINEAR_CONVERTERS[mode]
+    except KeyError:
+        raise ValueError(f"no serving conversion for mode {mode!r}; "
+                         f"expected one of {sorted(_LINEAR_CONVERTERS)}"
+                         ) from None
+    return converter(p, prec)

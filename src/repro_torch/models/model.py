@@ -7,7 +7,9 @@ The param tree is the reference's: ``{"embed": {"emb"}, "final_norm":
 axis on every leaf}}``, so a tree made or converted by the JAX package
 (carried across by ``repro_torch.interop.params_from_numpy``) runs here
 unchanged. The cache tree has the same shape (``{"p<i>": {"k", "v",
-"slot_pos"}}``, each leaf stacked over the groups) and is written in place.
+"slot_pos"}}``, plus ``"k_scale"`` and ``"v_scale"`` on an int8 cache,
+``kv_cache_bits=8``; each leaf stacked over the groups) and is written in
+place.
 Python loops over the groups take the place of the reference's
 ``lax.scan``.
 """
@@ -127,8 +129,9 @@ def _policy_key(path: tuple) -> str:
 
 def convert_tree(params: dict, policy, mode: str, root: tuple = ()) -> dict:
     """Walk an UNSTACKED tree, converting every dense 2-D linear ``{"w"}``
-    for ``mode`` under its layer class's precision; packed layers and
-    other leaves pass unchanged."""
+    for ``mode`` (``serve_int8``: ``{"wq", "w_scale"}``; ``serve_packed``:
+    ``{"w_packed", "w_scale"}``) under its layer class's precision;
+    converted layers and other leaves pass unchanged."""
     def walk(p, path):
         if not isinstance(p, dict):
             return p
@@ -148,7 +151,7 @@ def convert_tree(params: dict, policy, mode: str, root: tuple = ()) -> dict:
 
 
 def convert_params_for_serving(params: dict, policy, mode: str) -> dict:
-    """Every linear's ``w`` -> its packed representation. Embeddings and
+    """Every linear's ``w`` -> its serving representation. Embeddings and
     norms stay bf16. Stacked block params are unstacked, converted layer by
     layer (one weight scale per layer) and restacked."""
     out = {}

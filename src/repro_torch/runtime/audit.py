@@ -159,7 +159,7 @@ class ShadowAuditor:
         from repro_torch.api.session import ServingSession, entry_points
         plan = session.plan
         ref_plan = planlib.build_plan(session.cfg, plan.policy, plan.mode,
-                                      REF_BACKEND)
+                                      REF_BACKEND, plan.conv_route)
         # Pack-time weight-group counts were derived from the shared
         # packed tensors -- copy, don't recompute.
         for (name, kind), lp in plan.layers.items():

@@ -4,7 +4,9 @@ PyTorch-port counterpart of ``repro/runtime/batching/kvpool.py``. One
 device allocation for the whole engine lifetime:
 ``session.init_cache(max_batch, max_seq)`` -- every cache leaf carries the
 batch axis at position 1 (leaves are stacked ``[n_groups, B, ...]`` by
-``models.model.init_cache``: attention k, v and slot_pos). A *slot* is one
+``models.model.init_cache``: attention k, v and slot_pos, and k_scale and
+v_scale on an int8 cache; the leaves are walked in sorted key order, the
+same in the pool and in a row's cache). A *slot* is one
 batch row of that allocation. Requests borrow a slot for their lifetime;
 a retired slot goes straight back on the free list -- no copy, no
 compaction -- because admission overwrites the ENTIRE row via

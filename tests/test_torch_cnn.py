@@ -175,7 +175,7 @@ def test_compile_refuses_missing_card(monkeypatch):
 
 def test_unported_modes_and_options_raise():
     cfg = configs.get("paper_cnn", smoke=True)
-    for mode in ("serve_int8", "fake_quant"):
+    for mode in ("fake_quant",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             repro_torch.compile(cfg, mode=mode, device="cpu")
     # dynamic_a is ported: it serves, and equals the static path.

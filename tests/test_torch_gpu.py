@@ -8,7 +8,8 @@ batching engine's streams and batched decode logits against solo runs,
 guarded and supervised, with the watchdog and through a restart; a
 kernel that fails on the card raising, never replaced by its plain
 version; the weight fingerprint on the card equal to the CPU's; and a
-shadow audit on the card whose quarantine demotes nothing.
+shadow audit on the card whose quarantine demotes nothing; and RMSNorm's
+rows equal to rows normalised alone.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -580,3 +581,20 @@ def test_audit_on_the_card_quarantines_nothing(cuda, tmp_path):
                                          max_seq=eng.max_seq)[0])
     assert len(list(tmp_path.glob("*.npz"))) == 1
     eng.drain()
+
+
+def test_rms_norm_row_equals_the_row_alone_on_the_card(cuda):
+    """A decode batch's RMSNorm row equals the row normalised alone, at
+    every batch size the engine takes (PyTorch's CUDA reduction picks its
+    thread layout by the row count below 16 rows)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for trial in range(50):
+        for b in (2, 3, 4, 8, 15, 16, 17):
+            x = (torch.randn((b, 1, 2048), generator=g, device=cuda)
+                 * (1 + 20 * trial / 50)).to(torch.bfloat16)
+            gamma = (torch.randn(2048, generator=g, device=cuda)
+                     * 0.1).to(torch.bfloat16)
+            out = L.rms_norm(x, gamma)
+            for r in range(b):
+                assert torch.equal(out[r:r + 1], L.rms_norm(x[r:r + 1], gamma))

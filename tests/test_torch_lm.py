@@ -280,9 +280,16 @@ def test_session_surface():
     with pytest.raises(ValueError, match="not an LM"):
         cnn.prefill(np.zeros((1, 4), np.int64))
     import dataclasses
-    for change in (dict(kv_cache_bits=8), dict(gqa_decode=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            M.init_cache(dataclasses.replace(cfg, **change), 1, 8)
+    c8 = M.init_cache(dataclasses.replace(cfg, kv_cache_bits=8), 3, 20)["p0"]
+    assert c8["k"].dtype == c8["v"].dtype == torch.int8
+    assert tuple(c8["k"].shape) == tuple(c8["v"].shape) == (2, 3, 20, 2, 16)
+    for key in ("k_scale", "v_scale"):
+        assert c8[key].dtype == torch.float32
+        assert tuple(c8[key].shape) == (2, 3, 20, 2)
+    cg = M.init_cache(dataclasses.replace(cfg, gqa_decode=True), 3, 20)["p0"]
+    assert sorted(cg) == ["k", "slot_pos", "v"]
+    assert cg["k"].dtype == torch.bfloat16
+    assert tuple(cg["k"].shape) == (2, 3, 20, 2, 16)
     from repro_torch.models.transformer import LayerSpec
     for spec in (LayerSpec(kind="mamba"), LayerSpec(ffn="moe")):
         with pytest.raises(NotImplementedError, match="ROADMAP A.11"):

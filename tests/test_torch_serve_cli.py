@@ -106,6 +106,22 @@ def test_server_audit_and_integrity_flags(capsys):
     assert fields["state"] == "healthy"
 
 
-def test_unported_mode_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        serve.main(LM + ["--mode", "serve_int8"])
+def test_serve_int8_mode_serves(capsys):
+    """``--mode serve_int8`` (the reference CLI's default, ``tests/
+    test_cli.py::test_serve_cli_int8``): both APIs agree, the server mode's
+    row 0 equals a solo run, and at (8, 8) the tokens and the CNN's
+    predictions equal ``serve_packed``'s (both routes are exact integer
+    products on the same grids)."""
+    int8 = [a if a != "serve_packed" else "serve_int8" for a in LM]
+    args = int8 + ["--batch", "2", "--prompt-len", "8"]
+    a = serve.main(args)
+    out = capsys.readouterr().out
+    assert "generated" in out and "done" in out
+    assert a.shape == (2, 4) and a.dtype == np.int32
+    np.testing.assert_array_equal(a, serve.main(args + ["--api", "plan"]))
+    np.testing.assert_array_equal(
+        a, serve.main(LM + ["--batch", "2", "--prompt-len", "8"]))
+    rows = serve.main(int8 + ["--server", "2", "--prompt-len", "8"])
+    np.testing.assert_array_equal(rows[0], a[0])
+    cnn = [a_ if a_ != "serve_packed" else "serve_int8" for a_ in CNN]
+    np.testing.assert_array_equal(serve.main(cnn), serve.main(CNN))
