@@ -145,12 +145,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               with ``gqa_decode``; with ``attn_int8``): the engine phase's
               traffic on each, every stream and batched decode row equal to
               a solo run's, K1 == plain at the run's shapes, tokens equal
-              to the bf16 route's counted. Then one decode step at the
+              to the bf16 cache's counted. Then one decode step at the
               engine's defaults (LONG_SLOTS slots of 32768, a cache filled
-              directly) for the bf16 repeat route and each route: device
-              time (CUDA events; beside the bf16 repeat route's busy
-              time measured before, 408.055 ms),
-              host clock, transient peak memory and pool bytes.
+              directly) on the bf16 cache and each setting: time between
+              CUDA events (beside the bf16 repeat route's busy time
+              measured before the port dropped that route, 408.055 ms),
+              host clock, device busy (torch.profiler), transient peak
+              memory and pool bytes; a setting with ``gqa_decode`` held
+              equal to its twin without it (one float body in the port);
+              on ``attn_int8`` layer 0's two ``int8_dot`` products held
+              equal to the exact product on the host.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -2132,7 +2136,9 @@ def phase_int8(lm: dict, card: str, errs: dict) -> dict:
     return dict(im2col_launches=im2col_launches, lm_medians=medians)
 
 
-# The KV routes of the kvcache phase, on top of the bf16 repeat route.
+# The KV route settings of the kvcache phase, on top of the bf16 cache's
+# defaults. ``gqa_decode`` selects no route in the port (its settings run
+# the same float body as without it).
 KV_ROUTES = {"gqa_decode": dict(gqa_decode=True),
              "kv_cache_bits=8": dict(kv_cache_bits=8),
              "kv_cache_bits=8 + gqa_decode": dict(kv_cache_bits=8,
@@ -2142,8 +2148,9 @@ KV_ROUTES = {"gqa_decode": dict(gqa_decode=True),
 # The engine's defaults: BatchingEngine(max_batch=8), max_seq=cfg.max_seq.
 LONG_SLOTS = 8
 # The bf16 repeat route's decode step there, device busy ms, as
-# chip_batch_variance.py measured it before these routes (NVIDIA H100
-# 80GB HBM3, 700 W; PERF.md), printed beside this run's.
+# chip_batch_variance.py measured it when the port still repeated the KV
+# heads (NVIDIA H100 80GB HBM3, 700 W; PERF.md), printed beside this
+# run's.
 LONG_STEP_BEFORE_MS = 408.055
 
 
@@ -2176,6 +2183,38 @@ def fill_long_cache(cfg, batch: int, seq: int) -> dict:
         leaves["slot_pos"].copy_(torch.arange(seq, dtype=torch.int32,
                                               device="cuda"))
     return cache
+
+
+def hold_int8_dot(rs, tok, pos, cache, label: str) -> None:
+    """One decode step with ``attention.int8_dot`` recorded: layer 0's QK
+    and PV products (its first two calls) on the card held equal, bit for
+    bit, to the exact product on the host (float64: every sum is an
+    integer below 2^53)."""
+    seen = []
+    real = attn.int8_dot
+
+    def spy(a, b):
+        out = real(a, b)
+        if len(seen) < 2:
+            seen.append((a.cpu(), b.cpu(), out.cpu()))
+        return out
+    attn.int8_dot = spy
+    try:
+        rs.decode(tok, pos, cache)
+    finally:
+        attn.int8_dot = real
+    check(len(seen) == 2, f"{label}: int8_dot ran {len(seen)} times in "
+          f"layer 0, not 2")
+    shapes = []
+    for name, (a, b, out) in zip(("QK", "PV"), seen):
+        exact = torch.matmul(a.double(), b.double())
+        check(out.dtype == torch.int32 and torch.equal(out.double(), exact),
+              f"{label}: layer 0's int8_dot {name} on the card differs from "
+              f"the exact product (max |diff| "
+              f"{(out.double() - exact).abs().max().item()})")
+        shapes.append(f"{name} {list(a.shape)} x {list(b.shape)}")
+    print(f"[kvcache] {label}: layer 0's int8_dot {', '.join(shapes)} on the "
+          f"card == the exact product on the host, bit for bit")
 
 
 def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
@@ -2224,28 +2263,47 @@ def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
               f"solo generate and all {len(rows)} batched decode rows' "
               f"logits == the solo run's; K1 {launches['bitserial_matmul']} "
               f"= {n_lin} x {steps + ENGINE_REQUESTS}, == plain: {held}; "
-              f"tokens equal to the bf16 repeat route's streams: {agree} of "
+              f"tokens equal to the bf16 cache's streams: {agree} of "
               f"{ENGINE_REQUESTS * ENGINE_GEN}; median step "
               f"{sorted(step_s)[len(step_s) // 2] * 1e3:.3f} ms")
         del rows, solos, eng
 
-    # One decode step at the engine's defaults, per route.
+    # One decode step at the engine's defaults, per setting. A setting
+    # with gqa_decode runs its twin's body (the port keeps one float
+    # route): its logits are held equal to the twin's, not timed again.
+    # Settings with the same cache share it: each step writes the same
+    # K/V into slot seq - 1.
     seq = sess.cfg.max_seq
     tok = torch.zeros(LONG_SLOTS, dtype=torch.long, device="cuda")
     pos = torch.full((LONG_SLOTS,), seq - 1, dtype=torch.int32,
                      device="cuda")
-    for label, change in [("bf16 repeat", {})] + list(KV_ROUTES.items()):
+    outs, cache, bits = {}, None, None
+    for label, change in [("bf16", {})] + list(KV_ROUTES.items()):
         rs = route_session(sess, change)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_allocated()
-        cache = fill_long_cache(rs.cfg, LONG_SLOTS, seq)
-        torch.cuda.synchronize()
-        pool_bytes = torch.cuda.memory_allocated() - before
+        if rs.cfg.kv_cache_bits != bits:
+            cache = None
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            cache = fill_long_cache(rs.cfg, LONG_SLOTS, seq)
+            torch.cuda.synchronize()
+            pool_bytes = torch.cuda.memory_allocated() - before
+            bits = rs.cfg.kv_cache_bits
 
         def step(rs=rs, cache=cache):
-            rs.decode(tok, pos, cache)
-        step()
+            return rs.decode(tok, pos, cache)[0]
+        logits = step()
+        twin = tuple(sorted((k, v) for k, v in change.items()
+                            if k != "gqa_decode"))
+        if "gqa_decode" in change:
+            check(torch.equal(logits, outs[twin]), f"kvcache {label}, "
+                  f"{LONG_SLOTS} slots of {seq}: the step's logits differ "
+                  f"from those without gqa_decode")
+            print(f"[kvcache] {card}: {label}, {LONG_SLOTS} slots of {seq}: "
+                  f"the step's logits == those without gqa_decode (the "
+                  f"same float body in the port; not timed again)")
+            continue
+        outs[twin] = logits
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2264,14 +2322,26 @@ def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
             dev.append(ev[0].elapsed_time(ev[1]))
         med, dev_med = sorted(times)[1], sorted(dev)[1]
         print(f"[kvcache] {card}: {label}, {LONG_SLOTS} slots of {seq}: "
-              f"decode step {dev_med:.4f} ms on the device's clock (CUDA "
-              f"events, median of 3; the bf16 repeat route's busy time "
-              f"before: {LONG_STEP_BEFORE_MS} ms), host clock "
+              f"decode step {dev_med:.4f} ms between CUDA events (median "
+              f"of 3; the bf16 repeat route's busy time, measured when the "
+              f"port still had it: {LONG_STEP_BEFORE_MS} ms), host clock "
               f"median {med * 1e3:.3f} ms; pool {pool_bytes} B "
               f"({pool_bytes / 2**30:.3f} GiB), the step's transient peak "
               f"{transient / 2**30:.3f} GiB above {held / 2**30:.3f} GiB "
               f"held")
-        del cache, step
+        _, busy = phase_profile(f"kvcache {label} decode step, {LONG_SLOTS} "
+                                f"slots of {seq} ({card})", step, med, n_lin,
+                                requests=2)
+        check(busy is not None, f"kvcache {label}: the profiler recorded no "
+              f"device time")
+        print(f"[kvcache] {card}: {label}, {LONG_SLOTS} slots of {seq}: "
+              f"device busy {busy:.4f} ms of the {dev_med:.4f} ms between "
+              f"events (busy share {busy / dev_med:.3f})")
+        if change.get("attn_int8"):
+            hold_int8_dot(rs, tok, pos, cache, f"kvcache {label}, "
+                          f"{LONG_SLOTS} slots of {seq}")
+        del step
+    del cache, outs
     torch.cuda.empty_cache()
     print(f"[kvcache] phase took {time.perf_counter() - t_phase:.1f} s")
     return all_launches

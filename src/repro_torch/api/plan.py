@@ -273,12 +273,3 @@ def build_plan(cfg, policy: PrecisionPolicy | None = None,
     else:
         raise TypeError(f"unknown model config {cfg!r}")
     return plan
-
-
-def as_plan(obj) -> ExecutionPlan:
-    """``obj`` if it is an :class:`ExecutionPlan`; a TypeError otherwise
-    (build one with :func:`build_plan` or ``repro_torch.compile``)."""
-    if isinstance(obj, ExecutionPlan):
-        return obj
-    raise TypeError(f"expected ExecutionPlan, got {obj!r}; build one with "
-                    f"repro_torch.api.plan.build_plan")

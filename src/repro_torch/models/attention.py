@@ -5,9 +5,9 @@ PyTorch-port counterpart of the serving half of ``repro/models/
 attention.py``. All four projections are Loom linears (through the plan).
 Prefill runs :func:`chunked_attention`, plain PyTorch with an online
 softmax, as the reference's prefill does; the kernel K7 is reached through
-``kernels.ops.attention`` only. Decode repeats the KV heads and attends
-over the whole cache, masked by each slot's recorded position, in a
-batch-invariant form (:func:`decode_attend`).
+``kernels.ops.attention`` only. Decode attends over the whole cache,
+each KV head with its group of query heads, masked by each slot's
+recorded position, in a batch-invariant form (:func:`decode_attend`).
 
 The KV cache is ``{"k", "v": [B, S_cache, H_kv, D] bf16, "slot_pos": int32
 [B, S_cache]}`` (a ring of ``window`` slots for a sliding-window layer).
@@ -17,11 +17,12 @@ per (slot, head). Where the reference returns a new cache, the port
 writes the cache it is given in place: a decode step then moves one slot,
 not the whole cache.
 
-Decode routes: the KV heads repeated (the default); ``gqa_decode``, the
-queries grouped ``[B, G, R, D]`` against the un-repeated cache; and on an
-int8 cache ``attn_int8``, integer QK and PV products on the stored int8
-values (:func:`_decode_attend_gqa_int8`). Every route keeps a row's
-result independent of the other rows.
+Decode routes: the queries grouped ``[B, G, R, D]`` against the
+un-repeated cache in float32, whatever ``gqa_decode`` says (the
+reference's repeat route gives the same bits, so the port keeps one
+body); and on an int8 cache ``attn_int8``, integer QK and PV products on
+the stored int8 values (:func:`_decode_attend_gqa_int8`). Both keep a
+row's result independent of the other rows.
 
 Not ported: cross-attention (ROADMAP A.11) and the training path with its
 flash backward (ROADMAP A.12).
@@ -50,7 +51,7 @@ class AttnConfig:
     rope_theta: float = 500000.0
     qk_norm: bool = False
     window: int | None = None          # sliding-window size (None = full)
-    gqa_decode: bool = False           # grouped decode (no KV repeat)
+    gqa_decode: bool = False           # the reference's; no route here
     attn_int8: bool = False            # integer QK/PV on the int8 cache
     cross: bool = False                # cross-attention (not ported)
     kv_cache_bits: int = 16            # 16 = bf16 cache; 8 = int8 cache
@@ -238,22 +239,31 @@ def _valid_slots(cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
 
 
 def _kv_float(cache: dict, cfg: AttnConfig):
-    """The cache's K and V [B, S, H_kv, D]: bf16 as stored, or an int8
-    cache dequantized to float32 (``k.float() * k_scale[..., None]``)."""
-    k, v = cache["k"], cache["v"]
+    """The cache's K as [B, G, S, D] and V as [B, G, D, S], float32 and
+    contiguous; an int8 cache dequantized (``k.float() * k_scale``, the
+    reference's values). The cast from the cache's dtype is always a
+    copy, so the two sums of :func:`decode_attend` reduce the last dim
+    of contiguous tensors: a sum over a strided dim takes a CUDA
+    reduction laid out by the batch (other bits at batch 8 than alone)."""
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    k = cache["k"].permute(0, 2, 1, 3).to(**f32)
+    v = cache["v"].permute(0, 2, 3, 1).to(**f32)
     if cfg.kv_cache_bits == 8:
-        k = k.to(torch.float32) * cache["k_scale"][..., None]
-        v = v.to(torch.float32) * cache["v_scale"][..., None]
+        k = k * cache["k_scale"].permute(0, 2, 1)[..., None]
+        v = v * cache["v_scale"].permute(0, 2, 1)[:, :, None, :]
     return k, v
 
 
 def decode_attend(q, cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
     """q: [B, 1, Hq, D] against the cache; returns [B, 1, Hq, D] in q's
-    dtype. The route follows the config: integer products on an int8
-    cache with ``attn_int8`` (:func:`_decode_attend_gqa_int8`), grouped
-    queries with ``gqa_decode`` (:func:`_decode_attend_gqa`), else the KV
-    heads repeated. ``attn_int8`` on a bf16 cache takes the other routes,
-    as in the reference.
+    dtype. Integer products on an int8 cache with ``attn_int8``
+    (:func:`_decode_attend_gqa_int8`); otherwise the queries grouped
+    [B, G, R, D] against the un-repeated [B, G, S, D] K and V in float32
+    (an int8 cache dequantized first). The reference repeats the KV heads
+    unless ``gqa_decode``; the grouped body sums the same products over
+    the same dim, so it gives the repeat route's bits without the
+    repeated copy, and the port keeps it alone. ``attn_int8`` on a bf16
+    cache takes the float route, as in the reference.
 
     Written so that row b's result does not depend on the other rows,
     and a row of the batching engine's decode equals the same row decoded
@@ -265,40 +275,15 @@ def decode_attend(q, cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
     (``chip_batch_variance.py``); other sizes rest on PyTorch's reduction
     heuristics and are not measured (each of its sums runs over 16 rows
     or more). It materialises float32 copies of K and V and their
-    products: at batch 8 and 32768 slots a decode step is about 0.4 s of
-    device time and 6 GiB of transient memory on the H100; ``gqa_decode``
-    0.25 s and 4 GiB, ``attn_int8`` 2.1 GiB (PERF.md)."""
+    products: at batch 8 and 32768 slots a decode step is about 0.25 s
+    of device time and 4 GiB of transient memory on the H100,
+    ``attn_int8`` 2.1 GiB (PERF.md)."""
     _check_ported(cfg)
     if cfg.attn_int8 and cfg.kv_cache_bits == 8:
         return _decode_attend_gqa_int8(q, cache, cfg, pos)
-    k, v = _kv_float(cache, cfg)
-    if cfg.gqa_decode:
-        return _decode_attend_gqa(q, k, v, cache, cfg, pos)
-    d = q.shape[-1]
-    n_rep = q.shape[2] // cfg.n_kv_heads
-    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
-    kh = _repeat_kv(k, n_rep).permute(0, 2, 1, 3).to(**f32)
-    vt = _repeat_kv(v, n_rep).permute(0, 2, 3, 1).to(**f32)
-    qt = q.permute(0, 2, 1, 3).to(torch.float32) * d ** -0.5  # [B, Hq, 1, D]
-    logits = (qt * kh).sum(-1)[:, :, None, :]                 # [B, Hq, 1, S]
-    valid = _valid_slots(cache, cfg, pos)
-    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
-    p_ = torch.softmax(logits, dim=-1)
-    out = (p_ * vt).sum(-1)[:, :, None, :]                    # [B, Hq, 1, D]
-    return out.permute(0, 2, 1, 3).to(q.dtype)
-
-
-def _decode_attend_gqa(q, k, v, cache, cfg: AttnConfig, pos):
-    """Grouped decode: queries [B, G, R, D] against the un-repeated
-    [B, G, S, D] K and V, in :func:`decode_attend`'s batch-invariant form
-    (elementwise products, sums over the contiguous last dim). The same
-    products summed over the same dim as the repeat route, without the
-    repeated copy of the cache."""
+    kt, vt = _kv_float(cache, cfg)
     b, _, hq, d = q.shape
     g = cfg.n_kv_heads
-    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
-    kt = k.permute(0, 2, 1, 3).to(**f32)                      # [B, G, S, D]
-    vt = v.permute(0, 2, 3, 1).to(**f32)                      # [B, G, D, S]
     qt = q.reshape(b, g, hq // g, d).to(torch.float32) * d ** -0.5
     logits = (qt[:, :, :, None, :] * kt[:, :, None]).sum(-1)  # [B, G, R, S]
     valid = _valid_slots(cache, cfg, pos)

@@ -15,7 +15,6 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.api import plan as planlib
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.models import layers as L
 
@@ -83,7 +82,6 @@ def _im2col(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 def forward(params: dict, cfg: CNNConfig, x: torch.Tensor,
             plan: ExecutionPlan) -> torch.Tensor:
     """x: [B, H, W, C] float -> logits [B, n_classes]."""
-    plan = planlib.as_plan(plan)
     for c in cfg.convs:
         lp = plan.layer(c.name, kind="conv", kernel=c.kernel,
                         stride=c.stride)

@@ -155,7 +155,6 @@ _LINEAR_ROUTES = {
 def linear_apply(p: dict, x: torch.Tensor, plan: planlib.ExecutionPlan,
                  layer_name: str = "") -> torch.Tensor:
     """Dispatch a linear through its resolved LayerPlan."""
-    plan = planlib.as_plan(plan)
     lp = plan.layer(layer_name, kind="linear")
     return _LINEAR_ROUTES[lp.route](p, x, lp, plan.backend)
 
@@ -206,7 +205,6 @@ def conv_apply(p: dict, x: torch.Tensor, kernel: int, stride: int,
                plan: planlib.ExecutionPlan,
                layer_name: str = "") -> torch.Tensor:
     """Dispatch a "same"-padded NHWC convolution through its LayerPlan."""
-    plan = planlib.as_plan(plan)
     lp = plan.layer(layer_name, kind="conv", kernel=kernel, stride=stride)
     return _CONV_ROUTES[lp.route](p, x, kernel, stride, lp, plan)
 

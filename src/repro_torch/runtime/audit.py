@@ -57,6 +57,9 @@ _BUNDLE_TEST = "tests/test_torch_audit.py -k replay_saved_bundle"
 _BUNDLE_ENV = "LOOM_AUDIT_BUNDLE"
 # The reference oracle's backend: the plain versions, never the kernels.
 REF_BACKEND = "torch_ref"
+# The config's serving-side attention fields: a bundle records them, as
+# the registry's config by ``cfg.name`` would replay on its defaults.
+_ATTN_FIELDS = ("kv_cache_bits", "gqa_decode", "attn_int8")
 # Audit verdicts the lag percentile is taken over.
 _LAG_RING = 512
 
@@ -234,9 +237,12 @@ class ShadowAuditor:
         os.makedirs(self.bundle_dir, exist_ok=True)
         plan = session.plan
         pol = plan.policy
+        cfg = session.cfg
         meta = {
-            "arch": session.cfg.name,
+            "arch": cfg.name,
             "mode": plan.mode,
+            "conv_route": plan.conv_route,
+            "attention": {f: getattr(cfg, f) for f in _ATTN_FIELDS},
             "backend": plan.backend.name,
             "ref_backend": REF_BACKEND,
             "device": session.device.type,
@@ -289,8 +295,8 @@ def _resolve_cfg(name: str):
 
 def replay_bundle(path: str) -> dict:
     """Replay a divergence bundle in one call (what the pytest repro runs):
-    recompile the REFERENCE oracle from the recorded arch/policy/mode on
-    the recorded device (``compile``'s default seed-0 params, drawn
+    recompile the REFERENCE oracle from the recorded arch (with its
+    attention fields), policy, mode and conv route on the recorded device (``compile``'s default seed-0 params, drawn
     there), regenerate the bundled prompt over the recorded cache length,
     and compare against both stored streams. Returns the bundle dict plus
     ``regenerated`` (the fresh reference tokens), ``reproduced`` (fresh
@@ -308,7 +314,7 @@ def replay_bundle(path: str) -> dict:
             f"bundle {path!r} was written on device 'cuda': its seed-0 "
             f"weights are drawn by the card's generator, so it replays on "
             f"a CUDA device only")
-    cfg = _resolve_cfg(meta["arch"])
+    cfg = dc.replace(_resolve_cfg(meta["arch"]), **meta.get("attention", {}))
     pol = meta["policy"]
     policy = uniform_policy(pol["a_bits"], pol["w_bits"],
                             dynamic_a=pol["dynamic_a"],
@@ -316,7 +322,8 @@ def replay_bundle(path: str) -> dict:
     policy = dc.replace(policy, group_size=pol["group_size"])
     sess = repro_torch.compile(cfg, policy, mode=meta["mode"],
                                backend=meta["ref_backend"],
-                               device=meta["device"])
+                               device=meta["device"],
+                               conv_route=meta.get("conv_route", "fused"))
     regenerated = np.asarray(
         sess.generate(b["prompt"][None, :], meta["gen_len"],
                       max_seq=meta["max_seq"])[0], np.int32)

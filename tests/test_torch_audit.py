@@ -18,6 +18,7 @@ versions), and the auditor's oracle is ``torch_ref``:
   * the clean audit path is byte-identical and counted; rate 0 builds
     nothing; the sampler is a deterministic counter.
 """
+import dataclasses
 import functools
 import os
 import warnings
@@ -304,6 +305,37 @@ def test_bundle_roundtrip_silent_metadata(tmp_path):
     assert b["meta"]["arch"] == "qwen3-smoke"
     assert b["meta"]["weights_fingerprint"] == \
         _lm_session().fingerprint.digest()
+
+
+def test_bundle_replays_on_the_sessions_attention_route(tmp_path,
+                                                         monkeypatch):
+    """A bundle from an int8-cache ``attn_int8`` session records its
+    attention fields and conv route, and replays on that route (its
+    integer decode attention runs), not on the bf16 cache's defaults."""
+    from repro_torch.models import attention as A
+    cfg = dataclasses.replace(_cfg(), kv_cache_bits=8, attn_int8=True)
+    sess = repro_torch.compile(cfg, POLICY, mode="serve_packed",
+                               device="cpu")
+    prompt = _prompts(1)[0]
+    served = _solo(sess, prompt, 4)
+    wrong = served.copy()
+    wrong[1] ^= 1
+    aud = ShadowAuditor(rate=1.0, bundle_dir=str(tmp_path))
+    with pytest.raises(guards.SilentDivergenceError) as ei:
+        aud.audit_one(sess, AuditRecord(request_id=3, prompt=prompt,
+                                        gen_len=4, served=wrong, done_t=0.0))
+    meta = load_bundle(ei.value.bundle_path)["meta"]
+    assert meta["attention"] == {"kv_cache_bits": 8, "gqa_decode": False,
+                                 "attn_int8": True}
+    assert meta["conv_route"] == "fused"
+    calls = []
+    real = A._decode_attend_gqa_int8
+    monkeypatch.setattr(A, "_decode_attend_gqa_int8",
+                        lambda *a: calls.append(1) or real(*a))
+    b = replay_bundle(ei.value.bundle_path)
+    assert calls, "the replay did not run the attn_int8 route"
+    assert b["diverged"] and b["reproduced"]
+    assert np.array_equal(b["regenerated"], served)
 
 
 def test_card_bundle_replays_only_on_the_card(tmp_path, monkeypatch):

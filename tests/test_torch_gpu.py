@@ -8,8 +8,10 @@ batching engine's streams and batched decode logits against solo runs,
 guarded and supervised, with the watchdog and through a restart; a
 kernel that fails on the card raising, never replaced by its plain
 version; the weight fingerprint on the card equal to the CPU's; and a
-shadow audit on the card whose quarantine demotes nothing; and RMSNorm's
-rows equal to rows normalised alone.
+shadow audit on the card whose quarantine demotes nothing; RMSNorm's
+rows equal to rows normalised alone; ``attn_int8``'s integer product
+equal to the CPU's and the exact one up to 32768 long; and each decode
+route's row equal to the row attended alone.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -598,3 +600,60 @@ def test_rms_norm_row_equals_the_row_alone_on_the_card(cuda):
             out = L.rms_norm(x, gamma)
             for r in range(b):
                 assert torch.equal(out[r:r + 1], L.rms_norm(x[r:r + 1], gamma))
+
+
+@pytest.mark.parametrize("s_", [128, 1024, 1025, 4100, 32768])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_int8_dot_on_the_card_equals_the_cpu(cuda, s_, extreme):
+    """attn_int8's integer product on the card equals the CPU's, and the
+    exact product (float64: every sum is an integer below 2^53), bit for
+    bit, on both sides of its 1024-long runs; PV's operand shapes at 8
+    rows of the LM's 8 KV heads."""
+    from repro_torch.models import attention as A
+    g = torch.Generator().manual_seed(s_)
+    if extreme:
+        p_ = torch.full((8, 8, 2, s_), 127, dtype=torch.int8)
+        v = torch.full((8, 8, s_, 128), -128, dtype=torch.int8)
+    else:
+        p_ = torch.randint(0, 128, (8, 8, 2, s_), generator=g,
+                           dtype=torch.int8)
+        v = torch.randint(-128, 128, (8, 8, s_, 128), generator=g,
+                          dtype=torch.int8)
+    got = A.int8_dot(p_.to(cuda), v.to(cuda)).cpu()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, A.int8_dot(p_, v))
+    exact = torch.matmul(p_.double(), v.double())
+    assert torch.equal(got.double(), exact)
+
+
+@pytest.mark.parametrize("change", [{}, dict(kv_cache_bits=8),
+                                    dict(kv_cache_bits=8, attn_int8=True)])
+def test_decode_attend_row_equals_the_row_alone_on_the_card(cuda, change):
+    """Each decode route on the card, at the LM's head layout and a cache
+    of 2048: a row attended with seven others equals the row alone."""
+    from repro_torch.models import attention as A
+    cfg = A.AttnConfig(d_model=2048, n_heads=16, n_kv_heads=8, d_head=128,
+                       **change)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    cache = A.init_cache(cfg, 8, 2048, device=cuda)
+    for key in ("k", "v"):
+        if cache[key].dtype == torch.int8:
+            cache[key].copy_(torch.randint(-128, 128, cache[key].shape,
+                                           generator=g, device=cuda,
+                                           dtype=torch.int8))
+            cache[key + "_scale"].uniform_(0.005, 0.05, generator=g)
+        else:
+            cache[key].copy_(torch.randn(cache[key].shape, generator=g,
+                                         device=cuda))
+    pos = torch.tensor([100, 2047, 700, 1500, 5, 2047, 1024, 333],
+                       dtype=torch.int32, device=cuda)
+    for b in range(8):
+        cache["slot_pos"][b, :int(pos[b]) + 1] = torch.arange(
+            int(pos[b]) + 1, device=cuda)
+    q_ = torch.randn((8, 1, 16, 128), generator=g,
+                     device=cuda).to(torch.bfloat16)
+    out = A.decode_attend(q_, cache, cfg, pos)
+    for b in range(8):
+        one = {k: v[b:b + 1] for k, v in cache.items()}
+        assert torch.equal(out[b:b + 1],
+                           A.decode_attend(q_[b:b + 1], one, cfg, int(pos[b])))

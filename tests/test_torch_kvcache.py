@@ -12,10 +12,11 @@ tolerance of 2e-2 (``tests/test_perf_opts.py``): the float32 sums run in
 another order than XLA's, so an output may round to the neighbouring bf16
 value (measured here: equal on every route but ``int8_gqa``, 4.8e-7 off
 on an output near 1e-4). The LM's logits are held to
-``test_torch_lm.LOGIT_ATOL``. Inside the port ``gqa_decode`` equals the
-repeat route bit for bit (the same products summed over the same
-contiguous dim), and every route gives a batched row the bits of the
-same row decoded alone.
+``test_torch_lm.LOGIT_ATOL``. Inside the port the one float body (the
+queries grouped, with or without ``gqa_decode``) equals the reference's
+repeat route, written out here, bit for bit (the same products summed
+over the same contiguous dim), and every route gives a batched row the
+bits of the same row decoded alone.
 """
 import dataclasses
 
@@ -44,7 +45,9 @@ LOGIT_ATOL = 0.2          # tests/test_torch_lm.py's, and why
 DECODE_TOL = dict(rtol=2 ** -7, atol=1e-6)
 PROMPT = 16
 
-# The four route settings on top of the bf16 repeat route.
+# The four route settings on top of the bf16 cache's defaults. In the
+# port ``gqa_decode`` selects no route: its settings run the same float
+# body as those without it.
 ROUTES = {"gqa": dict(gqa_decode=True),
           "int8": dict(kv_cache_bits=8),
           "int8_gqa": dict(kv_cache_bits=8, gqa_decode=True),
@@ -258,16 +261,61 @@ def test_int8_dot_is_exact_past_the_float32_bound(s_, extreme):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _repeat_route(q, cache, cfg, pos):
+    """The reference's repeat route (KV heads repeated to [B, Hq, S, D])
+    in decode_attend's batch-invariant form: elementwise products and
+    sums over the contiguous last dim."""
+    k, v = cache["k"], cache["v"]
+    if cfg.kv_cache_bits == 8:
+        k = k.float() * cache["k_scale"][..., None]
+        v = v.float() * cache["v_scale"][..., None]
+    d, n_rep = q.shape[-1], q.shape[2] // cfg.n_kv_heads
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    kh = A._repeat_kv(k, n_rep).permute(0, 2, 1, 3).to(**f32)
+    vt = A._repeat_kv(v, n_rep).permute(0, 2, 3, 1).to(**f32)
+    qt = q.permute(0, 2, 1, 3).to(torch.float32) * d ** -0.5
+    logits = (qt * kh).sum(-1)[:, :, None, :]
+    valid = A._valid_slots(cache, cfg, pos)
+    p_ = torch.softmax(torch.where(valid[:, None, None, :], logits,
+                                   A.NEG_INF), dim=-1)
+    out = (p_ * vt).sum(-1)[:, :, None, :]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
 @pytest.mark.parametrize("bits", [16, 8])
 def test_gqa_decode_equals_the_repeat_route_bit_for_bit(bits):
+    """The grouped float body, taken with or without ``gqa_decode``,
+    gives the repeat route's bits."""
     _, tac = _cfgs(kv_cache_bits=bits)
     _, gac = _cfgs(kv_cache_bits=bits, gqa_decode=True)
     _, tc, pos = _filled_caches(*_cfgs(kv_cache_bits=bits))
     q = torch.randn(3, 1, 4, 16, generator=torch.Generator().manual_seed(6))
     q = q.to(torch.bfloat16)
     pos = torch.from_numpy(pos)
-    assert torch.equal(A.decode_attend(q, tc, gac, pos),
-                       A.decode_attend(q, tc, tac, pos))
+    want = _repeat_route(q, tc, tac, pos)
+    assert torch.equal(A.decode_attend(q, tc, gac, pos), want)
+    assert torch.equal(A.decode_attend(q, tc, tac, pos), want)
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+def test_float_decode_sums_run_over_contiguous_tensors(bits, monkeypatch):
+    """The float body's two sums reduce the last dim of contiguous
+    tensors on either cache. On the card a sum over a strided dim takes
+    a reduction laid out by the batch: with the dequantized cache's K and
+    V left as permuted views, a row at batch 8 differed from the row
+    alone at 2048 cache slots."""
+    _, tac = _cfgs(kv_cache_bits=bits)
+    _, tc, pos = _filled_caches(*_cfgs(kv_cache_bits=bits))
+    q = torch.randn(3, 1, 4, 16, generator=torch.Generator().manual_seed(6))
+    summed = []
+    real = torch.Tensor.sum
+
+    def spy(t, *args, **kw):
+        summed.append(t.is_contiguous())
+        return real(t, *args, **kw)
+    monkeypatch.setattr(torch.Tensor, "sum", spy)
+    A.decode_attend(q.to(torch.bfloat16), tc, tac, torch.from_numpy(pos))
+    assert summed == [True, True]
 
 
 @pytest.mark.parametrize("route", ["bf16_attn"] + list(ROUTES))
