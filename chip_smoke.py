@@ -155,6 +155,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               equal to its twin without it (one float body in the port);
               on ``attn_int8`` layer 0's two ``int8_dot`` products held
               equal to the exact product on the host.
+   archs   -- the other nine LM architectures (ARCH_DEPTHS: published
+              width, the depth cut to one period or layer where one card
+              or the time limit forces it), one at a time:
+              ``serve_packed`` (8, 8) on seed-0 weights drawn on the
+              card, ARCHS_BATCH prompts of ARCHS_PROMPT tokens (numpy
+              seed 1; the VLM's image embeddings from numpy seed 3),
+              ARCHS_GEN greedy tokens, the counts reset before every
+              call: K1 launched ``loom_linears(cfg)`` times per prefill
+              and per decode step and nothing else; every step's logits
+              and the tokens equal a ``torch_ref`` twin's on the same
+              packed weights; compile seconds (draw, pack, fingerprint),
+              packed bytes, peak memory, prefill ms and decode ms/step
+              (CUDA events). deepseek-moe-16b: a ``dynamic_a`` prefill
+              (K3 on every linear) equal to the static one, one decode
+              step profiled. deepseek-moe-16b and mamba2-370m: the
+              engine's traffic (ARCHS_ENGINE_PROMPTS), every stream and
+              batched decode row equal to its solo run.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -230,6 +247,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ops import conv_accum_fits_f32  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import cnn, layers as L, model as M  # noqa: E402
+from repro_torch.models import moe, ssm  # noqa: E402
 from repro_torch.runtime import faults  # noqa: E402
 from repro_torch.runtime.audit import replay_bundle  # noqa: E402
 from repro_torch.runtime.batching import BatchingEngine, KVPool  # noqa: E402
@@ -1302,9 +1320,10 @@ def engine_prompts(cfg, n: int) -> list:
         1, cfg.vocab, size=96 + 64 * j).astype(np.int32) for j in range(n)]
 
 
-def solo_run(sess, prompt, gen_len: int) -> tuple:
+def solo_run(sess, prompt, gen_len: int,
+             max_seq: int = ENGINE_SEQ) -> tuple:
     """A solo batch-1 ``generate`` of ``prompt`` over the pool's
-    ENGINE_SEQ cache slots: its tokens, and the logits row behind each."""
+    ``max_seq`` cache slots: its tokens, and the logits row behind each."""
     rows = []
     prefill, decode = sess._prefill, sess._decode
 
@@ -1318,7 +1337,7 @@ def solo_run(sess, prompt, gen_len: int) -> tuple:
         rows.append(logits[0])
         return logits, cache
     rec = dataclasses.replace(sess, _prefill=rec_prefill, _decode=rec_decode)
-    return rec.generate(prompt[None, :], gen_len, max_seq=ENGINE_SEQ)[0], rows
+    return rec.generate(prompt[None, :], gen_len, max_seq=max_seq)[0], rows
 
 
 def recording_session(sess, rows: list, engine: list):
@@ -1368,10 +1387,11 @@ def drive_engine_admit(eng, prompts: list) -> None:
 def diagnose_batch_variance(sess, prompts: list, max_seq: int) -> str:
     """The first op of a decode step whose row of a batch of
     ``len(prompts)`` (a pool of ``max_seq`` slots, each row a prefill)
-    differs from the same row decoded alone: RMSNorm, RoPE, every linear
-    and ``decode_attend`` are traced in call order. Each row's batch-1
-    cache is prefilled again when its turn comes (a prefill is
-    deterministic), so one batch-1 cache is held beside the pool."""
+    differs from the same row decoded alone: RMSNorm, RoPE, every linear,
+    ``decode_attend``, the MoE's router product, expert products and
+    output, and the SSM's decode step are traced in call order. Each
+    row's batch-1 cache is prefilled again when its turn comes (a prefill
+    is deterministic), so one batch-1 cache is held beside the pool."""
     n = len(prompts)
     pool = KVPool(sess, n, max_seq)
     toks = []
@@ -1388,7 +1408,8 @@ def diagnose_batch_variance(sess, prompts: list, max_seq: int) -> str:
     pos = np.array([len(p_) for p_ in prompts], np.int32)
     tok = np.array(toks, np.int32)
     names = {"rms_norm": L, "rope": L, "linear_apply": L,
-             "decode_attend": attn}
+             "decode_attend": attn, "router_logits": moe, "_expert_mm": moe,
+             "apply": moe, "apply_decode": ssm}
     originals = {name: getattr(mod, name) for name, mod in names.items()}
 
     def traced(trace):
@@ -1422,7 +1443,7 @@ def diagnose_batch_variance(sess, prompts: list, max_seq: int) -> str:
             if torch.equal(row, want):
                 continue
             # Every earlier op's row was equal, so this op's inputs were.
-            where = f"op {i} ({name}, layer {i // 14})"
+            where = f"op {i} ({name})"
             diff = (row.float() - want.float()).abs().flatten()
             first = int(torch.nonzero(diff).flatten()[0]) if \
                 bool(diff.any()) else -1
@@ -2347,6 +2368,280 @@ def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
     return all_launches
 
 
+# The archs phase: the nine other LM architectures at published width,
+# depth cut where one card or the script's time limit forces it (None =
+# the published depth; PERF.md section 4 lists each cut).
+ARCH_DEPTHS = {"deepseek-moe-16b": None, "mamba2-370m": None,
+               "jamba-v0.1-52b": 8, "mixtral-8x7b": 2, "gemma3-12b": 6,
+               "llama3-405b": 1, "nemotron-4-340b": 1, "musicgen-large": 1,
+               "llama-3.2-vision-90b": 5}
+ARCHS_BATCH, ARCHS_PROMPT, ARCHS_GEN = 2, 512, 8
+# Engine traffic on the full deepseek-moe-16b (request j: 96 + 64 j
+# tokens) and mamba2-370m (256 (j + 1) tokens: the SSD's chunk divides a
+# prompt), ARCHS_ENGINE_REQUESTS requests of ARCHS_GEN tokens into
+# ARCHS_ENGINE_BATCH slots, submitted one step apart.
+ARCHS_ENGINE_BATCH, ARCHS_ENGINE_REQUESTS = 4, 4
+ARCHS_ENGINE_PROMPTS = {"deepseek-moe-16b": lambda j: 96 + 64 * j,
+                        "mamba2-370m": lambda j: 256 * (j + 1)}
+
+
+def loom_linears(cfg, decode: bool) -> int:
+    """The Loom linears one prefill (``decode=False``) or decode step runs,
+    from the config: 4 per attention block; a cross-attention block's 6 in
+    prefill (the image K/V projected for its cache and again for its
+    attention, as in the reference) and 2 in decode (q and o); 6 per
+    mamba block; 3 per gated dense FFN, 2 ungated; 3 per MoE block with
+    shared experts (the routed experts are torch products), none without;
+    and the head."""
+    n = 1
+    for spec in cfg.pattern:
+        if spec.kind == "mamba":
+            per = 6
+        elif spec.kind == "cross":
+            per = 2 if decode else 6
+        else:
+            per = 4
+        if spec.ffn == "dense":
+            per += 3 if cfg.ffn_gated else 2
+        elif spec.ffn == "moe":
+            per += 3 if cfg.moe.n_shared else 0
+        n += per * cfg.n_groups
+    return n
+
+
+def twin_session(sess, backend: str, policy=None):
+    """``sess``'s packed weights under a plan on another backend (or
+    policy): what ``compile`` builds from the same packed tree, without a
+    second copy of the weights."""
+    from repro_torch.api.plan import build_plan, counted_weights
+    from repro_torch.api.session import entry_points
+    plan = build_plan(sess.cfg, policy or sess.plan.policy, sess.plan.mode,
+                      backend)
+    plan.record_weight_groups(counted_weights(sess.cfg, sess.params))
+    return dataclasses.replace(sess, plan=plan,
+                               **entry_points(sess.cfg, plan))
+
+
+def _event_ms(fn) -> tuple:
+    """(fn's result, ms between CUDA events around it)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def arch_run(sess, tokens, img, label: str, expect_pre: int,
+             expect_dec: int, gen: int = ARCHS_GEN) -> dict:
+    """Prefill and ``gen`` - 1 greedy decode steps, the counts reset just
+    before each call and checked after it (K1 ``expect_pre`` and
+    ``expect_dec`` times, nothing else); returns the logits, tokens, the
+    calls' ms between CUDA events and the launches in all."""
+    cache = sess.init_cache(ARCHS_BATCH, ARCHS_PROMPT + ARCHS_GEN)
+    total = {name: 0 for name in KERNELS}
+
+    def counted(what, expect, fn):
+        reset_launches()
+        out, ms = _event_ms(fn)
+        got = read_launches()
+        lm_step_launches(f"{label} {what}", got,
+                         {"bitserial_matmul": expect})
+        for name in total:
+            total[name] += got[name]
+        return out, ms
+    (y, cache), pre_ms = counted(
+        "prefill", expect_pre, lambda: sess.prefill(tokens, cache, img))
+    logits, toks, dec_ms = [y[:, 0]], [torch.argmax(y[:, 0], dim=-1)], []
+    for i in range(gen - 1):
+        (y, cache), ms = counted(
+            f"decode {i}", expect_dec,
+            lambda: sess.decode(toks[-1], ARCHS_PROMPT + i, cache))
+        logits.append(y)
+        toks.append(torch.argmax(y, dim=-1))
+        dec_ms.append(ms)
+    return dict(logits=logits, tokens=torch.stack(toks, 1), pre_ms=pre_ms,
+                dec_ms=sorted(dec_ms)[len(dec_ms) // 2], launches=total)
+
+
+def arch_engine(sess, name: str, card: str) -> dict:
+    """The batching engine on ``sess``: ARCHS_ENGINE_REQUESTS requests one
+    step apart; every stream and batched decode row equal to its solo
+    run. Returns the engine's launches."""
+    cfg = sess.cfg
+    lengths = [ARCHS_ENGINE_PROMPTS[name](j)
+               for j in range(ARCHS_ENGINE_REQUESTS)]
+    prompts = [np.random.default_rng(2 + j).integers(
+        1, cfg.vocab, size=n).astype(np.int32) for j, n in enumerate(lengths)]
+    max_seq = max(lengths) + ARCHS_GEN
+    solos = [solo_run(sess, p_, ARCHS_GEN, max_seq) for p_ in prompts]
+    rows, ref = [], []
+    eng = BatchingEngine(recording_session(sess, rows, ref),
+                         max_batch=ARCHS_ENGINE_BATCH, max_seq=max_seq)
+    ref.append(eng)
+    reset_launches()
+    t0 = time.perf_counter()
+    handles, step_s, _ = drive_engine(eng, prompts, ARCHS_GEN)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_lin = loom_linears(cfg, decode=True)
+    lm_step_launches(f"{name} engine", launches, {
+        "bitserial_matmul": n_lin * (eng.n_decode_steps + len(prompts))})
+    check(len(rows) == len(prompts) * (ARCHS_GEN - 1),
+          f"{name} engine recorded {len(rows)} batched rows")
+    differ = [(rid, idx) for rid, idx, row in rows
+              if not torch.equal(row, solos[rid][1][idx])]
+    if differ:
+        rid, idx = differ[0]
+        cause = diagnose_batch_variance(sess, prompts[:ARCHS_ENGINE_BATCH],
+                                        max_seq)
+        check(False, f"{name} engine: {len(differ)} of {len(rows)} batched "
+              f"decode rows' logits differ from the solo run's (first: "
+              f"request {rid}, token {idx}); {cause}")
+    for j, (h, (solo, _)) in enumerate(zip(handles, solos)):
+        got = h.result(timeout=60.0)
+        check(np.array_equal(got, solo), f"{name} engine request {j}: "
+              f"stream {got.tolist()} differs from its solo run "
+              f"{solo.tolist()}")
+    eng.drain()
+    print(f"[archs] {card}: {name} engine ({ARCHS_ENGINE_BATCH} slots of "
+          f"{max_seq}, prompts of {lengths} tokens, {ARCHS_GEN} tokens "
+          f"each, one step apart): every stream == its solo run and all "
+          f"{len(rows)} batched decode rows' logits == the solo run's "
+          f"(torch.equal); {eng.n_decode_steps} decode steps + "
+          f"{len(prompts)} prefills in {wall:.2f} s, median step "
+          f"{sorted(step_s)[len(step_s) // 2] * 1e3:.1f} ms; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def phase_archs(card: str) -> dict:
+    """The other nine LM architectures, one at a time on the card:
+    ``serve_packed`` (8, 8) sessions of random seed-0 weights drawn on the
+    card, ARCHS_BATCH prompts of ARCHS_PROMPT tokens (numpy seed 1; the
+    VLM also image embeddings from numpy seed 3), ARCHS_GEN greedy
+    tokens. Per arch: K1 launched the config's Loom linear count per
+    prefill and per decode step and nothing else; ``cuda`` logits and
+    tokens equal a ``torch_ref`` twin's on the same packed weights; the
+    compile's seconds (draw, pack, fingerprint), packed bytes, peak
+    memory, prefill ms and decode ms/step (CUDA events). deepseek-moe-16b
+    also: a ``dynamic_a`` prefill (K3) equal to the static one, the
+    engine's traffic, a profiled decode step; mamba2-370m the engine's
+    traffic. Returns the launches by path."""
+    t_phase = time.perf_counter()
+    out = {}
+    fp_s = []
+    fingerprint = integrity.fingerprint_session
+
+    def timed_fingerprint(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fingerprint(*args, **kwargs)
+        finally:
+            fp_s.append(time.perf_counter() - t0)
+    for name, depth in ARCH_DEPTHS.items():
+        t_arch = time.perf_counter()
+        full = configs.get(name)
+        cfg = full if depth is None else dataclasses.replace(
+            full, n_layers=depth)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in
+                       interop.flatten_with_paths(params).values())
+        fp_s.clear()
+        integrity.fingerprint_session = timed_fingerprint
+        t0 = time.perf_counter()
+        try:
+            sess = repro_torch.compile(cfg, uniform_policy(8, 8),
+                                       mode="serve_packed", backend="cuda",
+                                       params=params, device="cuda")
+        finally:
+            integrity.fingerprint_session = fingerprint
+        del params
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        pack_peak = torch.cuda.max_memory_allocated() - base
+        ref = twin_session(sess, "torch_ref")
+        n_pre, n_dec = (loom_linears(cfg, decode=False),
+                        loom_linears(cfg, decode=True))
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, size=(ARCHS_BATCH, ARCHS_PROMPT))).cuda()
+        img = None
+        if cfg.n_img_tokens:
+            img = torch.from_numpy(np.random.default_rng(3).normal(
+                size=(ARCHS_BATCH, cfg.n_img_tokens, cfg.d_model)).astype(
+                np.float32)).to("cuda", torch.bfloat16)
+        print(f"[archs] {card}: {name}: {cfg.n_layers} layers (published "
+              f"{full.n_layers}), d {cfg.d_model}, pattern "
+              f"{[(sp.kind, sp.ffn, sp.window) for sp in cfg.pattern]}, "
+              f"vocab {cfg.vocab}; {n_params} weights drawn in {draw_s:.2f} "
+              f"s, compile {compile_s:.2f} s (pack and count, fingerprint "
+              f"{sum(fp_s):.2f} s), packed tree {_param_bytes(sess.params)} "
+              f"B; peak device memory over draw and compile "
+              f"{pack_peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+              f"held before", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        arch_run(sess, tokens, img, f"{name} warm-up", n_pre, n_dec, gen=2)
+        got = arch_run(sess, tokens, img, name, n_pre, n_dec)
+        serve_peak = torch.cuda.max_memory_allocated() - base
+        want = arch_run(ref, tokens, img, f"{name} torch_ref", 0, 0)
+        for i, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+            check(a.shape[-1] == cfg.vocab and bool(torch.isfinite(a).all()),
+                  f"{name} step {i}: logits {tuple(a.shape)}")
+            check(torch.equal(a, b), f"{name} step {i} logits: cuda differs "
+                  f"from torch_ref")
+        check(torch.equal(got["tokens"], want["tokens"]),
+              f"{name}: cuda tokens differ from torch_ref's")
+        out[f"archs {name}"] = got["launches"]
+        print(f"[archs] {card}: {name}: cuda == torch_ref (prefill and "
+              f"{ARCHS_GEN - 1} decode steps' logits, tokens "
+              f"{got['tokens'][0].tolist()}); K1 {n_pre} per prefill and "
+              f"{n_dec} per decode step, nothing else; prefill "
+              f"{ARCHS_BATCH} x {ARCHS_PROMPT} {got['pre_ms']:.3f} ms, decode "
+              f"{got['dec_ms']:.3f} ms/step (median of {ARCHS_GEN - 1}; CUDA "
+              f"events); peak device memory serving "
+              f"{serve_peak / 2**30:.3f} GiB above the base", flush=True)
+        del ref, want
+        if name == "deepseek-moe-16b":
+            dyn = twin_session(sess, "cuda", uniform_policy(8, 8,
+                                                            dynamic_a=True))
+            reset_launches()
+            (ydyn, _), dyn_ms = _event_ms(lambda: dyn.prefill(
+                tokens, dyn.init_cache(ARCHS_BATCH, ARCHS_PROMPT)))
+            dl = read_launches()
+            lm_step_launches(f"{name} dynamic_a prefill", dl,
+                             {"bitserial_matmul_dynamic": n_pre})
+            check(torch.equal(ydyn[:, 0], got["logits"][0]),
+                  f"{name} dynamic_a prefill differs from the static one")
+            out[f"archs {name} dynamic_a"] = dl
+            print(f"[archs] {card}: {name}: dynamic_a prefill == static "
+                  f"bit for bit (K3 launched {n_pre} times), "
+                  f"{dyn_ms:.3f} ms", flush=True)
+            del dyn, ydyn
+        if name in ARCHS_ENGINE_PROMPTS:
+            out[f"archs {name} engine"] = arch_engine(sess, name, card)
+        if name == "deepseek-moe-16b":
+            cache = sess.init_cache(ARCHS_BATCH, ARCHS_PROMPT + ARCHS_GEN)
+            sess.prefill(tokens, cache)
+            phase_profile(f"archs {name} decode step ({card})",
+                          lambda: sess.decode(tokens[:, -1], ARCHS_PROMPT,
+                                              cache),
+                          got["dec_ms"] / 1e3, n_dec, requests=2)
+            del cache
+        del sess, got
+        print(f"[archs] {name} took {time.perf_counter() - t_arch:.1f} s",
+              flush=True)
+    torch.cuda.empty_cache()
+    print(f"[archs] phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_engine_cli(card: str) -> None:
     """``python -m repro_torch.launch.serve`` in three subprocesses at
     once: server mode (3 requests, 2 slots), a solo ``--batch 1`` run of
@@ -2732,12 +3027,14 @@ def main() -> None:
     engine = phase_engine(lm, card, errs)
     phase_integrity(lm, engine, card, errs)
     kv_launches = phase_kvcache(lm, engine, card, errs)
+    arch_launches = phase_archs(card)
     launches = dict(served["launches"])
     launches["CNN im2col"] = int8["im2col_launches"]
     launches["LM generate"] = lm["gen_launches"]
     launches["LM engine"] = engine["launches"]
     launches["LM engine dynamic_a"] = engine["dyn_launches"]
     launches.update(kv_launches)
+    launches.update(arch_launches)
     launches["ops"] = lm["ops_launches"]
     runs = {label: (lambda sess=sess, x=x: sess.classify(x))
             for label, (sess, x, _) in served["runs"].items()}

@@ -168,8 +168,11 @@ class ExecutionPlan:
             counts = memo.get((name, lp.w_group))
             if counts is None:
                 w_bits = wp.shape[0]
-                counts = weightgroups.weight_group_counts(
-                    bitpack.unpack_weights(wp, w_bits), w_bits, lp.w_group)
+                counts = bitpack.by_columns(
+                    lambda w: weightgroups.weight_group_counts(
+                        bitpack.unpack_weights(w, w_bits), w_bits,
+                        lp.w_group),
+                    wp, 64 * w_bits * wp.shape[1], multiple=lp.w_group)
                 counts = tuple(int(c) for c in counts.tolist())
                 memo[(name, lp.w_group)] = counts
             out[(name, kind)] = counts

@@ -41,10 +41,10 @@ _SERVING_MODES = ("serve_int8", "serve_packed")
 class ServingSession:
     """A compiled model + plan, ready to serve. Built by :func:`compile`.
 
-    ``_prefill(params, tokens, cache)``, ``_decode(params, token, pos,
-    cache)`` and ``_classify(params, x)`` are the entry points (None where
-    the model has none); the public methods put their inputs on the
-    session's device and call them under ``torch.inference_mode``.
+    ``_prefill(params, tokens, cache[, img_embeds])``, ``_decode(params,
+    token, pos, cache)`` and ``_classify(params, x)`` are the entry points
+    (None where the model has none); the public methods put their inputs
+    on the session's device and call them under ``torch.inference_mode``.
     """
 
     cfg: Any
@@ -75,16 +75,22 @@ class ServingSession:
         return M.init_cache(self.cfg, batch, max_seq or self.cfg.max_seq,
                             self.device)
 
-    def prefill(self, tokens, cache=None):
+    def prefill(self, tokens, cache=None, img_embeds=None):
         """Fill caches from a full prompt (int [B, S]). Returns
         (last-token logits [B, 1, V], cache); ``cache`` defaults to a new
-        one of ``cfg.max_seq`` slots."""
+        one of ``cfg.max_seq`` slots. A VLM's cross-attention layers take
+        ``img_embeds`` [B, n_img_tokens, d] (a tensor or numpy array, bf16
+        included)."""
         self._need(lm=True)
         tokens = torch.as_tensor(tokens, device=self.device).long()
         if cache is None:
             cache = self.init_cache(tokens.shape[0])
         with torch.inference_mode():
-            return self._prefill(self.params, tokens, cache)
+            if img_embeds is None:
+                return self._prefill(self.params, tokens, cache)
+            from repro_torch import interop
+            img_embeds = interop.params_from_numpy(img_embeds, self.device)
+            return self._prefill(self.params, tokens, cache, img_embeds)
 
     def decode(self, token, pos, cache):
         """One decode step. token: int [B]; pos: the absolute position, an
@@ -173,8 +179,8 @@ def entry_points(cfg, plan) -> dict:
     if hasattr(cfg, "pattern"):
         from repro_torch.models import model as M
 
-        def prefill(params, tokens, cache):
-            return M.prefill(params, cfg, tokens, cache, plan)
+        def prefill(params, tokens, cache, img_embeds=None):
+            return M.prefill(params, cfg, tokens, cache, plan, img_embeds)
 
         def decode(params, token, pos, cache):
             return M.decode_step(params, cfg, token, pos, cache, plan)

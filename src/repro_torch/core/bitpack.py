@@ -50,13 +50,15 @@ def unpack_bits_along_axis(packed: torch.Tensor, axis: int) -> torch.Tensor:
 _CHUNK_BYTES = 1 << 28
 
 
-def _by_columns(fn, t: torch.Tensor, bytes_per_column: int) -> torch.Tensor:
+def by_columns(fn, t: torch.Tensor, bytes_per_column: int,
+               multiple: int = 1) -> torch.Tensor:
     """``fn`` over blocks of ``t``'s columns (last axis), concatenated;
-    each block sized so that about 256 MiB of intermediates are live. One
+    each block sized so that about 256 MiB of intermediates are live, a
+    multiple of ``multiple`` columns (a column group never splits). One
     block (one call) for every CNN layer; dozens for an LM head, whose
     planes at once would take tens of GiB."""
     n = t.shape[-1]
-    step = max(1, _CHUNK_BYTES // bytes_per_column)
+    step = max(1, _CHUNK_BYTES // bytes_per_column // multiple) * multiple
     if step >= n:
         return fn(t)
     return torch.cat([fn(t[..., i:i + step]) for i in range(0, n, step)],
@@ -74,7 +76,7 @@ def pack_weights(wq: torch.Tensor, bits: int) -> torch.Tensor:
     if k % 8:
         wq = F.pad(wq, (0, 0, 0, (-k) % 8))
     # bit_planes: int32 [bits, K8, n] in {0,1}, packed to [bits, K8//8, n].
-    return _by_columns(
+    return by_columns(
         lambda w: pack_bits_along_axis(q.bit_planes(w, bits), axis=1),
         wq, 8 * bits * wq.shape[0])
 
@@ -90,7 +92,7 @@ def unpack_weights(packed: torch.Tensor, bits: int,
     def unpack(p):
         planes = unpack_bits_along_axis(p, axis=1).to(torch.int32)
         return torch.sum(planes * w, dim=0, dtype=torch.int32)
-    out = _by_columns(unpack, packed, 64 * bits * packed.shape[1])
+    out = by_columns(unpack, packed, 64 * bits * packed.shape[1])
     return out if k is None else out[:k]
 
 

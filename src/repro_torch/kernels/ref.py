@@ -33,10 +33,15 @@ def _narrow(acc: torch.Tensor) -> torch.Tensor:
 
 def bitserial_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
                          w_bits: int) -> torch.Tensor:
-    """int8 [M, K] @ packed uint8 [Pw, K//8, N] -> exact int32 [M, N]."""
+    """int8 [M, K] @ packed uint8 [Pw, K//8, N] -> exact int32 [M, N],
+    over blocks of N whose int32 and float64 weights take about 256 MiB
+    (an LM head's at once would take tens of GB: 56.6 for
+    nemotron-4-340b's)."""
     dt = _exact_dtype(x.device)
-    wq = bitpack.unpack_weights(w_packed, w_bits)          # int32 [K, N]
-    return _narrow(x.to(dt) @ wq.to(dt))
+    xd = x.to(dt)
+    return bitpack.by_columns(
+        lambda wp: _narrow(xd @ bitpack.unpack_weights(wp, w_bits).to(dt)),
+        w_packed, 12 * 8 * w_packed.shape[1])
 
 
 def bitserial_matmul_dynamic_ref(x: torch.Tensor, w_packed: torch.Tensor,

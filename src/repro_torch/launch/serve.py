@@ -14,7 +14,9 @@ bit-serial planes, Pw/16 of the weight bytes). The default is
 ``serve_packed``, where the reference's is ``serve_int8``: the port's
 CLI serves Loom's own route unless asked.
 
-It serves ``configs.get(arch, smoke=True)`` with random weights (seed 0),
+It serves ``configs.get(arch, smoke=True)`` (any architecture of the
+registry; the VLM's prefill needs image embeddings, which this CLI, like
+the reference's, does not supply) with random weights (seed 0),
 either through the session API (``--api session``, the default:
 ``repro_torch.compile``) or the hand-wired launch layer (``--api plan``:
 ``build_plan`` + explicit weight packing + :func:`make_serve_fns`); both

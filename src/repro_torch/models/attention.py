@@ -24,8 +24,12 @@ body); and on an int8 cache ``attn_int8``, integer QK and PV products on
 the stored int8 values (:func:`_decode_attend_gqa_int8`). Both keep a
 row's result independent of the other rows.
 
-Not ported: cross-attention (ROADMAP A.11) and the training path with its
-flash backward (ROADMAP A.12).
+Cross-attention (llama-3.2-vision's image layers): the prefill projects
+the image embeddings' K/V into the layer's cache
+(:func:`init_cross_cache`) and attends to them non-causally
+(:func:`cross_prefill`); a decode step projects q alone, unroped, against
+that cache, which it leaves unchanged. Not ported: the training path with
+its flash backward (ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -53,14 +57,8 @@ class AttnConfig:
     window: int | None = None          # sliding-window size (None = full)
     gqa_decode: bool = False           # the reference's; no route here
     attn_int8: bool = False            # integer QK/PV on the int8 cache
-    cross: bool = False                # cross-attention (not ported)
+    cross: bool = False                # cross-attention (K/V from images)
     kv_cache_bits: int = 16            # 16 = bf16 cache; 8 = int8 cache
-
-
-def _check_ported(cfg: AttnConfig) -> None:
-    if cfg.cross:
-        raise NotImplementedError("cross-attention is not ported yet "
-                                  "(ROADMAP A.11)")
 
 
 def init(cfg: AttnConfig, generator: torch.Generator,
@@ -76,18 +74,23 @@ def init(cfg: AttnConfig, generator: torch.Generator,
     return p
 
 
-def _project_qkv(p, cfg: AttnConfig, x, positions, plan):
+def _project_qkv(p, cfg: AttnConfig, x, positions, plan, kv_x=None):
+    """q from x, K and V from ``kv_x`` (a cross layer's image embeddings;
+    x itself when None); RMSNorm'd with ``qk_norm``; roped unless
+    cross."""
+    kv_x = x if kv_x is None else kv_x
     q = L.linear_apply(p["wq"], x, plan, "attn_q")
     q = q.reshape(*x.shape[:-1], cfg.n_heads, cfg.d_head)
-    k = L.linear_apply(p["wk"], x, plan, "attn_k")
-    k = k.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.d_head)
-    v = L.linear_apply(p["wv"], x, plan, "attn_v")
-    v = v.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.d_head)
+    k = L.linear_apply(p["wk"], kv_x, plan, "attn_k")
+    k = k.reshape(*kv_x.shape[:-1], cfg.n_kv_heads, cfg.d_head)
+    v = L.linear_apply(p["wv"], kv_x, plan, "attn_v")
+    v = v.reshape(*kv_x.shape[:-1], cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["qnorm"]["g"])
         k = L.rms_norm(k, p["knorm"]["g"])
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+    if not cfg.cross:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -167,7 +170,6 @@ def chunked_attention(q, k, v, *, causal=True, window=None, bq=512, bk=512,
 
 def init_cache(cfg: AttnConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device="cpu") -> dict:
-    _check_ported(cfg)
     s_cache = min(cfg.window or max_seq, max_seq)
     shape = (batch, s_cache, cfg.n_kv_heads, cfg.d_head)
     kv_dtype = torch.int8 if cfg.kv_cache_bits == 8 else dtype
@@ -209,7 +211,6 @@ def cache_update(cache: dict, cfg: AttnConfig, k_new, v_new, pos) -> dict:
     stores them quantized, with their scales. ``pos``: an int (the whole
     batch at one position) or an int [B] tensor (each row at its own
     position)."""
-    _check_ported(cfg)
     s_cache = cache["k"].shape[1]
     new = _cache_entries(cache, cfg, k_new[:, 0], v_new[:, 0])
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
@@ -278,7 +279,6 @@ def decode_attend(q, cache: dict, cfg: AttnConfig, pos) -> torch.Tensor:
     products: at batch 8 and 32768 slots a decode step is about 0.25 s
     of device time and 4 GiB of transient memory on the H100,
     ``attn_int8`` 2.1 GiB (PERF.md)."""
-    _check_ported(cfg)
     if cfg.attn_int8 and cfg.kv_cache_bits == 8:
         return _decode_attend_gqa_int8(q, cache, cfg, pos)
     kt, vt = _kv_float(cache, cfg)
@@ -354,7 +354,6 @@ def _decode_attend_gqa_int8(q, cache, cfg: AttnConfig, pos):
 def apply_prefill(p, cfg: AttnConfig, x, positions, plan, cache):
     """Prefill: full forward over x [B, S, d] (positions [S]), and the
     cache filled with the last S_cache tokens' K/V. Returns (out, cache)."""
-    _check_ported(cfg)
     q, k, v = _project_qkv(p, cfg, x, positions, plan)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
@@ -382,6 +381,13 @@ def apply_decode(p, cfg: AttnConfig, x, pos, plan, cache):
     b = x.shape[0]
     q = L.linear_apply(p["wq"], x, plan, "attn_q")
     q = q.reshape(b, 1, cfg.n_heads, cfg.d_head)
+    if cfg.cross:
+        # The image K/V were projected into the cache at prefill.
+        if cfg.qk_norm:
+            q = L.rms_norm(q, p["qnorm"]["g"])
+        out = decode_attend(q, cache, cfg, pos)
+        out = out.reshape(b, 1, cfg.n_heads * cfg.d_head)
+        return L.linear_apply(p["wo"], out, plan, "attn_o"), cache
     k = L.linear_apply(p["wk"], x, plan, "attn_k")
     k = k.reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
     v = L.linear_apply(p["wv"], x, plan, "attn_v")
@@ -395,3 +401,37 @@ def apply_decode(p, cfg: AttnConfig, x, pos, plan, cache):
     out = decode_attend(q, cache, cfg, pos)
     out = out.reshape(b, 1, cfg.n_heads * cfg.d_head)
     return L.linear_apply(p["wo"], out, plan, "attn_o"), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the image layers of llama-3.2-vision)
+# ---------------------------------------------------------------------------
+
+def cross_prefill(p, cfg: AttnConfig, x, img_embeds, plan):
+    """The prefill's cross-attention: q from x [B, S, d], K/V projected
+    from ``img_embeds`` [B, N, d], no rope, no causal mask, no window (the
+    reference's training forward with ``kv_x``; it projects K/V again
+    after :func:`init_cross_cache`, and so does this). Returns [B, S, d]."""
+    q, k, v = _project_qkv(p, cfg, x, None, plan, kv_x=img_embeds)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                            causal=False)
+    out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.d_head)
+    return L.linear_apply(p["wo"], out, plan, "attn_o")
+
+
+def init_cross_cache(p, cfg: AttnConfig, img_embeds, plan, cache) -> dict:
+    """Project the image embeddings [B, N, d] into a cross layer's cache,
+    in place: ``k`` and ``v`` [B, N, H_kv, D] bf16 (K RMSNorm'd with
+    ``qk_norm``), ``slot_pos`` zeros (every slot valid). Returns it."""
+    b, n, _ = img_embeds.shape
+    k = L.linear_apply(p["wk"], img_embeds, plan, "attn_k").reshape(
+        b, n, cfg.n_kv_heads, cfg.d_head)
+    v = L.linear_apply(p["wv"], img_embeds, plan, "attn_v").reshape(
+        b, n, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        k = L.rms_norm(k, p["knorm"]["g"])
+    cache["k"].copy_(k.to(torch.bfloat16))
+    cache["v"].copy_(v.to(torch.bfloat16))
+    cache["slot_pos"].zero_()
+    return cache

@@ -17,6 +17,8 @@ baseline), ``serve_packed`` stores the bit-packed planes.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -32,6 +34,16 @@ from repro_torch.kernels import ops
 _MIN_REDUCE_ROWS = 16
 
 
+def rowwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` (a reduction over the last dim) of the rows of x [rows, n],
+    run over at least ``_MIN_REDUCE_ROWS`` rows (zero rows pad a smaller
+    x and are dropped from the result)."""
+    rows = x.shape[0]
+    if rows < _MIN_REDUCE_ROWS:
+        x = F.pad(x, (0, 0, 0, _MIN_REDUCE_ROWS - rows))
+    return fn(x)[:rows]
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in float32 with a zero-centred gain (``1 + gamma``), cast
@@ -41,11 +53,8 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     H100 at batch 4 against 1 (PERF.md, ROADMAP queue C)."""
     dt = x.dtype
     x = x.to(torch.float32)
-    sq = (x * x).reshape(-1, x.shape[-1])
-    rows = sq.shape[0]
-    if rows < _MIN_REDUCE_ROWS:
-        sq = F.pad(sq, (0, 0, 0, _MIN_REDUCE_ROWS - rows))
-    ms = torch.mean(sq, dim=-1, keepdim=True)[:rows]
+    ms = rowwise(lambda t: torch.mean(t, dim=-1, keepdim=True),
+                 (x * x).reshape(-1, x.shape[-1]))
     x = x * torch.rsqrt(ms.reshape(*x.shape[:-1], 1) + eps)
     return (x * (1.0 + gamma.to(torch.float32))).to(dt)
 
@@ -71,14 +80,34 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def _as_dtype(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as the reference's weakly typed
+    constants are, so a product with it rounds once, on any device."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # The reference's ``jax.nn.gelu`` with its default ``approximate=True``
+    # (the tanh form, not the erf form), constants and each op in x's
+    # dtype.
+    k0 = _as_dtype(math.sqrt(2 / math.pi), x.dtype)
+    k1 = _as_dtype(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(k0 * (x + k1 * (x * x * x)))))
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    # Squared ReLU (nemotron).
+    return torch.square(torch.relu(x))
+
+
+_ACTIVATIONS = {"silu": _silu, "gelu": _gelu, "relu2": _relu2}
+
+
 def activation_fn(name: str):
-    if name == "silu":
-        return _silu
-    if name in ("gelu", "relu2"):
-        raise NotImplementedError(
-            f"activation {name!r} is not ported yet: no ported config uses "
-            f"it (ROADMAP A.11)")
-    raise ValueError(name)
+    try:
+        return _ACTIVATIONS[name]
+    except KeyError:
+        raise ValueError(name) from None
 
 
 def linear_init(d_in: int, d_out: int, generator: torch.Generator,
@@ -86,15 +115,15 @@ def linear_init(d_in: int, d_out: int, generator: torch.Generator,
     """{"w": [d_in, d_out]} drawn from N(0, 1/d_in) in float32 with
     ``generator``, on its device, then cast to ``dtype``."""
     w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
-                    device=generator.device) * d_in ** -0.5
-    return {"w": w.to(dtype)}
+                    device=generator.device)
+    return {"w": w.mul_(d_in ** -0.5).to(dtype)}
 
 
 def embed_init(vocab: int, d_model: int, generator: torch.Generator,
                dtype=torch.bfloat16) -> dict:
     w = torch.randn((vocab, d_model), generator=generator,
-                    dtype=torch.float32, device=generator.device) * 0.02
-    return {"emb": w.to(dtype)}
+                    dtype=torch.float32, device=generator.device)
+    return {"emb": w.mul_(0.02).to(dtype)}
 
 
 def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -209,15 +238,32 @@ def conv_apply(p: dict, x: torch.Tensor, kernel: int, stride: int,
     return _CONV_ROUTES[lp.route](p, x, kernel, stride, lp, plan)
 
 
+def quantize_by_columns(w: torch.Tensor, bits: int, convert):
+    """``convert(quantize(w.float(), bits)[0])`` of a weight [K, N] under
+    one absmax scale, taken over blocks of its columns (concatenated on
+    the last dim, bit for bit the whole tensor's), so that an LM head of
+    billions of weights converts without its float32 copy (18.9 GB for
+    nemotron-4-340b's). Returns (converted, scale float32 [1, 1])."""
+    per_column = 20 * w.shape[0]      # float32 copy and quantize's passes
+    absmax = bitpack.by_columns(lambda b: b.abs().amax().reshape(1), w,
+                                per_column).amax()
+    scale = q.compute_scale(absmax.to(torch.float32).reshape(1, 1), bits)
+    return bitpack.by_columns(
+        lambda b: convert(q.quantize(b.to(torch.float32), bits,
+                                     scale=scale)[0]),
+        w, per_column), scale
+
+
 def _convert_linear_int8(p, prec):
-    wq, w_scale = q.quantize(p["w"].to(torch.float32), 8)
-    return {"wq": wq.to(torch.int8), "w_scale": w_scale.to(torch.float32)}
+    wq, scale = quantize_by_columns(p["w"], 8, lambda b: b.to(torch.int8))
+    return {"wq": wq, "w_scale": scale}
 
 
 def _convert_linear_packed(p, prec):
-    wq, w_scale = q.quantize(p["w"].to(torch.float32), prec.w_bits)
-    return {"w_packed": bitpack.pack_weights(wq, prec.w_bits),
-            "w_scale": w_scale.to(torch.float32)}
+    bits = prec.w_bits
+    wp, scale = quantize_by_columns(
+        p["w"], bits, lambda b: bitpack.pack_weights(b, bits))
+    return {"w_packed": wp, "w_scale": scale}
 
 
 _LINEAR_CONVERTERS = {"serve_int8": _convert_linear_int8,

@@ -6,10 +6,10 @@ The param tree is the reference's: ``{"embed": {"emb"}, "final_norm":
 {"g"}, "head": {"w"}, "blocks": {"p<i>": tree with a leading [n_groups]
 axis on every leaf}}``, so a tree made or converted by the JAX package
 (carried across by ``repro_torch.interop.params_from_numpy``) runs here
-unchanged. The cache tree has the same shape (``{"p<i>": {"k", "v",
-"slot_pos"}}``, plus ``"k_scale"`` and ``"v_scale"`` on an int8 cache,
-``kv_cache_bits=8``; each leaf stacked over the groups) and is written in
-place.
+unchanged. The cache tree has the same shape, each leaf stacked over the
+groups, and is written in place: ``{"k", "v", "slot_pos"}`` per attention
+or cross-attention position (plus ``"k_scale"`` and ``"v_scale"`` on an
+int8 cache, ``kv_cache_bits=8``), ``{"conv", "state"}`` per mamba one.
 Python loops over the groups take the place of the reference's
 ``lax.scan``.
 """
@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.api.plan import PARAM_CLASS_NAMES
+from repro_torch.core import bitpack
 from repro_torch.models import layers as L, transformer as T
 
 
@@ -86,14 +87,17 @@ def _layers(params, cache, cfg: T.ModelConfig):
                    _index_tree(cache[f"p{i}"], g))
 
 
-def prefill(params, cfg: T.ModelConfig, tokens, cache, plan):
-    """Fill the caches from a full prompt (tokens: int [B, S]). Returns
-    (last-token logits [B, 1, V], cache)."""
+def prefill(params, cfg: T.ModelConfig, tokens, cache, plan,
+            img_embeds=None):
+    """Fill the caches from a full prompt (tokens: int [B, S]; a VLM's
+    cross-attention layers also take ``img_embeds`` [B, n_img_tokens, d]
+    bf16). Returns (last-token logits [B, 1, V], cache)."""
     s = tokens.shape[1]
     x = L.embed_apply(params["embed"], tokens).to(torch.bfloat16)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     for spec, p, c in _layers(params, cache, cfg):
-        x, _ = T.block_apply_prefill(p, cfg, spec, x, positions, plan, c)
+        x = T.block_apply_prefill(p, cfg, spec, x, positions, plan, c,
+                                  img_embeds)
     x = L.rms_norm(x[:, -1:], params["final_norm"]["g"])
     return L.linear_apply(params["head"], x, plan, "lm_head"), cache
 
@@ -108,7 +112,7 @@ def decode_step(params, cfg: T.ModelConfig, token, pos, cache, plan):
         pos = int(pos)
     x = L.embed_apply(params["embed"], token[:, None]).to(torch.bfloat16)
     for spec, p, c in _layers(params, cache, cfg):
-        x, _ = T.block_apply_decode(p, cfg, spec, x, pos, plan, c)
+        x = T.block_apply_decode(p, cfg, spec, x, pos, plan, c)
     x = L.rms_norm(x, params["final_norm"]["g"])
     return L.linear_apply(params["head"], x[:, 0], plan, "lm_head"), cache
 
@@ -127,11 +131,40 @@ def _policy_key(path: tuple) -> str:
     return "/".join(path)
 
 
+def _convert_expert_int8(w, prec) -> dict:
+    """Experts [E, din, dout] -> ``{"wq": int8 [E, din, dout], "scale":
+    float32 [E]}``, one absmax scale per expert (weight-only int8: the
+    products take bf16 activations)."""
+    out = [L.quantize_by_columns(we, 8, lambda b: b.to(torch.int8))
+           for we in w]
+    return {"wq": torch.stack([wq for wq, _ in out]),
+            "scale": torch.cat([scale.reshape(1) for _, scale in out])}
+
+
+def _convert_expert_packed(w, prec) -> dict:
+    """Experts [E, din, dout] -> ``{"w_packed": uint8 [E, Pw, din/8,
+    dout], "scale": float32 [E]}``: each expert quantized under its own
+    absmax scale and bit-packed at ``prec.w_bits``."""
+    bits = prec.w_bits
+    out = [L.quantize_by_columns(we, bits,
+                                 lambda b: bitpack.pack_weights(b, bits))
+           for we in w]
+    return {"w_packed": torch.stack([wp for wp, _ in out]),
+            "scale": torch.cat([scale.reshape(1) for _, scale in out])}
+
+
+_EXPERT_CONVERTERS = {"serve_int8": _convert_expert_int8,
+                      "serve_packed": _convert_expert_packed}
+
+
 def convert_tree(params: dict, policy, mode: str, root: tuple = ()) -> dict:
     """Walk an UNSTACKED tree, converting every dense 2-D linear ``{"w"}``
     for ``mode`` (``serve_int8``: ``{"wq", "w_scale"}``; ``serve_packed``:
-    ``{"w_packed", "w_scale"}``) under its layer class's precision;
-    converted layers and other leaves pass unchanged."""
+    ``{"w_packed", "w_scale"}``) under its layer class's precision, and
+    every 3-D expert tensor under the policy key of its path
+    (``ffn/w_gate``; ``{"wq", "scale"}`` or ``{"w_packed", "scale"}``);
+    the router and the SSM's conv stay, as do converted layers and other
+    leaves."""
     def walk(p, path):
         if not isinstance(p, dict):
             return p
@@ -142,9 +175,14 @@ def convert_tree(params: dict, policy, mode: str, root: tuple = ()) -> dict:
         out = {}
         for k, v in p.items():
             if k in _EXPERT_KEYS and getattr(v, "ndim", 0) == 3:
-                raise NotImplementedError("MoE expert packing is not ported "
-                                          "yet (ROADMAP A.11)")
-            out[k] = walk(v, path + (k,))
+                try:
+                    converter = _EXPERT_CONVERTERS[mode]
+                except KeyError:
+                    raise ValueError(f"no serving conversion for mode "
+                                     f"{mode!r}") from None
+                out[k] = converter(v, policy.lookup("/".join(path + (k,))))
+            else:
+                out[k] = walk(v, path + (k,))
         return out
 
     return walk(params, tuple(root))

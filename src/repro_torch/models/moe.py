@@ -1,0 +1,192 @@
+"""Mixture-of-Experts for serving: top-k router, shared experts, and the
+per-row capacity dispatch.
+
+PyTorch-port counterpart of the serving half of ``repro/models/moe.py``.
+Each sequence row dispatches its own tokens: token t's j-th choice takes
+the next free place of its expert's ``cap`` slots, ``cap = max(1, int(S *
+k / E * capacity_factor))``, and a token past its expert's capacity goes
+to the sink slot ``E * cap`` and is dropped (weight 0). The router stays
+float32 and out of weight conversion (tiny, accuracy-critical). The
+experts' products are ``torch`` products over the experts' weights,
+unpacked on every call where they are stored packed, as the reference's
+``einsum``s are (no Pallas kernel there). Shared experts (deepseek) are
+Loom linears through the plan (``moe_shared_gate`` / ``_up`` / ``_down``).
+
+Batch invariance (a decode row of the batching engine equals the row
+decoded alone): the router's product is an elementwise product and a sum
+over the contiguous last dim, the softmax runs over at least 16 rows, the
+sums over the k choices are explicit adds in float32, and the experts'
+products run one sequence row at a time, at the same shapes whatever the
+batch, where one batched ``einsum`` would let cuBLAS pick its kernel by
+the row count.
+
+Not ported: the shard_map expert parallelism (``apply_shardmap``, ROADMAP
+A.13) and the ``fake_quant`` route with the router's auxiliary loss
+(ROADMAP A.12).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import bitpack
+from repro_torch.models import layers as L
+
+# Rows of the router's product a step multiplies out at a time (float32
+# [rows, E, d] intermediates: 1024 rows of deepseek's are 537 MB).
+_ROUTER_ROWS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                    # per-expert hidden size
+    n_experts: int
+    top_k: int
+    n_shared: int = 0            # shared (always-on) experts, deepseek-style
+    shared_d_ff: int = 0         # hidden size of the shared expert block
+    capacity_factor: float = 1.25
+    activation: str = "silu"
+
+
+def init(cfg: MoEConfig, generator: torch.Generator,
+         dtype=torch.bfloat16) -> dict:
+    """Router ``{"w": float32 [d, E]}``, experts ``w_gate`` / ``w_up`` [E,
+    d, f] and ``w_down`` [E, f, d] in ``dtype``, and with ``n_shared`` the
+    shared block as three ``{"w"}`` linears, drawn from N(0, 1/fan_in) on
+    ``generator``'s device."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    dev = generator.device
+
+    def draw(shape, fan_in):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return w.mul_(fan_in ** -0.5)
+    p = {"router": {"w": draw((d, e), d)},
+         "w_gate": draw((e, d, f), d).to(dtype),
+         "w_up": draw((e, d, f), d).to(dtype),
+         "w_down": draw((e, f, d), f).to(dtype)}
+    if cfg.n_shared > 0:
+        sf = cfg.shared_d_ff or cfg.d_ff * cfg.n_shared
+        p["shared"] = {"w_gate": L.linear_init(d, sf, generator, dtype),
+                       "w_up": L.linear_init(d, sf, generator, dtype),
+                       "w_down": L.linear_init(sf, d, generator, dtype)}
+    return p
+
+
+def _sum_choices(t: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 2 of [B, S, k, ...] as k - 1 explicit adds in order."""
+    out = t[:, :, 0]
+    for j in range(1, t.shape[2]):
+        out = out + t[:, :, j]
+    return out
+
+
+def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x.float() @ w`` ([B, S, d] x [d, E] -> float32 [B, S, E]) as an
+    elementwise product and a sum over the contiguous last dim, over at
+    least 16 rows (:func:`layers.rowwise`), so a row's logits do not
+    depend on the other rows."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d).to(torch.float32)
+    wt = w.to(torch.float32).t().contiguous()          # [E, d]
+    out = [L.rowwise(lambda t: t.sum(-1),
+                     (xf[i:i + _ROUTER_ROWS, None, :] * wt).reshape(-1, d))
+           for i in range(0, b * s, _ROUTER_ROWS)]
+    return torch.cat(out).reshape(b, s, -1)
+
+
+def _route(logits: torch.Tensor, cfg: MoEConfig):
+    """Top-k gating, logits [B, S, E] -> (probs float32 [B, S, k], ids
+    [B, S, k]): softmax in float32, the k largest gates in descending
+    order (``torch.topk`` and ``lax.top_k`` both sort so; exact ties
+    among float32 gates are not expected), renormalised to sum 1."""
+    b, s, e = logits.shape
+    gates = L.rowwise(lambda t: torch.softmax(t, dim=-1),
+                      logits.to(torch.float32).reshape(b * s, e))
+    probs, ids = torch.topk(gates.reshape(b, s, e), cfg.top_k, dim=-1)
+    total = _sum_choices(probs[..., None])[..., 0]
+    return probs / torch.clamp_min(total, 1e-9)[..., None], ids
+
+
+def dispatch(ids: torch.Tensor, cfg: MoEConfig, cap: int):
+    """Per-row capacity dispatch of ids [B, S, k] -> (slot [B, S * k],
+    keep [B, S * k]): choice (t, j) takes place ``pos`` of its expert (the
+    count of earlier choices of that expert in the row, in (t, j) order),
+    slot ``expert * cap + pos`` when ``pos < cap``, else the sink slot
+    ``E * cap``."""
+    b = ids.shape[0]
+    e = cfg.n_experts
+    flat = ids.reshape(b, -1)                                  # [B, S*k]
+    onehot = torch.nn.functional.one_hot(flat, e).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
+    pos = torch.gather(pos_in_e, 2, flat[..., None])[..., 0]
+    keep = pos < cap
+    slot = torch.where(keep, flat * cap + pos, torch.full_like(flat, e * cap))
+    return slot, keep
+
+
+def _expert_weight(w, dtype) -> tuple:
+    """An expert tensor's weights [E, din, dout] in ``dtype`` and its
+    per-expert scale ([E] float32, or None): bf16 raw; ``{"wq",
+    "scale"}`` int8 (weight-only); ``{"w_packed", "scale"}`` planes [E,
+    Pw, din/8, dout], unpacked."""
+    if not isinstance(w, dict):
+        return w.to(dtype), None
+    if "wq" in w:
+        return w["wq"].to(dtype), w["scale"]
+    packed = w["w_packed"]
+    e, bits, k8, n = packed.shape
+    planes = packed.transpose(0, 1).reshape(bits, e * k8, n)
+    wq = bitpack.unpack_weights(planes, bits).reshape(e, 8 * k8, n)
+    return wq.to(dtype), w["scale"]
+
+
+def _expert_mm(buf: torch.Tensor, p: dict, key: str) -> torch.Tensor:
+    """buf [B, E, C, din] x expert weights ``p[key]`` -> [B, E, C, dout]
+    in buf's dtype; a quantized layout is scaled per expert after the
+    product, in buf's dtype. One batched product per sequence row."""
+    w, scale = _expert_weight(p[key], buf.dtype)
+    y = torch.stack([torch.bmm(row, w) for row in buf])
+    if scale is not None:
+        y = y * scale.to(y.dtype)[None, :, None, None]
+    return y
+
+
+def apply(p, cfg: MoEConfig, x: torch.Tensor, plan) -> torch.Tensor:
+    """x: [B, S, d] -> [B, S, d] in x's dtype; dispatch per sequence row.
+    The experts' products follow their stored layout (dense, or converted
+    by ``model.convert_params_for_serving``); the shared experts take the
+    plan's routes."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = max(1, int(s * k / e * cfg.capacity_factor))
+    probs, ids = _route(router_logits(x, p["router"]["w"]), cfg)
+    slot, keep = dispatch(ids, cfg, cap)
+
+    # Scatter the tokens into [B, E * cap (+1 sink), d].
+    tok = torch.repeat_interleave(x, k, dim=1)                 # [B, S*k, d]
+    buf = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
+    rows = torch.arange(b, device=x.device)[:, None]
+    buf[rows, slot] = tok
+    buf = buf[:, :e * cap].reshape(b, e, cap, d)
+
+    h = L.activation_fn(cfg.activation)(_expert_mm(buf, p, "w_gate")) \
+        * _expert_mm(buf, p, "w_up")
+    out = _expert_mm(h, p, "w_down").reshape(b, e * cap, d)
+    out = torch.cat([out, torch.zeros((b, 1, d), dtype=out.dtype,
+                                      device=out.device)], dim=1)
+    gathered = torch.gather(out, 1, slot[..., None].expand(-1, -1, d))
+    w_flat = torch.where(keep, probs.reshape(b, s * k), 0.0).to(x.dtype)
+    comb = _sum_choices((gathered * w_flat[..., None]).reshape(b, s, k, d)
+                        .to(torch.float32)).to(x.dtype)
+
+    if cfg.n_shared > 0:
+        sh = p["shared"]
+        g = L.linear_apply(sh["w_gate"], x, plan, "moe_shared_gate")
+        u = L.linear_apply(sh["w_up"], x, plan, "moe_shared_up")
+        hh = L.activation_fn(cfg.activation)(g) * u
+        comb = comb + L.linear_apply(sh["w_down"], hh, plan,
+                                     "moe_shared_down").to(comb.dtype)
+    return comb

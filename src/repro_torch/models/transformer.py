@@ -1,14 +1,17 @@
 """Decoder blocks of the LM, for serving.
 
 PyTorch-port counterpart of ``repro/models/transformer.py``. A model is a
-repeating ``pattern`` of LayerSpecs; its params are stacked per pattern
-position with a leading ``[n_groups]`` axis (``models/model.py``). Every
-block: pre-norm -> attention -> residual, pre-norm -> FFN -> residual,
-every linear a Loom linear through the plan.
+repeating ``pattern`` of LayerSpecs (jamba's 1:7 attention:mamba
+interleave, gemma3's 5:1 local:global windows, llama-vision's
+cross-attention layers); its params are stacked per pattern position with
+a leading ``[n_groups]`` axis (``models/model.py``). Every block:
+pre-norm -> mixer (attention | mamba | cross-attention) -> residual,
+pre-norm -> FFN (dense gated or not | MoE | none) -> residual, every
+linear a Loom linear through the plan.
 
-This port runs the dense family (attention blocks with a gated dense
-FFN). The mamba and cross-attention mixers, the MoE FFN and the non-gated
-FFN raise NotImplementedError (ROADMAP A.11).
+Every block writes its cache in place: the attention K/V slots, the
+mamba conv history and state (``models/ssm.py``), the cross-attention
+K/V over the image embeddings.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +46,12 @@ class ModelConfig:
     activation: str = "silu"
     qk_norm: bool = False
     rope_theta: float = 500000.0
-    ffn_gated: bool = True       # False (nemotron): not ported, A.11
+    ffn_gated: bool = True       # False: h = act(W_up x) (nemotron's relu^2)
     pattern: tuple = (LayerSpec(),)
+    moe: Optional[moe_mod.MoEConfig] = None
+    ssm: Optional[ssm_mod.SSMConfig] = None
     max_seq: int = 8192
+    n_img_tokens: int = 0        # VLM: length of the image embeddings
     kv_cache_bits: int = 16
     gqa_decode: bool = False
     attn_int8: bool = False
@@ -71,73 +79,102 @@ class ModelConfig:
             attn_int8=self.attn_int8)
 
 
-def check_ported(spec: LayerSpec) -> None:
-    if spec.kind != "attn" or spec.ffn == "moe":
-        raise NotImplementedError(
-            f"layer {spec}: only attention blocks with a dense FFN are "
-            f"ported (mamba, cross-attention and MoE: ROADMAP A.11)")
-
-
 def ffn_init(d: int, f: int, generator: torch.Generator,
              dtype=torch.bfloat16, gated: bool = True) -> dict:
-    if not gated:
-        raise NotImplementedError("the non-gated FFN (nemotron) is not "
-                                  "ported yet (ROADMAP A.11)")
-    return {"w_gate": L.linear_init(d, f, generator, dtype),
-            "w_up": L.linear_init(d, f, generator, dtype),
-            "w_down": L.linear_init(f, d, generator, dtype)}
+    p = {"w_gate": L.linear_init(d, f, generator, dtype)} if gated else {}
+    p["w_up"] = L.linear_init(d, f, generator, dtype)
+    p["w_down"] = L.linear_init(f, d, generator, dtype)
+    return p
 
 
 def ffn_apply(p, x, activation: str, plan) -> torch.Tensor:
-    if "w_gate" not in p:
-        raise NotImplementedError("the non-gated FFN (nemotron) is not "
-                                  "ported yet (ROADMAP A.11)")
+    """The dense FFN: ``act(W_gate x) * W_up x`` when gated, else
+    ``act(W_up x)``, then ``W_down``."""
     u = L.linear_apply(p["w_up"], x, plan, "ffn_up")
-    g = L.linear_apply(p["w_gate"], x, plan, "ffn_gate")
-    h = L.activation_fn(activation)(g) * u
+    if "w_gate" in p:
+        g = L.linear_apply(p["w_gate"], x, plan, "ffn_gate")
+        h = L.activation_fn(activation)(g) * u
+    else:
+        h = L.activation_fn(activation)(u)
     return L.linear_apply(p["w_down"], h, plan, "ffn_down")
 
 
 def block_init(cfg: ModelConfig, spec: LayerSpec, generator: torch.Generator,
                dtype=torch.bfloat16) -> dict:
-    check_ported(spec)
     dev = generator.device
-    p = {"ln1": L.norm_init(cfg.d_model, dtype, dev),
-         "mix": attn.init(cfg.attn_cfg(spec), generator, dtype)}
+    p = {"ln1": L.norm_init(cfg.d_model, dtype, dev)}
+    if spec.kind == "mamba":
+        p["mix"] = ssm_mod.init(cfg.ssm, generator, dtype)
+    else:
+        p["mix"] = attn.init(cfg.attn_cfg(spec), generator, dtype)
     if spec.ffn != "none":
         p["ln2"] = L.norm_init(cfg.d_model, dtype, dev)
-        p["ffn"] = ffn_init(cfg.d_model, cfg.d_ff, generator, dtype,
-                            gated=cfg.ffn_gated)
+        if spec.ffn == "moe":
+            p["ffn"] = moe_mod.init(cfg.moe, generator, dtype)
+        else:
+            p["ffn"] = ffn_init(cfg.d_model, cfg.d_ff, generator, dtype,
+                                gated=cfg.ffn_gated)
     return p
 
 
+def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x, plan):
+    if spec.ffn == "none":
+        return x
+    h = L.rms_norm(x, p["ln2"]["g"])
+    if spec.ffn == "moe":
+        return x + moe_mod.apply(p["ffn"], cfg.moe, h, plan)
+    return x + ffn_apply(p["ffn"], h, cfg.activation, plan)
+
+
 def block_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                        plan, cache):
-    check_ported(spec)
+                        plan, cache, img_embeds=None):
+    """One block over the prompt (x [B, S, d]), its cache filled in place,
+    as the reference's ``model.prefill`` runs each kind: a mamba block
+    keeps its conv history and final state; a cross-attention block
+    projects the image embeddings' K/V into its cache
+    (``attention.init_cross_cache``) and attends to them, non-causal
+    (``attention.cross_prefill``). Returns x."""
     h = L.rms_norm(x, p["ln1"]["g"])
-    mix, cache = attn.apply_prefill(p["mix"], cfg.attn_cfg(spec), h,
+    if spec.kind == "mamba":
+        mix = ssm_mod.apply_prefill(p["mix"], cfg.ssm, h, plan, cache)
+    elif spec.kind == "cross":
+        if img_embeds is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             f"img_embeds [B, {cfg.n_img_tokens}, "
+                             f"{cfg.d_model}] at prefill")
+        acfg = cfg.attn_cfg(spec)
+        attn.init_cross_cache(p["mix"], acfg, img_embeds, plan, cache)
+        mix = attn.cross_prefill(p["mix"], acfg, h, img_embeds, plan)
+    else:
+        mix, _ = attn.apply_prefill(p["mix"], cfg.attn_cfg(spec), h,
                                     positions, plan, cache)
-    x = x + mix
-    if spec.ffn != "none":
-        x = x + ffn_apply(p["ffn"], L.rms_norm(x, p["ln2"]["g"]),
-                          cfg.activation, plan)
-    return x, cache
+    return _ffn(p, cfg, spec, x + mix, plan)
 
 
 def block_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, pos, plan,
                        cache):
-    check_ported(spec)
+    """One block of a decode step (x [B, 1, d]), its cache updated in
+    place. Returns x."""
     h = L.rms_norm(x, p["ln1"]["g"])
-    mix, cache = attn.apply_decode(p["mix"], cfg.attn_cfg(spec), h, pos, plan,
-                                   cache)
-    x = x + mix
-    if spec.ffn != "none":
-        x = x + ffn_apply(p["ffn"], L.rms_norm(x, p["ln2"]["g"]),
-                          cfg.activation, plan)
-    return x, cache
+    if spec.kind == "mamba":
+        mix = ssm_mod.apply_decode(p["mix"], cfg.ssm, h, plan, cache)
+    else:
+        mix, _ = attn.apply_decode(p["mix"], cfg.attn_cfg(spec), h, pos,
+                                   plan, cache)
+    return _ffn(p, cfg, spec, x + mix, plan)
 
 
 def block_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_seq: int, device="cpu") -> dict:
-    check_ported(spec)
+    if spec.kind == "mamba":
+        return ssm_mod.init_cache(cfg.ssm, batch, device=device)
+    if spec.kind == "cross":
+        # K/V of the image embeddings, written whole by each prefill;
+        # every slot is valid at any decode position.
+        a = cfg.attn_cfg(spec)
+        shape = (batch, cfg.n_img_tokens, a.n_kv_heads, a.d_head)
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "slot_pos": torch.zeros(shape[:2], dtype=torch.int32,
+                                        device=device)}
     return attn.init_cache(cfg.attn_cfg(spec), batch, max_seq, device=device)

@@ -67,10 +67,11 @@ Silent-corruption defense:
 Byte-identity: the decode path has no cross-row coupling (per-ROW
 activation quantization scales, per-slot causal masks over per-row
 ``slot_pos``, value-preserving dynamic plane truncation, integer-exact
-kernels at any M), so row ``r`` of the batched decode equals a solo
-batch-1 ``session.generate`` of the same prompt over a cache of the
-pool's ``max_seq`` slots (the cache length sets the length of the decode
-attention's reductions). The fault-free path is byte-identical with or
+kernels at any M, the MoE's per-row dispatch and per-row expert
+products, the SSM's per-row state), so row ``r`` of the batched decode
+equals a solo batch-1 ``session.generate`` of the same prompt over a
+cache of the pool's ``max_seq`` slots (the cache length sets the length
+of the decode attention's reductions). The fault-free path is byte-identical with or
 without the watchdog: the watched call is the same computation.
 
 Fault composition (with or without a :class:`ServingSupervisor`): the

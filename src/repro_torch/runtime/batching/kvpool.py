@@ -5,15 +5,17 @@ device allocation for the whole engine lifetime:
 ``session.init_cache(max_batch, max_seq)`` -- every cache leaf carries the
 batch axis at position 1 (leaves are stacked ``[n_groups, B, ...]`` by
 ``models.model.init_cache``: attention k, v and slot_pos, and k_scale and
-v_scale on an int8 cache; the leaves are walked in sorted key order, the
-same in the pool and in a row's cache). A *slot* is one
-batch row of that allocation. Requests borrow a slot for their lifetime;
-a retired slot goes straight back on the free list -- no copy, no
-compaction -- because admission overwrites the ENTIRE row via
+v_scale on an int8 cache; a cross-attention layer's image k, v and
+slot_pos; a mamba layer's conv history ``[G, B, d_conv - 1, d_inner]``
+bf16 and state ``[G, B, H, head_dim, d_state]`` float32; the leaves are
+walked in sorted key order, the same in the pool and in a row's cache).
+A *slot* is one batch row of that allocation. Requests borrow a slot for
+their lifetime; a retired slot goes straight back on the free list -- no
+copy, no compaction -- because admission overwrites the ENTIRE row via
 :meth:`scatter_prefill` (every leaf row is replaced from a fresh batch-1
-prefill, ``slot_pos`` included, so a stale tenant never leaks into the
-next request's attention: its slots sit masked behind ``slot_pos``
-until the row is rewritten).
+prefill, ``slot_pos``, conv history and state included, so a stale
+tenant never leaks into the next request: its attention slots sit masked
+behind ``slot_pos`` and its recurrent state is overwritten).
 
 Where the reference scatters with a donated jit, the port copies in
 place: ``pool[:, slot].copy_(row[:, 0])`` for every leaf. A decode step

@@ -153,7 +153,7 @@ def test_configs_and_init_match_jax():
     for k in tp:
         assert torch.equal(tp[k]["w"], again[k]["w"])
     with pytest.raises(KeyError):
-        configs.get("mixtral-8x7b")
+        configs.get("no-such-arch")
 
 
 def test_interop_keeps_layouts_and_dtypes():

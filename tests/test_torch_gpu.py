@@ -10,8 +10,10 @@ kernel that fails on the card raising, never replaced by its plain
 version; the weight fingerprint on the card equal to the CPU's; and a
 shadow audit on the card whose quarantine demotes nothing; RMSNorm's
 rows equal to rows normalised alone; ``attn_int8``'s integer product
-equal to the CPU's and the exact one up to 32768 long; and each decode
-route's row equal to the row attended alone.
+equal to the CPU's and the exact one up to 32768 long; each decode
+route's row equal to the row attended alone; and the MoE's router,
+expert products and block, and the SSM's decode step, each row equal to
+the row run alone.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -657,3 +659,70 @@ def test_decode_attend_row_equals_the_row_alone_on_the_card(cuda, change):
         one = {k: v[b:b + 1] for k, v in cache.items()}
         assert torch.equal(out[b:b + 1],
                            A.decode_attend(q_[b:b + 1], one, cfg, int(pos[b])))
+
+
+def _moe_packed(cuda):
+    """deepseek-moe-16b's MoE block (64 experts of 2048 x 1408, top 6, 2
+    shared), random seed-5 weights packed at (8, 8) on the card, and a
+    plan for its shared experts."""
+    from repro_torch.api.plan import build_plan
+    from repro_torch.models import model as M, moe
+    cfg = configs.get("deepseek-moe-16b").moe
+    p = moe.init(cfg, torch.Generator(device=cuda).manual_seed(5))
+    p = M.convert_tree(p, uniform_policy(8, 8), "serve_packed", root=("ffn",))
+    return cfg, p, build_plan(None, uniform_policy(8, 8), "serve_packed",
+                              "cuda")
+
+
+@pytest.mark.parametrize("op", ["router", "experts", "apply"])
+def test_moe_row_equals_the_row_alone_on_the_card(cuda, op):
+    """deepseek's MoE at a decode batch of 8 on the card: the router's
+    logits and routing, the packed experts' products and the block's
+    output give each row the bits of the row run alone."""
+    from repro_torch.models import moe
+    cfg, p, plan = _moe_packed(cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((8, 1, cfg.d_model), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    buf = torch.randn((8, cfg.n_experts, 1, cfg.d_model), generator=g,
+                      device=cuda).to(torch.bfloat16)
+
+    def run(rows):
+        if op == "router":
+            logits = moe.router_logits(x[rows], p["router"]["w"])
+            return (logits,) + moe._route(logits, cfg)
+        if op == "experts":
+            return (moe._expert_mm(buf[rows], p, "w_gate"),)
+        return (moe.apply(p, cfg, x[rows], plan),)
+    batched = run(slice(None))
+    for b in range(8):
+        for got, want in zip(batched, run(slice(b, b + 1))):
+            assert torch.equal(got[b:b + 1], want)
+
+
+def test_ssm_decode_row_equals_the_row_alone_on_the_card(cuda):
+    """mamba2-370m's block decoding a batch of 8 on the card (random
+    seed-7 weights packed at (8, 8), a random conv history and state):
+    each row's output and updated cache equal the row decoded alone."""
+    from repro_torch.api.plan import build_plan
+    from repro_torch.models import model as M, ssm
+    cfg = configs.get("mamba2-370m").ssm
+    g = torch.Generator(device=cuda).manual_seed(7)
+    p = M.convert_tree(ssm.init(cfg, g), uniform_policy(8, 8),
+                       "serve_packed")
+    plan = build_plan(None, uniform_policy(8, 8), "serve_packed", "cuda")
+    cache = ssm.init_cache(cfg, 8, device=cuda)
+    cache["conv"].copy_(torch.randn(cache["conv"].shape, generator=g,
+                                    device=cuda))
+    cache["state"].copy_(torch.randn(cache["state"].shape, generator=g,
+                                     device=cuda))
+    x = torch.randn((8, 1, cfg.d_model), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    rows = [{k: v[b:b + 1].clone() for k, v in cache.items()}
+            for b in range(8)]
+    out = ssm.apply_decode(p, cfg, x, plan, cache)
+    for b in range(8):
+        alone = ssm.apply_decode(p, cfg, x[b:b + 1], plan, rows[b])
+        assert torch.equal(out[b:b + 1], alone)
+        for key in cache:
+            assert torch.equal(cache[key][b:b + 1], rows[b][key])

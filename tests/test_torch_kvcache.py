@@ -427,9 +427,19 @@ def test_block_cache_is_stacked_with_scale_leaves():
                                            kv_cache_bits=8), 3, 20)
     for key in c:
         assert tuple(c[key].shape) == jc["p0"][key].shape, key
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        A.init_cache(dataclasses.replace(cfg.attn_cfg(cfg.pattern[0]),
-                                         cross=True), 1, 8)
+    # A cross-attention layer's cache: the image embeddings' K/V in bf16
+    # and slot_pos zeros, JAX's shapes and dtypes (on the bf16 cache).
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as T
+    xcfg = dataclasses.replace(cfg, kv_cache_bits=16, n_img_tokens=12)
+    jx = dataclasses.replace(jqwen.smoke_config(), n_img_tokens=12)
+    got = T.block_cache_init(xcfg, T.LayerSpec(kind="cross"), 3, 20)
+    want = JT.block_cache_init(jx, JT.LayerSpec(kind="cross"), 3, 20)
+    assert sorted(got) == sorted(want) == ["k", "slot_pos", "v"]
+    for key in got:
+        assert tuple(got[key].shape) == want[key].shape, key
+        assert str(got[key].dtype) == f"torch.{want[key].dtype}", key
+        assert not got[key].float().abs().sum()
 
 
 # ---------------------------------------------------------------------------

@@ -290,23 +290,71 @@ def test_session_surface():
     assert sorted(cg) == ["k", "slot_pos", "v"]
     assert cg["k"].dtype == torch.bfloat16
     assert tuple(cg["k"].shape) == (2, 3, 20, 2, 16)
+    # A mamba block and an MoE FFN: params and caches in JAX's layout.
+    from repro.models import moe as jmoe, ssm as jssm, transformer as JT
+    from repro_torch.models import moe, ssm
     from repro_torch.models.transformer import LayerSpec
-    for spec in (LayerSpec(kind="mamba"), LayerSpec(ffn="moe")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-            M.init_params(dataclasses.replace(cfg, pattern=(spec,)))
+    for kind, ffn in (("mamba", "dense"), ("attn", "moe")):
+        tcfg = dataclasses.replace(
+            cfg, pattern=(LayerSpec(kind=kind, ffn=ffn),),
+            moe=moe.MoEConfig(d_model=64, d_ff=32, n_experts=4, top_k=2,
+                              n_shared=1, shared_d_ff=48),
+            ssm=ssm.SSMConfig(d_model=64, d_state=8, head_dim=16, chunk=8))
+        jcfg = dataclasses.replace(
+            jqwen.smoke_config(), pattern=(JT.LayerSpec(kind=kind, ffn=ffn),),
+            moe=jmoe.MoEConfig(d_model=64, d_ff=32, n_experts=4, top_k=2,
+                               n_shared=1, shared_d_ff=48),
+            ssm=jssm.SSMConfig(d_model=64, d_state=8, head_dim=16, chunk=8))
+        jp, _ = JM.init_params(jax.random.PRNGKey(0), jcfg)
+        for got, want in ((M.init_params(tcfg), jp),
+                          (M.init_cache(tcfg, 3, 20), JM.init_cache(jcfg, 3,
+                                                                    20))):
+            got = interop.flatten_with_paths(got)
+            want = {k: (tuple(v.shape), str(v.dtype)) for k, v in
+                    interop.flatten_with_paths(jax.tree.map(np.asarray,
+                                                            want)).items()}
+            assert {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                    for k, v in got.items()} == want
 
 
 @pytest.mark.parametrize("change", [dict(activation="gelu"),
                                     dict(activation="relu2"),
                                     dict(ffn_gated=False)])
-def test_unported_ffn_variants_raise(change):
+def test_ffn_variants_match_jax(change):
+    """gelu (the tanh form), relu^2 and the ungated FFN (``act(W_up x)``):
+    the dense FFN's output equals JAX's on the same bf16 params and input
+    within one bf16 ulp (2^-7 relative) in dense mode, where the bf16
+    products sum in another order, and within 0.02 in serve_packed (a
+    requantized product); the ungated tree has no ``w_gate``, as
+    JAX's. The activations alone are held bit for bit in
+    ``tests/test_torch_archs.py``."""
     import dataclasses
-    cfg = dataclasses.replace(configs.get("qwen3-1.7b", smoke=True), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        sess = repro_torch.compile(cfg, uniform_policy(8, 8),
-                                   mode="serve_packed", device="cpu")
-        sess.prefill(np.zeros((1, 4), np.int64))
-    if "ffn_gated" in change:       # a converted tree without w_gate
-        from repro_torch.models import transformer
-        with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-            transformer.ffn_apply({}, None, "silu", None)
+    from repro.models import transformer as JT
+    from repro.api import plan as jplan
+    from repro_torch.api import plan as tplan
+    from repro_torch.models import transformer as T
+    jcfg = dataclasses.replace(jqwen.smoke_config(), **change)
+    jp, _ = JT.ffn_init(jax.random.PRNGKey(4), 64, 128,
+                        gated=jcfg.ffn_gated)
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, jp))
+    assert ("w_gate" in tp) == jcfg.ffn_gated
+    x = jnp.asarray(np.random.default_rng(5).normal(size=(2, 8, 64)),
+                    jnp.bfloat16)
+    for mode, atol, rtol in (("dense", 0.0, 2 ** -7),
+                             ("serve_packed", 0.02, 0.0)):
+        jpol = juniform_policy(8, 8)
+        jpm, tpm = jp, tp
+        if mode != "dense":
+            jpm = {k: JL.convert_linear_for_serving(v, {"w": (None, None)},
+                                                    jpol.default, mode)[0]
+                   for k, v in jp.items()}
+            tpm = {k: L.convert_linear_for_serving(v, uniform_policy(8, 8)
+                                                   .default, mode)
+                   for k, v in tp.items()}
+        want = JT.ffn_apply(jpm, x, jcfg.activation,
+                            jplan.build_plan(None, jpol, mode))
+        got = T.ffn_apply(tpm, _t(x), jcfg.activation,
+                          tplan.build_plan(None, uniform_policy(8, 8), mode,
+                                           "torch_ref"))
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=atol,
+                                   rtol=rtol)

@@ -125,3 +125,17 @@ def test_serve_int8_mode_serves(capsys):
     np.testing.assert_array_equal(rows[0], a[0])
     cnn = [a_ if a_ != "serve_packed" else "serve_int8" for a_ in CNN]
     np.testing.assert_array_equal(serve.main(cnn), serve.main(CNN))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x7b",
+                                  "mamba2-370m", "jamba-v0.1-52b",
+                                  "gemma3-12b", "llama3-405b",
+                                  "nemotron-4-340b", "musicgen-large"])
+def test_other_archs_serve_api_equals_plan_api(arch):
+    """Each other smoke LM (the VLM aside: its prefill needs image
+    embeddings) serves through both APIs with equal tokens."""
+    args = ["--arch", arch, "--device", "cpu", "--batch", "2",
+            "--gen-len", "3"]
+    a = serve.main(args + ["--api", "session"])
+    assert a.shape == (2, 3) and a.dtype == np.int32
+    np.testing.assert_array_equal(a, serve.main(args + ["--api", "plan"]))
