@@ -172,6 +172,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               step profiled. deepseek-moe-16b and mamba2-370m: the
               engine's traffic (ARCHS_ENGINE_PROMPTS), every stream and
               batched decode row equal to its solo run.
+   train   -- the training path (no kernel of the port runs in it; the
+              counts read 0): the flash VJP's dQ/dK/dV against autograd
+              through ``chunked_attention`` (FLASH_CASES, float32 from
+              bf16 inputs, FLASH_TOL) and each route's time and memory at
+              [1, 16, 4096, 128] bf16; qwen3-1.7b at full width and depth
+              (remat "none", B = 4 x 512 from the data pipeline, AdamW
+              float32 moments): TRAIN_STEPS steps in ``dense`` and in
+              ``fake_quant`` (8, 8) from seed-0 weights drawn on the card,
+              finite losses and grad norms, the mean of the last three
+              losses below the first; step ms (CUDA events, the first
+              apart), tokens/s, ``train_mfu``, optimizer ms, peak memory,
+              one profiled step each; 3 dense steps with the groups'
+              params taken by indexing instead of ``unbind``, timed beside
+              them; mamba2-370m (48 layers) and deepseek-moe-16b (4 of 28
+              layers; its auxiliary loss positive) TRAIN_ARCH_STEPS steps.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -2642,6 +2657,231 @@ def phase_archs(card: str) -> dict:
     return out
 
 
+# The train phase: qwen3-1.7b at published width and depth, TRAIN_STEPS
+# steps in each mode from seed-0 weights drawn on the card, batches of
+# TRAIN_BATCH x TRAIN_SEQ tokens from the port's data pipeline; mamba2-370m
+# (48 layers) and deepseek-moe-16b cut to its first TRAIN_MOE_LAYERS layers
+# (one dense, three MoE: 64 experts x 27 MoE layers with float32 moments
+# would not fit one card) for TRAIN_ARCH_STEPS steps each.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_ARCH_STEPS = 4, 512, 8, 3
+TRAIN_MOE_LAYERS = 4
+# The flash VJP against autograd through chunked_attention, both in
+# float32 from the same bf16 inputs ([B, S, H, D], causal, window): the
+# same products summed in another order, within 1e-4 + 1e-4 |want|; a kv
+# block dropped or counted twice moves a gradient by 1e-2 or more.
+FLASH_CASES = [((4, 512, 16, 128), None), ((1, 4096, 16, 128), None),
+               ((1, 4096, 16, 128), 1024)]
+FLASH_TOL = (1e-4, 1e-4)
+FLASH_TIMED_S = 4096          # the sequence length whose routes are timed
+
+
+def _flash_grads(route, q_, k_, v_, do, window) -> tuple:
+    """(output, dq, dk, dv) of ``route`` ("flash": FlashAttention, else
+    autograd through chunked_attention), causal, blocks of 512."""
+    leaves = [t.detach().requires_grad_(True) for t in (q_, k_, v_)]
+    if route == "flash":
+        out = attn.flash_attention(*leaves, True, window, 512, 512)
+    else:
+        out = attn.chunked_attention(*leaves, causal=True, window=window)
+    return (out,) + torch.autograd.grad(out, leaves, do)
+
+
+def phase_flash_vjp(card: str) -> None:
+    """FlashAttention's dQ/dK/dV against autograd through
+    ``chunked_attention`` on the card (FLASH_CASES, float32 from bf16
+    inputs, FLASH_TOL); then each route's forward + backward time (CUDA
+    events, median of 3) and peak memory at S = 4096 in bf16."""
+    for shape, window in FLASH_CASES:
+        g = torch.Generator(device="cuda").manual_seed(shape[1])
+        q_, k_, v_, do = (torch.randn(shape, generator=g, device="cuda")
+                          .to(torch.bfloat16).float() for _ in range(4))
+        got = _flash_grads("flash", q_, k_, v_, do, window)
+        want = _flash_grads("autograd", q_, k_, v_, do, window)
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        for what, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            check(within(a, b, *FLASH_TOL), f"flash VJP {what} at {shape} "
+                  f"window {window}: max err {max_err(a, b):.3g}")
+        print(f"[train] {card}: flash VJP == autograd through "
+              f"chunked_attention at {list(shape)} causal window {window} "
+              f"(float32 from bf16 inputs): max abs err {err:.3g} "
+              f"(tolerance {FLASH_TOL[0]} + {FLASH_TOL[1]} |want|)",
+              flush=True)
+        if shape[1] == FLASH_TIMED_S:
+            bf = [t.to(torch.bfloat16) for t in (q_, k_, v_, do)]
+            for route in ("flash", "autograd"):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ms = sorted(_event_ms(lambda: _flash_grads(route, *bf,
+                                                           window))[1]
+                            for _ in range(3))[1]
+                peak = torch.cuda.max_memory_allocated() - base
+                print(f"[train] {card}: {route} route at {list(shape)} bf16 "
+                      f"causal window {window}: forward + backward {ms:.3f} "
+                      f"ms (CUDA events, median of 3), peak memory "
+                      f"{peak / 2**30:.3f} GiB above the inputs", flush=True)
+            del bf
+        del q_, k_, v_, do, got, want
+    torch.cuda.empty_cache()
+
+
+def _train_flops(cfg, params) -> float:
+    """Model FLOPs per token of a training step: 6 x the parameters a
+    token's products touch (the embedding table is a gather and counts
+    none; a MoE layer's routed experts count top_k / n_experts of theirs,
+    capacity drops ignored), plus attention's 12 x layers x heads x d_head
+    x S (PaLM's appendix B, the causal half not discounted). The SSM's
+    scan counts none."""
+    n = 0.0
+    for key, t in interop.flatten_with_paths(params).items():
+        if key == "embed/emb":
+            continue
+        if cfg.moe is not None and t.ndim == 4 and key.rsplit("/", 1)[-1] \
+                in ("w_gate", "w_up", "w_down"):
+            n += t.numel() * cfg.moe.top_k / cfg.moe.n_experts
+        else:
+            n += t.numel()
+    n_attn = sum(spec.kind != "mamba" for spec in cfg.pattern) * cfg.n_groups
+    return 6 * n + 12 * n_attn * cfg.n_heads * cfg.d_head * TRAIN_SEQ
+
+
+def train_run(cfg, mode: str, steps: int, label: str, card: str,
+              profile: bool = False) -> dict:
+    """``steps`` train steps of ``cfg`` in ``mode`` ((8, 8) for
+    fake_quant) from a seed-0 state drawn on the card, AdamW (float32
+    moments) under ``Schedule(warmup_steps=2, total_steps=TRAIN_STEPS)``,
+    batch j = the data pipeline's step j. The kernel counts are reset
+    just before the steps and read just after: the training path runs
+    none of the port's kernels. Prints and returns the losses, step ms
+    (CUDA events: the first step apart, the median of the rest),
+    tokens/s, train_mfu, peak memory and the optimizer's ms."""
+    from repro_torch.api.plan import build_plan
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import Schedule
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    tc = train_mod.TrainConfig(sched=Schedule(warmup_steps=2,
+                                              total_steps=TRAIN_STEPS))
+    state = train_mod.make_train_state(
+        cfg, tc, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    state_bytes = _param_bytes(state)
+    flops = _train_flops(cfg, state["params"])
+    step = train_mod.make_train_step(
+        cfg, build_plan(cfg, uniform_policy(8, 8), mode), tc)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batches = [synthetic_batch(dcfg, i) for i in range(steps)]
+    opt_ms, update = [], train_mod.adamw_update
+
+    def timed_update(*args, **kwargs):
+        out, ms = _event_ms(lambda: update(*args, **kwargs))
+        opt_ms.append(ms)
+        return out
+    train_mod.adamw_update = timed_update
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    metrics, step_ms = [], []
+    try:
+        for batch in batches:
+            (state, m), ms = _event_ms(lambda: step(state, batch))
+            metrics.append({k: float(v) for k, v in m.items()})
+            step_ms.append(ms)
+    finally:
+        train_mod.adamw_update = update
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(not any(launches.values()), f"{label}: the training path "
+          f"launched kernels of the port: {launches}")
+    losses = [m["loss"] for m in metrics]
+    check(all(np.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    check(all(np.isfinite(m["grad_norm"]) for m in metrics),
+          f"{label}: grad norms {[m['grad_norm'] for m in metrics]}")
+    rest = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    opt = sorted(opt_ms[1:])[len(opt_ms[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = flops * tokens / (rest / 1e3) / BF16_FLOPS
+    n_weights = sum(t.numel() for t in
+                    interop.flatten_with_paths(state["params"]).values())
+    print(f"[train] {card}: {label}: {cfg.n_layers} layers, "
+          f"{n_weights} weights, state "
+          f"{state_bytes / 2**30:.3f} GiB; {steps} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens: losses {[round(x, 4) for x in losses]}, "
+          f"grad norms {[round(m['grad_norm'], 3) for m in metrics]}; step "
+          f"{step_ms[0]:.3f} ms first, {rest:.3f} ms median of the other "
+          f"{steps - 1} (CUDA events), {tokens / (rest / 1e3):.1f} tokens/s, "
+          f"train_mfu {mfu:.4f} ({flops:.4g} FLOPs/token over {BF16_FLOPS:.4g}"
+          f" FLOP/s bf16 dense peak); optimizer {opt:.3f} ms median; peak "
+          f"memory {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+          f"held before; the port's kernels launched 0 times", flush=True)
+    busy = None
+    if profile:
+        _, busy = phase_profile(f"train {label} step ({card})",
+                                lambda: step(state, batches[-1]),
+                                rest / 1e3, 0, requests=1)
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, metrics=metrics, step_ms=step_ms,
+                median_ms=rest, opt_ms=opt, mfu=mfu, peak=peak, busy=busy)
+
+
+def phase_train(card: str) -> None:
+    """The training path on the card: the flash VJP held against autograd
+    (phase_flash_vjp); qwen3-1.7b at full width and depth (remat "none"),
+    TRAIN_STEPS steps in ``dense`` and in ``fake_quant`` (8, 8), every loss
+    finite and the mean of the last three below the first, one step of
+    each profiled, and TRAIN_ARCH_STEPS dense steps with the groups'
+    params taken by indexing (the step's cost without ``unbind``);
+    mamba2-370m (48 layers) and deepseek-moe-16b (its first
+    TRAIN_MOE_LAYERS layers) TRAIN_ARCH_STEPS dense steps each, finite
+    losses, deepseek's auxiliary loss positive and finite."""
+    t_phase = time.perf_counter()
+    phase_flash_vjp(card)
+    qwen = dataclasses.replace(configs.get("qwen3-1.7b"), remat="none")
+    for mode in ("dense", "fake_quant"):
+        r = train_run(qwen, mode, TRAIN_STEPS, f"qwen3-1.7b {mode}", card,
+                      profile=True)
+        last = float(np.mean(r["losses"][-3:]))
+        check(last < r["losses"][0], f"qwen3-1.7b {mode}: the last three "
+              f"losses' mean {last} is not below the first "
+              f"{r['losses'][0]}")
+        if mode == "dense":
+            # The groups' params taken by indexing each stacked leaf, as
+            # serving does (each select's backward writes a zero-filled
+            # gradient of the whole leaf), against one unbind per leaf.
+            unbind = M._unbind_tree
+            M._unbind_tree = lambda tree, n: [M._index_tree(tree, g)
+                                              for g in range(n)]
+            try:
+                idx = train_run(qwen, mode, TRAIN_ARCH_STEPS,
+                                "qwen3-1.7b dense, groups by indexing", card)
+            finally:
+                M._unbind_tree = unbind
+            check(np.allclose(idx["losses"], r["losses"][:TRAIN_ARCH_STEPS],
+                              rtol=1e-2),
+                  f"indexing the groups changed the losses: {idx['losses']}")
+            print(f"[train] {card}: qwen3-1.7b dense step, the groups' "
+                  f"params by one unbind per leaf {r['median_ms']:.3f} ms, "
+                  f"by indexing {idx['median_ms']:.3f} ms (medians); peak "
+                  f"memory {r['peak'] / 2**30:.3f} against "
+                  f"{idx['peak'] / 2**30:.3f} GiB", flush=True)
+    mamba = dataclasses.replace(configs.get("mamba2-370m"), remat="none")
+    train_run(mamba, "dense", TRAIN_ARCH_STEPS, "mamba2-370m dense", card)
+    full = configs.get("deepseek-moe-16b")
+    moe_cfg = dataclasses.replace(full, n_layers=TRAIN_MOE_LAYERS,
+                                  pattern=full.pattern[:TRAIN_MOE_LAYERS],
+                                  remat="none")
+    r = train_run(moe_cfg, "dense", TRAIN_ARCH_STEPS,
+                  f"deepseek-moe-16b ({TRAIN_MOE_LAYERS} of "
+                  f"{full.n_layers} layers) dense", card)
+    aux = [m["aux"] for m in r["metrics"]]
+    check(all(np.isfinite(a) and a > 0 for a in aux),
+          f"deepseek-moe-16b: auxiliary losses {aux}")
+    print(f"[train] deepseek-moe-16b auxiliary losses {aux}")
+    print(f"[train] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def phase_engine_cli(card: str) -> None:
     """``python -m repro_torch.launch.serve`` in three subprocesses at
     once: server mode (3 requests, 2 slots), a solo ``--batch 1`` run of
@@ -3028,6 +3268,7 @@ def main() -> None:
     phase_integrity(lm, engine, card, errs)
     kv_launches = phase_kvcache(lm, engine, card, errs)
     arch_launches = phase_archs(card)
+    phase_train(card)
     launches = dict(served["launches"])
     launches["CNN im2col"] = int8["im2col_launches"]
     launches["LM generate"] = lm["gen_launches"]

@@ -5,17 +5,17 @@ freezes a layer's kind, route, (Pa, Pw), conv geometry and band size;
 :func:`build_plan` produces the model-wide :class:`ExecutionPlan`, which
 also owns the backend.
 
-The ``dense``, ``serve_int8`` and ``serve_packed`` modes are ported, for
-the paper CNN and the LM (whose plans are keyed by layer class,
-``attn_q`` ... ``lm_head``). A CNN plan's ``conv_route`` picks the fused
-conv or the reference's im2col A/B route (the conv as a linear on the
-patch tensor, through the conv's linear twin).
+Every mode of the reference is ported, for the paper CNN and the LM
+(whose plans are keyed by layer class, ``attn_q`` ... ``lm_head``):
+``dense``, ``fake_quant`` (the QAT forward of training: straight-through
+fake quantization of activations and weights, then a float product),
+``serve_int8`` and ``serve_packed``. A CNN plan's ``conv_route`` picks
+the fused conv or the reference's im2col A/B route (the conv as a linear
+on the patch tensor, through the conv's linear twin).
 :meth:`ExecutionPlan.fallback_report` reads a guarded backend's sticky
-fallbacks.
-The conv band
-size is sized against one H100 thread block's shared memory
-(:data:`repro_torch.kernels.bitserial_conv.SMEM_BUDGET`), where the
-reference sizes it against the TPU's VMEM.
+fallbacks. The conv band size is sized against one H100 thread block's
+shared memory (:data:`repro_torch.kernels.bitserial_conv.SMEM_BUDGET`),
+where the reference sizes it against the TPU's VMEM.
 """
 from __future__ import annotations
 
@@ -26,18 +26,17 @@ from repro_torch.core.policy import LayerPrecision, PrecisionPolicy
 
 # Routes: the closed set of execution strategies a layer can resolve to.
 DENSE = "dense"              # float matmul / conv (DPNN-equivalent baseline)
+FAKE_QUANT = "fake_quant"    # QAT: STE fake-quant forward, float product
 INT8 = "int8"                # LM_8b: dynamic act quant + int8 weights
 PACKED = "packed"            # paper-faithful bit-serial packed planes
 
 # Execution-mode names -> routes.
 MODE_ROUTES = {
     "dense": DENSE,
+    "fake_quant": FAKE_QUANT,
     "serve_int8": INT8,
     "serve_packed": PACKED,
 }
-
-# Modes of the reference that later slices bring.
-_UNPORTED_MODES = {"fake_quant": "ROADMAP A.12"}
 
 # Conv lowerings: the fused conv, or the reference's im2col A/B route.
 CONV_ROUTES = ("fused", "im2col")
@@ -71,7 +70,7 @@ class LayerPlan:
 
     name: str
     kind: str                      # "linear" | "conv"
-    route: str                     # DENSE | INT8 | PACKED
+    route: str                     # DENSE | FAKE_QUANT | INT8 | PACKED
     precision: LayerPrecision = LayerPrecision()
     dynamic_a: bool = False
     group_size: int = 256
@@ -197,10 +196,6 @@ class ExecutionPlan:
         return lp
 
     def _resolve(self, name, kind, kernel=None, stride=None) -> LayerPlan:
-        if self.mode in _UNPORTED_MODES:
-            raise NotImplementedError(
-                f"mode {self.mode!r} is not ported yet "
-                f"({_UNPORTED_MODES[self.mode]})")
         try:
             route = MODE_ROUTES[self.mode]
         except KeyError:

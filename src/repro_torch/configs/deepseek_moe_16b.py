@@ -27,4 +27,5 @@ def smoke_config() -> ModelConfig:
         name="deepseek-smoke", family="moe",
         n_layers=2, d_model=64, vocab=256,
         n_heads=4, n_kv_heads=4, d_head=16, d_ff=128,
-        pattern=pattern, moe=moe, max_seq=128)
+        pattern=pattern, moe=moe, max_seq=128,
+        remat="none")

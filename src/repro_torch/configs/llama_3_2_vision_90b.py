@@ -27,4 +27,5 @@ def smoke_config() -> ModelConfig:
         name="vision-smoke", family="vlm",
         n_layers=2, d_model=64, vocab=256,
         n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
-        pattern=pattern, n_img_tokens=32, max_seq=128)
+        pattern=pattern, n_img_tokens=32, max_seq=128,
+        remat="none")

@@ -25,4 +25,4 @@ def smoke_config() -> ModelConfig:
         n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
         pattern=(LayerSpec(kind="attn", ffn="moe", window=32),),
         moe=MoEConfig(d_model=64, d_ff=128, n_experts=4, top_k=2),
-        max_seq=128)
+        max_seq=128, remat="none")

@@ -18,4 +18,5 @@ def smoke_config() -> ModelConfig:
         name="musicgen-smoke", family="audio",
         n_layers=2, d_model=64, vocab=64,
         n_heads=4, n_kv_heads=4, d_head=16, d_ff=128,
-        activation="gelu", pattern=(LayerSpec(),), max_seq=128)
+        activation="gelu", pattern=(LayerSpec(),), max_seq=128,
+        remat="none")

@@ -19,4 +19,5 @@ def smoke_config() -> ModelConfig:
         n_layers=2, d_model=64, vocab=256,
         n_heads=4, n_kv_heads=2, d_head=16, d_ff=192,
         activation="relu2", ffn_gated=False,
-        pattern=(LayerSpec(),), max_seq=128)
+        pattern=(LayerSpec(),), max_seq=128,
+        remat="none")

@@ -17,4 +17,5 @@ def smoke_config() -> ModelConfig:
         name="qwen3-smoke", family="dense",
         n_layers=2, d_model=64, vocab=256,
         n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
-        qk_norm=True, pattern=(LayerSpec(),), max_seq=128)
+        qk_norm=True, pattern=(LayerSpec(),), max_seq=128,
+        remat="none")

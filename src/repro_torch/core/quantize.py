@@ -10,6 +10,10 @@ float32 elementwise op in the same order as the reference: the scale is
 ``absmax / qmax`` and the grid is ``round(x / scale)``, both true
 divisions, rounded half to even (``torch.round``), so the port's
 quantized operands equal the reference's bit for bit.
+
+:func:`fake_quant` is the training side (QAT): the forward rounds onto
+the quantized grid, the backward is the identity (the straight-through
+estimator).
 """
 from __future__ import annotations
 
@@ -62,6 +66,29 @@ def quantize(x: torch.Tensor, bits: int, scale: torch.Tensor | None = None,
         scale = compute_scale(x, bits, axis=axis)
     xq = torch.clamp(torch.round(x / scale), qmin(bits), qmax(bits))
     return xq.to(torch.int32), scale
+
+
+def dequantize(xq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return xq.to(torch.float32) * scale
+
+
+class _FakeQuant(torch.autograd.Function):
+    """``dequantize(*quantize(x, bits))`` in x's dtype; the gradient passes
+    through unchanged, with no clipping mask (the reference's ``_fq_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, bits):
+        return dequantize(*quantize(x, bits)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Straight-through fake quantization of x to ``bits`` bits under one
+    per-tensor absmax scale."""
+    return _FakeQuant.apply(x, bits)
 
 
 def to_twos_complement(xq: torch.Tensor, bits: int) -> torch.Tensor:

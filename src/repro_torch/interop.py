@@ -54,6 +54,21 @@ def params_from_numpy(tree, device="cpu"):
     return _leaf(tree).to(device)
 
 
+def train_state_from_numpy(tree, device="cpu") -> dict:
+    """The reference's train state ``{"params", "opt": {"mu", "nu",
+    "step"}}`` (plus ``"err"`` with gradient compression), as numpy arrays
+    or tensors, e.g. a reference checkpoint's leaves -> the port's, on
+    ``device``: every leaf's dtype kept, ``opt/step`` an int32 0-d
+    tensor."""
+    if not {"params", "opt"} <= set(tree) or \
+            set(tree["opt"]) != {"mu", "nu", "step"}:
+        raise ValueError(f"not a train state: keys {sorted(tree)}, opt "
+                         f"{sorted(tree.get('opt', {}))}")
+    state = params_from_numpy(tree, device)
+    state["opt"]["step"] = state["opt"]["step"].to(torch.int32).reshape(())
+    return state
+
+
 # -- tree paths ---------------------------------------------------------------
 
 def _walk(tree, path: tuple):
@@ -68,6 +83,14 @@ def flatten_with_paths(tree) -> dict:
     """``{"a/b/c": leaf}`` of a nested dict, in ``jax.tree_util``'s order
     (dict keys sorted)."""
     return dict(_walk(tree, ()))
+
+
+def tree_map(fn, *trees):
+    """A new nested dict of the first tree's keys whose leaves are ``fn``
+    of the trees' leaves at the same key."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 def map_with_paths(fn, tree, path: tuple = ()):
@@ -124,8 +147,9 @@ def crc32(arr: np.ndarray) -> int:
 def from_host_array(arr: np.ndarray, stored: str) -> torch.Tensor:
     """Inverse of :func:`host_array`: a writable numpy array holding
     ``stored`` values (bf16/float8 as their raw integers) -> a CPU tensor
-    sharing its memory."""
-    arr = np.ascontiguousarray(arr)
+    sharing its memory. A 0-d leaf (a train state's step counter) stays
+    0-d (``np.ascontiguousarray`` alone makes it [1])."""
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if stored in EXT_STORAGE:
         raw = arr.view(np.int16 if stored == "bfloat16" else np.uint8)
         return torch.from_numpy(raw).view(torch_dtype(stored))

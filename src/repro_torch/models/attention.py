@@ -1,13 +1,18 @@
-"""Attention for serving: GQA self-attention (full or sliding-window), the
-blockwise prefill path, and decode over the KV cache.
+"""Attention: GQA self-attention (full or sliding-window), the blockwise
+training and prefill path with its flash backward, cross-attention, and
+decode over the KV cache.
 
-PyTorch-port counterpart of the serving half of ``repro/models/
-attention.py``. All four projections are Loom linears (through the plan).
-Prefill runs :func:`chunked_attention`, plain PyTorch with an online
-softmax, as the reference's prefill does; the kernel K7 is reached through
-``kernels.ops.attention`` only. Decode attends over the whole cache,
-each KV head with its group of query heads, masked by each slot's
-recorded position, in a batch-invariant form (:func:`decode_attend`).
+PyTorch-port counterpart of ``repro/models/attention.py``. All four
+projections are Loom linears (through the plan). Training and prefill
+run :func:`chunked_attention`, plain PyTorch with an online softmax, as
+the reference's do; the kernel K7 is reached through
+``kernels.ops.attention`` only. With ``flash_vjp`` the training forward
+of a full-attention layer goes through :class:`FlashAttention`, whose
+backward recomputes the probabilities block by block from the saved
+logsumexp rows instead of keeping every block's (the reference's
+``flash_attention_xla``). Decode attends over the whole cache, each KV
+head with its group of query heads, masked by each slot's recorded
+position, in a batch-invariant form (:func:`decode_attend`).
 
 The KV cache is ``{"k", "v": [B, S_cache, H_kv, D] bf16, "slot_pos": int32
 [B, S_cache]}`` (a ring of ``window`` slots for a sliding-window layer).
@@ -26,10 +31,10 @@ row's result independent of the other rows.
 
 Cross-attention (llama-3.2-vision's image layers): the prefill projects
 the image embeddings' K/V into the layer's cache
-(:func:`init_cross_cache`) and attends to them non-causally
-(:func:`cross_prefill`); a decode step projects q alone, unroped, against
-that cache, which it leaves unchanged. Not ported: the training path with
-its flash backward (ROADMAP A.12).
+(:func:`init_cross_cache`) and attends to them non-causally through the
+training forward (:func:`apply_train` with ``kv_x``), as the reference's
+prefill does; a decode step projects q alone, unroped, against that
+cache, which it leaves unchanged.
 """
 from __future__ import annotations
 
@@ -55,10 +60,12 @@ class AttnConfig:
     rope_theta: float = 500000.0
     qk_norm: bool = False
     window: int | None = None          # sliding-window size (None = full)
+    flash_vjp: bool = False            # memory-efficient custom backward
     gqa_decode: bool = False           # the reference's; no route here
     attn_int8: bool = False            # integer QK/PV on the int8 cache
     cross: bool = False                # cross-attention (K/V from images)
     kv_cache_bits: int = 16            # 16 = bf16 cache; 8 = int8 cache
+    block: int = 512                   # training q/kv block size
 
 
 def init(cfg: AttnConfig, generator: torch.Generator,
@@ -100,14 +107,37 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_rep, dim=2)
 
 
+def _block_mask(q_pos, k_pos, causal, window) -> torch.Tensor:
+    """[bq, bk] True where query position q_pos[i] sees key k_pos[j]."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return mask
+
+
+def _kv_span(q_first: int, bq: int, bk: int, sk: int, window) -> tuple:
+    """(start, span) of the keys a q block starting at ``q_first`` walks:
+    a sliding-window layer's (window + bq)-wide span, rounded up to whole
+    kv blocks, where the keys are longer than it; else all of them."""
+    if window is not None and sk > window + bq:
+        span = -(-(window + bq) // bk) * bk
+        return min(max(q_first - window + 1, 0), sk - span), span
+    return 0, sk
+
+
 def chunked_attention(q, k, v, *, causal=True, window=None, bq=512, bk=512,
-                      q_offset=0):
+                      q_offset=0, return_stats=False):
     """Blockwise (flash) attention in plain PyTorch: loops over q and kv
     blocks with an online softmax in float32.
 
     q: [B, S, H, D]; k, v: [B, Sk, H, D] (one head count). A sliding-window
     layer's q block attends only its (window + bq)-wide KV span. q_offset:
-    absolute position of q[0]. Output [B, S, H, D] in q's dtype.
+    absolute position of q[0]. Output [B, S, H, D] in q's dtype; with
+    ``return_stats`` also the float32 logsumexp rows [B, H, S] (the flash
+    backward's).
 
     Causal kv blocks that start after a q block's last row are skipped.
     Bit for bit that changes nothing: every row has already folded in the
@@ -126,16 +156,12 @@ def chunked_attention(q, k, v, *, causal=True, window=None, bq=512, bk=512,
     kt = k.permute(0, 2, 1, 3)
     vt = v.permute(0, 2, 1, 3)
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for iq in range(s // bq):
         qblk = qt[:, :, iq * bq:(iq + 1) * bq].to(torch.float32) * scale
         q_first = q_offset + iq * bq
         q_pos = q_first + torch.arange(bq, device=dev)
-        if window is not None and sk > window + bq:
-            span = -(-(window + bq) // bk) * bk
-            start = min(max(q_first - window + 1, 0), sk - span)
-        else:
-            span, start = sk, 0
+        start, span = _kv_span(q_first, bq, bk, sk, window)
         m = torch.full((b, h, bq), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((b, h, bq), dtype=torch.float32, device=dev)
         o = torch.zeros((b, h, bq, d), dtype=torch.float32, device=dev)
@@ -146,12 +172,8 @@ def chunked_attention(q, k, v, *, causal=True, window=None, bq=512, bk=512,
             vs_ = vt[:, :, k0:k0 + bk].to(torch.float32)
             kp = k0 + torch.arange(bk, device=dev)
             logits = torch.einsum("bhqd,bhkd->bhqk", qblk, ks_)
-            mask = torch.ones((bq, bk), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= kp[None, :] <= q_pos[:, None]
-            if window is not None:
-                mask &= kp[None, :] > q_pos[:, None] - window
-            logits = torch.where(mask, logits, NEG_INF)
+            logits = torch.where(_block_mask(q_pos, kp, causal, window),
+                                 logits, NEG_INF)
             m_cur = torch.maximum(m, logits.amax(-1))
             p_ = torch.exp(logits - m_cur[..., None])
             alpha = torch.exp(m - m_cur)
@@ -160,7 +182,85 @@ def chunked_attention(q, k, v, *, causal=True, window=None, bq=512, bk=512,
             m = m_cur
         out = o / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.to(q.dtype))
-    return torch.cat(outs, dim=2).permute(0, 2, 1, 3)
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    out = torch.cat(outs, dim=2).permute(0, 2, 1, 3)
+    if return_stats:
+        return out, torch.cat(lses, dim=2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Flash VJP: the backward recomputes each block's probabilities from the
+# saved logsumexp rows, where autograd through chunked_attention keeps
+# every [bq, bk] float32 block of the forward (O(S^2) memory).
+# ---------------------------------------------------------------------------
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, bq, bk):
+    """dq, dk, dv of :func:`chunked_attention` in float32, cast to the
+    inputs' dtypes. Per q block: P = exp(q k^T - lse) under the mask, dV +=
+    P^T dO, dS = P (dO V^T - delta) with delta = rowsum(dO * O), dQ += dS K,
+    dK += dS^T q (q scaled). A sliding-window layer's q block walks only
+    its span of keys, so the backward stays O(S * span); causal kv blocks
+    past a q block's last row are skipped (their P is 0)."""
+    b, s, h, d = q.shape
+    sk = k.shape[1]
+    scale = d ** -0.5
+    bq, bk = min(bq, s), min(bk, sk)
+    f32 = torch.float32
+    qt, kt, vt, dot, ot = (t.permute(0, 2, 1, 3).to(f32)
+                           for t in (q, k, v, dout, out))
+    delta = (dot * ot).sum(-1)                           # [B, H, S]
+    dq = torch.empty((b, h, s, d), dtype=f32, device=q.device)
+    dk = torch.zeros((b, h, sk, d), dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, s, bq):
+        qi = qt[:, :, q0:q0 + bq] * scale
+        doi = dot[:, :, q0:q0 + bq]
+        lsei = lse[:, :, q0:q0 + bq, None]
+        di = delta[:, :, q0:q0 + bq, None]
+        q_pos = q0 + torch.arange(bq, device=q.device)
+        start, span = _kv_span(q0, bq, bk, sk, window)
+        dq_i = torch.zeros_like(qi)
+        for k0 in range(start, start + span, bk):
+            if causal and k0 > q0 + bq - 1:
+                break
+            kj, vj = kt[:, :, k0:k0 + bk], vt[:, :, k0:k0 + bk]
+            k_pos = k0 + torch.arange(bk, device=q.device)
+            p_ = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qi, kj) - lsei)
+            p_ = torch.where(_block_mask(q_pos, k_pos, causal, window), p_,
+                             0.0)
+            dv[:, :, k0:k0 + bk] += torch.einsum("bhqk,bhqd->bhkd", p_, doi)
+            dp = torch.einsum("bhqd,bhkd->bhqk", doi, vj)
+            ds = p_ * (dp - di)
+            dq_i = dq_i + torch.einsum("bhqk,bhkd->bhqd", ds, kj) * scale
+            dk[:, :, k0:k0 + bk] += torch.einsum("bhqk,bhqd->bhkd", ds, qi)
+        dq[:, :, q0:q0 + bq] = dq_i
+    return tuple(g.permute(0, 2, 1, 3).to(t.dtype)
+                 for g, t in ((dq, q), (dk, k), (dv, v)))
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`chunked_attention` whose backward is :func:`_flash_bwd`: it
+    saves q, k, v, the output and the logsumexp rows, nothing of size
+    S x Sk. The reference's ``flash_attention_xla``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, bq, bk):
+        out, lse = chunked_attention(q, k, v, causal=causal, window=window,
+                                     bq=bq, bk=bk, return_stats=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, window, bq, bk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _flash_bwd(*ctx.saved_tensors, dout, *ctx.blocks)
+        return grads + (None,) * 4
+
+
+def flash_attention(q, k, v, causal=True, window=None, bq=512, bk=512):
+    """:class:`FlashAttention` on q [B, S, H, D], k, v [B, Sk, H, D]."""
+    return FlashAttention.apply(q, k, v, causal, window, bq, bk)
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +451,28 @@ def _decode_attend_gqa_int8(q, cache, cfg: AttnConfig, pos):
 # Layer-level entry points
 # ---------------------------------------------------------------------------
 
+def apply_train(p, cfg: AttnConfig, x, positions, plan, kv_x=None):
+    """The full-sequence forward (training, and a cross layer's prefill):
+    x [B, S, d] -> [B, S, d]. A cross layer attends to ``kv_x`` [B, N, d]
+    without rope, causal mask or window. With ``flash_vjp`` a layer whose
+    window covers the sequence (or that has none) takes
+    :class:`FlashAttention`; a short window keeps autograd's backward,
+    whose saved blocks are span-sized already, as the reference chooses."""
+    q, k, v = _project_qkv(p, cfg, x, positions, plan,
+                           kv_x=kv_x if cfg.cross else None)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    causal = not cfg.cross
+    win = None if cfg.cross else cfg.window
+    if cfg.flash_vjp and (win is None or win >= x.shape[1]):
+        out = flash_attention(q, k, v, causal, win, cfg.block, cfg.block)
+    else:
+        out = chunked_attention(q, k, v, causal=causal, window=win,
+                                bq=cfg.block, bk=cfg.block)
+    out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.d_head)
+    return L.linear_apply(p["wo"], out, plan, "attn_o")
+
+
 def apply_prefill(p, cfg: AttnConfig, x, positions, plan, cache):
     """Prefill: full forward over x [B, S, d] (positions [S]), and the
     cache filled with the last S_cache tokens' K/V. Returns (out, cache)."""
@@ -406,19 +528,6 @@ def apply_decode(p, cfg: AttnConfig, x, pos, plan, cache):
 # ---------------------------------------------------------------------------
 # Cross-attention (the image layers of llama-3.2-vision)
 # ---------------------------------------------------------------------------
-
-def cross_prefill(p, cfg: AttnConfig, x, img_embeds, plan):
-    """The prefill's cross-attention: q from x [B, S, d], K/V projected
-    from ``img_embeds`` [B, N, d], no rope, no causal mask, no window (the
-    reference's training forward with ``kv_x``; it projects K/V again
-    after :func:`init_cross_cache`, and so does this). Returns [B, S, d]."""
-    q, k, v = _project_qkv(p, cfg, x, None, plan, kv_x=img_embeds)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                            causal=False)
-    out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.d_head)
-    return L.linear_apply(p["wo"], out, plan, "attn_o")
-
 
 def init_cross_cache(p, cfg: AttnConfig, img_embeds, plan, cache) -> dict:
     """Project the image embeddings [B, N, d] into a cross layer's cache,

@@ -1,13 +1,16 @@
 """The Loom linear and conv layers, dispatched through execution plans.
 
 PyTorch-port counterpart of ``repro/models/layers.py``: RMSNorm, RoPE,
-activations, embeddings, and the dense, int8 and packed routes of the
-Loom linear and conv. Every linear and conv asks the model's
-:class:`~repro_torch.api.plan.ExecutionPlan` for its resolved
+activations, embeddings, and the dense, fake-quant, int8 and packed
+routes of the Loom linear and conv. Every linear and conv asks the
+model's :class:`~repro_torch.api.plan.ExecutionPlan` for its resolved
 :class:`~repro_torch.api.plan.LayerPlan` and jumps to that route's
-handler. Activations stay NHWC, as in the reference; weights keep the 2-D
-[k*k*Cin, Cout] matrix layout with rows in (di, dj, c) order, so packing
-is shared between convs and FC layers.
+handler. The ``fake_quant`` route (training, QAT) fake-quantizes the
+activations at Pa and the weights, in float32, at Pw, each under one
+per-tensor scale, then takes the float product; its gradient passes
+straight through both. Activations stay NHWC, as in the reference;
+weights keep the 2-D [k*k*Cin, Cout] matrix layout with rows in (di, dj,
+c) order, so packing is shared between convs and FC layers.
 
 The serving routes need :func:`convert_linear_for_serving` run once over
 the dense params (the paper's offline weight packing step): ``serve_int8``
@@ -138,6 +141,19 @@ def _linear_dense(p, x, lp, be):
     return x @ p["w"].to(x.dtype)
 
 
+def _fake_quant_operands(p, x, lp):
+    """x fake-quantized at Pa and the weight at Pw (in float32, then cast
+    to x's dtype), as the reference's fake-quant routes take them."""
+    xq = q.fake_quant(x, lp.a_bits)
+    wq = q.fake_quant(p["w"].to(torch.float32), lp.w_bits).to(x.dtype)
+    return xq, wq
+
+
+def _linear_fake_quant(p, x, lp, be):
+    xq, wq = _fake_quant_operands(p, x, lp)
+    return xq @ wq
+
+
 def _token_quant_axis(x) -> int | None:
     """Activation-quant axis of the serving linears: token-shaped inputs
     ([B, D] / [B, S, D]) get one scale per row, so a row's grid never
@@ -176,6 +192,7 @@ def _linear_packed(p, x, lp, be):
 
 _LINEAR_ROUTES = {
     planlib.DENSE: _linear_dense,
+    planlib.FAKE_QUANT: _linear_fake_quant,
     planlib.INT8: _linear_int8,
     planlib.PACKED: _linear_packed,
 }
@@ -194,6 +211,11 @@ def _conv_dense(p, x, kernel, stride, lp, plan):
     y = F.conv2d(x.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1),
                  stride=stride, padding=kernel // 2)
     return y.permute(0, 2, 3, 1)
+
+
+def _conv_fake_quant(p, x, kernel, stride, lp, plan):
+    xq, wq = _fake_quant_operands(p, x, lp)
+    return _conv_dense({"w": wq}, xq, kernel, stride, lp, plan)
 
 
 def _conv_int8(p, x, kernel, stride, lp, plan):
@@ -225,6 +247,7 @@ def _conv_packed(p, x, kernel, stride, lp, plan):
 
 _CONV_ROUTES = {
     planlib.DENSE: _conv_dense,
+    planlib.FAKE_QUANT: _conv_fake_quant,
     planlib.INT8: _conv_int8,
     planlib.PACKED: _conv_packed,
 }

@@ -1,7 +1,7 @@
-"""LM: init, prefill and decode over the stacked blocks, and the offline
-weight packing.
+"""LM: init, the training forward and loss, prefill and decode over the
+stacked blocks, and the offline weight packing.
 
-PyTorch-port counterpart of the serving half of ``repro/models/model.py``.
+PyTorch-port counterpart of ``repro/models/model.py``.
 The param tree is the reference's: ``{"embed": {"emb"}, "final_norm":
 {"g"}, "head": {"w"}, "blocks": {"p<i>": tree with a leading [n_groups]
 axis on every leaf}}``, so a tree made or converted by the JAX package
@@ -12,10 +12,21 @@ or cross-attention position (plus ``"k_scale"`` and ``"v_scale"`` on an
 int8 cache, ``kv_cache_bits=8``), ``{"conv", "state"}`` per mamba one.
 Python loops over the groups take the place of the reference's
 ``lax.scan``.
+
+The training forward (:func:`forward_train`, :func:`loss_fn`) is
+differentiable with autograd. ``cfg.remat`` picks what a layer group
+keeps for the backward, as the reference's ``jax.checkpoint`` policies
+do: ``"none"`` everything, ``"full"`` only the group's input (the group
+runs again in the backward, ``torch.utils.checkpoint``), ``"dots"`` the
+outputs of the products without batch dims (``aten.mm``), the rest
+recomputed.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.api.plan import PARAM_CLASS_NAMES
 from repro_torch.core import bitpack
@@ -34,6 +45,17 @@ def _index_tree(tree, g: int):
     if isinstance(tree, dict):
         return {k: _index_tree(v, g) for k, v in tree.items()}
     return tree[g]
+
+
+def _unbind_tree(tree, n: int) -> list:
+    """The ``n`` groups of a stacked tree as ``n`` trees of views, by one
+    ``torch.unbind`` per leaf: its backward stacks the groups' gradients
+    once, where indexing group g would give each group's gradient a
+    zero-filled tensor of the whole stacked leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind_tree(v, n) for k, v in tree.items()}
+        return [{k: v[g] for k, v in parts.items()} for g in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def _leaves(tree) -> list:
@@ -85,6 +107,74 @@ def _layers(params, cache, cfg: T.ModelConfig):
         for i, spec in enumerate(cfg.pattern):
             yield (spec, _index_tree(params["blocks"][f"p{i}"], g),
                    _index_tree(cache[f"p{i}"], g))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of the products without batch
+    dims (every Loom linear's ``aten.mm``; the reference's
+    ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    if op == torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_policy(cfg: T.ModelConfig):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a layer group,
+    or None (``remat="none"``: no checkpoint)."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "dots":
+        return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                 _save_dots)
+    if cfg.remat == "full":
+        return ckpt.noop_context_fn
+    raise ValueError(f"unknown remat {cfg.remat!r}; expected 'none', "
+                     f"'dots' or 'full'")
+
+
+def forward_train(params, cfg: T.ModelConfig, tokens, plan,
+                  img_embeds=None) -> tuple:
+    """tokens: int [B, S] -> (logits [B, S, V], the summed MoE auxiliary
+    loss, a float32 scalar). A VLM's cross-attention layers attend to
+    ``img_embeds`` [B, n_img_tokens, d]."""
+    s = tokens.shape[1]
+    x = L.embed_apply(params["embed"], tokens).to(torch.bfloat16)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    groups = {k: _unbind_tree(v, cfg.n_groups)
+              for k, v in params["blocks"].items()}
+
+    def group_body(x, group):
+        aux = 0.0
+        for i, spec in enumerate(cfg.pattern):
+            x, a = T.block_apply_train(group[f"p{i}"], cfg, spec, x,
+                                       positions, plan, img_embeds)
+            aux = aux + a
+        return x, aux
+
+    context_fn = _remat_policy(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(cfg.n_groups):
+        group = {k: v[g] for k, v in groups.items()}
+        if context_fn is None:
+            x, a = group_body(x, group)
+        else:
+            x, a = ckpt.checkpoint(group_body, x, group, use_reentrant=False,
+                                   context_fn=context_fn)
+        aux = aux + a
+    x = L.rms_norm(x, params["final_norm"]["g"])
+    return L.linear_apply(params["head"], x, plan, "lm_head"), aux
+
+
+def loss_fn(params, cfg: T.ModelConfig, batch: dict, plan) -> tuple:
+    """Next-token loss of ``batch`` (``tokens``, ``labels`` int [B, S],
+    and a VLM's ``img_embeds``): the mean of float32 logsumexp minus the
+    gold logit, plus the auxiliary loss. Returns (loss, {"nll", "aux"})."""
+    logits, aux = forward_train(params, cfg, batch["tokens"], plan,
+                                batch.get("img_embeds"))
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, batch["labels"][..., None].long())
+    nll = torch.mean(torch.logsumexp(logits, dim=-1) - gold.squeeze(-1))
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 def prefill(params, cfg: T.ModelConfig, tokens, cache, plan,

@@ -1,7 +1,7 @@
-"""Mixture-of-Experts for serving: top-k router, shared experts, and the
-per-row capacity dispatch.
+"""Mixture-of-Experts: top-k router with its auxiliary load-balancing loss,
+shared experts, and the per-row capacity dispatch.
 
-PyTorch-port counterpart of the serving half of ``repro/models/moe.py``.
+PyTorch-port counterpart of ``repro/models/moe.py``.
 Each sequence row dispatches its own tokens: token t's j-th choice takes
 the next free place of its expert's ``cap`` slots, ``cap = max(1, int(S *
 k / E * capacity_factor))``, and a token past its expert's capacity goes
@@ -20,9 +20,10 @@ products run one sequence row at a time, at the same shapes whatever the
 batch, where one batched ``einsum`` would let cuBLAS pick its kernel by
 the row count.
 
-Not ported: the shard_map expert parallelism (``apply_shardmap``, ROADMAP
-A.13) and the ``fake_quant`` route with the router's auxiliary loss
-(ROADMAP A.12).
+On the ``fake_quant`` route (training) the tokens dispatched to the
+experts and the experts' hidden activations are fake-quantized at Pa, as
+in the reference; the router reads x unquantized. Not ported: the
+shard_map expert parallelism (``apply_shardmap``, ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import bitpack
+from repro_torch.api import plan as planlib
+from repro_torch.core import bitpack, quantize as quant
 from repro_torch.models import layers as L
 
 # Rows of the router's product a step multiplies out at a time (float32
@@ -48,6 +50,7 @@ class MoEConfig:
     shared_d_ff: int = 0         # hidden size of the shared expert block
     capacity_factor: float = 1.25
     activation: str = "silu"
+    router_aux_coef: float = 0.01
 
 
 def init(cfg: MoEConfig, generator: torch.Generator,
@@ -99,15 +102,20 @@ def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _route(logits: torch.Tensor, cfg: MoEConfig):
     """Top-k gating, logits [B, S, E] -> (probs float32 [B, S, k], ids
-    [B, S, k]): softmax in float32, the k largest gates in descending
+    [B, S, k], aux): softmax in float32, the k largest gates in descending
     order (``torch.topk`` and ``lax.top_k`` both sort so; exact ties
-    among float32 gates are not expected), renormalised to sum 1."""
+    among float32 gates are not expected), renormalised to sum 1. ``aux``
+    is the load-balancing loss ``router_aux_coef * E * sum(mean gate *
+    mean choice count)`` per expert, a float32 scalar."""
     b, s, e = logits.shape
     gates = L.rowwise(lambda t: torch.softmax(t, dim=-1),
                       logits.to(torch.float32).reshape(b * s, e))
     probs, ids = torch.topk(gates.reshape(b, s, e), cfg.top_k, dim=-1)
     total = _sum_choices(probs[..., None])[..., 0]
-    return probs / torch.clamp_min(total, 1e-9)[..., None], ids
+    counts = torch.nn.functional.one_hot(ids, e).to(torch.float32).sum(2)
+    aux = cfg.router_aux_coef * e * torch.sum(
+        gates.mean(0) * counts.mean((0, 1)))
+    return probs / torch.clamp_min(total, 1e-9)[..., None], ids, aux
 
 
 def dispatch(ids: torch.Tensor, cfg: MoEConfig, cap: int):
@@ -155,18 +163,27 @@ def _expert_mm(buf: torch.Tensor, p: dict, key: str) -> torch.Tensor:
 
 
 def apply(p, cfg: MoEConfig, x: torch.Tensor, plan) -> torch.Tensor:
-    """x: [B, S, d] -> [B, S, d] in x's dtype; dispatch per sequence row.
-    The experts' products follow their stored layout (dense, or converted
-    by ``model.convert_params_for_serving``); the shared experts take the
+    """The serving call: :func:`apply_train`'s y alone."""
+    return apply_train(p, cfg, x, plan)[0]
+
+
+def apply_train(p, cfg: MoEConfig, x: torch.Tensor, plan) -> tuple:
+    """x: [B, S, d] -> (y [B, S, d] in x's dtype, the router's auxiliary
+    loss, a float32 scalar); dispatch per sequence row. The experts'
+    products follow their stored layout (dense, or converted by
+    ``model.convert_params_for_serving``); the shared experts take the
     plan's routes."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = max(1, int(s * k / e * cfg.capacity_factor))
-    probs, ids = _route(router_logits(x, p["router"]["w"]), cfg)
+    lp = plan.layer("moe_expert")
+    fake_quant = lp.route == planlib.FAKE_QUANT
+    xr = quant.fake_quant(x, lp.a_bits) if fake_quant else x
+    probs, ids, aux = _route(router_logits(x, p["router"]["w"]), cfg)
     slot, keep = dispatch(ids, cfg, cap)
 
     # Scatter the tokens into [B, E * cap (+1 sink), d].
-    tok = torch.repeat_interleave(x, k, dim=1)                 # [B, S*k, d]
+    tok = torch.repeat_interleave(xr, k, dim=1)                # [B, S*k, d]
     buf = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
     rows = torch.arange(b, device=x.device)[:, None]
     buf[rows, slot] = tok
@@ -174,6 +191,8 @@ def apply(p, cfg: MoEConfig, x: torch.Tensor, plan) -> torch.Tensor:
 
     h = L.activation_fn(cfg.activation)(_expert_mm(buf, p, "w_gate")) \
         * _expert_mm(buf, p, "w_up")
+    if fake_quant:
+        h = quant.fake_quant(h, lp.a_bits)
     out = _expert_mm(h, p, "w_down").reshape(b, e * cap, d)
     out = torch.cat([out, torch.zeros((b, 1, d), dtype=out.dtype,
                                       device=out.device)], dim=1)
@@ -189,4 +208,4 @@ def apply(p, cfg: MoEConfig, x: torch.Tensor, plan) -> torch.Tensor:
         hh = L.activation_fn(cfg.activation)(g) * u
         comb = comb + L.linear_apply(sh["w_down"], hh, plan,
                                      "moe_shared_down").to(comb.dtype)
-    return comb
+    return comb, aux

@@ -1,5 +1,5 @@
-"""Mamba2 (SSD, state-space duality) block for serving: the chunked prefill
-scan and the one-token decode step.
+"""Mamba2 (SSD, state-space duality) block: the chunked full-sequence scan
+(training and prefill) and the one-token decode step.
 
 PyTorch-port counterpart of ``repro/models/ssm.py`` (Dao & Gu 2024): within
 each chunk a quadratic attention-like term, across chunks a state
@@ -175,6 +175,12 @@ def _forward_full(p, cfg: SSMConfig, x: torch.Tensor, plan):
     y = y.reshape(b, s, h * pd).to(x.dtype)
     y = L.rms_norm(y * _silu(z), p["norm"]["g"])
     return L.linear_apply(p["out"], y, plan, "ssm_out"), conv_tail, final
+
+
+def apply_train(p, cfg: SSMConfig, x: torch.Tensor, plan) -> torch.Tensor:
+    """The full-sequence forward, x [B, S, d] -> [B, S, d] (S a multiple
+    of the chunk), differentiable end to end."""
+    return _forward_full(p, cfg, x, plan)[0]
 
 
 def apply_prefill(p, cfg: SSMConfig, x: torch.Tensor, plan,

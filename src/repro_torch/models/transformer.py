@@ -1,4 +1,4 @@
-"""Decoder blocks of the LM, for serving.
+"""Decoder blocks of the LM, for training and serving.
 
 PyTorch-port counterpart of ``repro/models/transformer.py``. A model is a
 repeating ``pattern`` of LayerSpecs (jamba's 1:7 attention:mamba
@@ -9,7 +9,9 @@ pre-norm -> mixer (attention | mamba | cross-attention) -> residual,
 pre-norm -> FFN (dense gated or not | MoE | none) -> residual, every
 linear a Loom linear through the plan.
 
-Every block writes its cache in place: the attention K/V slots, the
+:func:`block_apply_train` is the differentiable full-sequence forward; it
+returns the block's output and its MoE auxiliary loss. Every serving
+block writes its cache in place: the attention K/V slots, the
 mamba conv history and state (``models/ssm.py``), the cross-attention
 K/V over the image embeddings.
 """
@@ -53,8 +55,11 @@ class ModelConfig:
     max_seq: int = 8192
     n_img_tokens: int = 0        # VLM: length of the image embeddings
     kv_cache_bits: int = 16
+    flash_vjp: bool = False      # memory-efficient attention backward
     gqa_decode: bool = False
     attn_int8: bool = False
+    attn_block: int = 512        # training attention q/kv block size
+    remat: str = "full"          # "full" | "dots" | "none" (models/model.py)
     # families: dense | moe | ssm | hybrid | audio | vlm
     family: str = "dense"
 
@@ -75,8 +80,9 @@ class ModelConfig:
             n_kv_heads=self.n_kv_heads, d_head=self.d_head,
             rope_theta=self.rope_theta, qk_norm=self.qk_norm,
             window=spec.window, cross=(spec.kind == "cross"),
-            kv_cache_bits=self.kv_cache_bits, gqa_decode=self.gqa_decode,
-            attn_int8=self.attn_int8)
+            kv_cache_bits=self.kv_cache_bits, flash_vjp=self.flash_vjp,
+            gqa_decode=self.gqa_decode, attn_int8=self.attn_int8,
+            block=self.attn_block)
 
 
 def ffn_init(d: int, f: int, generator: torch.Generator,
@@ -117,13 +123,30 @@ def block_init(cfg: ModelConfig, spec: LayerSpec, generator: torch.Generator,
     return p
 
 
-def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x, plan):
+def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x, plan) -> tuple:
+    """x plus the block's FFN, and the MoE's auxiliary loss (0.0 for any
+    other FFN)."""
     if spec.ffn == "none":
-        return x
+        return x, 0.0
     h = L.rms_norm(x, p["ln2"]["g"])
     if spec.ffn == "moe":
-        return x + moe_mod.apply(p["ffn"], cfg.moe, h, plan)
-    return x + ffn_apply(p["ffn"], h, cfg.activation, plan)
+        f, aux = moe_mod.apply_train(p["ffn"], cfg.moe, h, plan)
+        return x + f, aux
+    return x + ffn_apply(p["ffn"], h, cfg.activation, plan), 0.0
+
+
+def block_apply_train(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
+                      plan, img_embeds=None) -> tuple:
+    """One block's differentiable forward over x [B, S, d] (positions
+    [S]; a cross-attention block attends to ``img_embeds``). Returns (x,
+    the MoE auxiliary loss or 0.0)."""
+    h = L.rms_norm(x, p["ln1"]["g"])
+    if spec.kind == "mamba":
+        mix = ssm_mod.apply_train(p["mix"], cfg.ssm, h, plan)
+    else:
+        mix = attn.apply_train(p["mix"], cfg.attn_cfg(spec), h, positions,
+                               plan, kv_x=img_embeds)
+    return _ffn(p, cfg, spec, x + mix, plan)
 
 
 def block_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
@@ -133,7 +156,7 @@ def block_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
     keeps its conv history and final state; a cross-attention block
     projects the image embeddings' K/V into its cache
     (``attention.init_cross_cache``) and attends to them, non-causal
-    (``attention.cross_prefill``). Returns x."""
+    (``attention.apply_train``). Returns x."""
     h = L.rms_norm(x, p["ln1"]["g"])
     if spec.kind == "mamba":
         mix = ssm_mod.apply_prefill(p["mix"], cfg.ssm, h, plan, cache)
@@ -144,11 +167,12 @@ def block_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
                              f"{cfg.d_model}] at prefill")
         acfg = cfg.attn_cfg(spec)
         attn.init_cross_cache(p["mix"], acfg, img_embeds, plan, cache)
-        mix = attn.cross_prefill(p["mix"], acfg, h, img_embeds, plan)
+        mix = attn.apply_train(p["mix"], acfg, h, positions, plan,
+                               kv_x=img_embeds)
     else:
         mix, _ = attn.apply_prefill(p["mix"], cfg.attn_cfg(spec), h,
                                     positions, plan, cache)
-    return _ffn(p, cfg, spec, x + mix, plan)
+    return _ffn(p, cfg, spec, x + mix, plan)[0]
 
 
 def block_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, pos, plan,
@@ -161,7 +185,7 @@ def block_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, pos, plan,
     else:
         mix, _ = attn.apply_decode(p["mix"], cfg.attn_cfg(spec), h, pos,
                                    plan, cache)
-    return _ffn(p, cfg, spec, x + mix, plan)
+    return _ffn(p, cfg, spec, x + mix, plan)[0]
 
 
 def block_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,

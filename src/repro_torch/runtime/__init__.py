@@ -1,18 +1,19 @@
-"""Serving runtime of the PyTorch port: deterministic fault injection,
-the serving supervisor, the continuous-batching engine and the shadow
-auditor.
+"""Runtime of the PyTorch port: the training supervisor, deterministic
+fault injection, the serving supervisor, the continuous-batching engine
+and the shadow auditor.
 
-``faults`` and the worker-failure types are dependency-light and imported
+``faults`` and the training supervisor are dependency-light and imported
 eagerly (``ckpt`` hooks fault points into checkpoint writes). The serving
 side (``ServingSupervisor``), the batching engine and the auditor pull in
 the model/plan stack, so they load lazily on first attribute access, as
-in the reference. The training ``Supervisor`` comes with ROADMAP A.12.
+in the reference.
 """
 from repro_torch.runtime import faults as faults  # noqa: PLC0414 (re-export)
 from repro_torch.runtime.supervisor import (RunState, StepMonitor,
-                                            TransientWorkerError)
+                                            Supervisor, TransientWorkerError)
 
-__all__ = ["StepMonitor", "RunState", "TransientWorkerError", "faults",
+__all__ = ["Supervisor", "StepMonitor", "RunState", "TransientWorkerError",
+           "faults",
            "ServingSupervisor", "ServeStats", "serving",
            "HEALTHY", "DEGRADED", "FAILED",
            "BatchingEngine", "StreamHandle", "batching",

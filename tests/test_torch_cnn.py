@@ -175,11 +175,14 @@ def test_compile_refuses_missing_card(monkeypatch):
 
 def test_unported_modes_and_options_raise():
     cfg = configs.get("paper_cnn", smoke=True)
-    for mode in ("fake_quant",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            repro_torch.compile(cfg, mode=mode, device="cpu")
-    # dynamic_a is ported: it serves, and equals the static path.
     x = np.random.default_rng(0).normal(size=(1, 16, 16, 3)).astype(np.float32)
+    # Every mode is ported now: fake_quant (training's QAT forward)
+    # classifies, and an unknown mode still raises.
+    got = repro_torch.compile(cfg, mode="fake_quant", device="cpu").classify(x)
+    assert got.shape == (1, 10) and bool(torch.isfinite(got).all())
+    with pytest.raises(ValueError, match="unknown execution mode"):
+        repro_torch.compile(cfg, mode="serve_int4", device="cpu")
+    # dynamic_a is ported: it serves, and equals the static path.
     out = {dyn: repro_torch.compile(cfg, uniform_policy(8, 8, dynamic_a=dyn),
                                     mode="serve_packed",
                                     device="cpu").classify(x)

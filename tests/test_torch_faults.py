@@ -3,8 +3,8 @@ heals or fails loudly, on the CPU at smoke size.
 
 Mirrors the non-checkpoint half of ``tests/test_faults.py`` (the
 checkpoint points in ``tests/test_torch_ckpt.py``, the integrity and audit
-points in ``tests/test_torch_audit.py``; training comes with ROADMAP
-A.12):
+points in ``tests/test_torch_audit.py``; the training supervisor's in
+``tests/test_torch_train_optim.py``):
 
     backend.op         -> sticky fallback down ``cuda -> torch_ref`` on the
                           CPU, or a typed FallbackExhaustedError; on the

@@ -13,7 +13,9 @@ rows equal to rows normalised alone; ``attn_int8``'s integer product
 equal to the CPU's and the exact one up to 32768 long; each decode
 route's row equal to the row attended alone; and the MoE's router,
 expert products and block, and the SSM's decode step, each row equal to
-the row run alone.
+the row run alone; training: the smoke LM's loss and gradients (dense
+and ``fake_quant``) on the card against the CPU, the flash VJP against
+autograd, and an AdamW step against the CPU's.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -690,7 +692,7 @@ def test_moe_row_equals_the_row_alone_on_the_card(cuda, op):
     def run(rows):
         if op == "router":
             logits = moe.router_logits(x[rows], p["router"]["w"])
-            return (logits,) + moe._route(logits, cfg)
+            return (logits,) + moe._route(logits, cfg)[:2]   # aux: batch-wide
         if op == "experts":
             return (moe._expert_mm(buf[rows], p, "w_gate"),)
         return (moe.apply(p, cfg, x[rows], plan),)
@@ -726,3 +728,88 @@ def test_ssm_decode_row_equals_the_row_alone_on_the_card(cuda):
         assert torch.equal(out[b:b + 1], alone)
         for key in cache:
             assert torch.equal(cache[key][b:b + 1], rows[b][key])
+
+
+# -- training ---------------------------------------------------------------
+
+def _train_case(device, mode):
+    """qwen3-1.7b smoke: seed-0 params drawn on the CPU, a numpy-seed-0
+    batch of 2 x 32; the loss, parts and gradients on ``device``."""
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.api.plan import build_plan
+    from repro_torch.launch.train import batch_on, value_and_grad
+    from repro_torch.models import model as M
+    cfg = configs.get("qwen3-1.7b", smoke=True)
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab, size=(2, 32)) for k in
+             ("tokens", "labels")}
+    params = interop.params_from_numpy(M.init_params(cfg), device)
+    return value_and_grad(params, cfg, batch_on(batch, device),
+                          build_plan(cfg, uniform_policy(8, 8), mode))
+
+
+@pytest.mark.parametrize("mode", ["dense", "fake_quant"])
+def test_train_loss_and_grads_on_the_card_equal_the_cpu(cuda, mode):
+    """The smoke LM's loss within 1e-2 relative and every gradient within
+    5% of its leaf's max (the CPU parity tests' bounds against JAX) on
+    the card against the same computation on the CPU."""
+    from repro_torch import interop
+    want, got = _train_case("cpu", mode), _train_case(cuda, mode)
+    assert abs(float(got[0]) - float(want[0])) <= 1e-2 * abs(float(want[0]))
+    w = interop.flatten_with_paths(want[2])
+    g = interop.flatten_with_paths(got[2])
+    for key in w:
+        assert g[key].is_cuda
+        diff = (g[key].cpu().float() - w[key].float()).abs().max()
+        assert float(diff) <= 0.05 * float(w[key].float().abs().max()), key
+
+
+@pytest.mark.parametrize("window", [None, 80])
+def test_flash_vjp_on_the_card_equals_autograd(cuda, window):
+    """FlashAttention's dQ/dK/dV on the card against autograd through
+    ``chunked_attention``, float32 [2, 256, 4, 64], blocks of 64 (window
+    80 walks the span route), within 1e-4 + 1e-4 |want|."""
+    from repro_torch.models import attention as attn
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q_, k_, v_, do = (torch.randn((2, 256, 4, 64), generator=g, device=cuda)
+                      for _ in range(4))
+    grads = []
+    for flash in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in (q_, k_, v_)]
+        if flash:
+            out = attn.flash_attention(*leaves, True, window, 64, 64)
+        else:
+            out = attn.chunked_attention(*leaves, causal=True, window=window,
+                                         bq=64, bk=64)
+        grads.append(torch.autograd.grad(out, leaves, do))
+    for a, b in zip(*grads):
+        assert bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_adamw_step_on_the_card_equals_the_cpu(cuda, moments):
+    """One AdamW step (clipped) on the card against the CPU: params,
+    moments and grad norm within 1e-6 of the value or of the leaf's max."""
+    from repro_torch import interop, optim
+    cfg = optim.AdamWConfig(moment_dtype=moments, grad_clip=0.5)
+    gen = torch.Generator().manual_seed(12)
+    params = {"w": torch.randn((64, 32), generator=gen),
+              "g": torch.randn((32,), generator=gen)}
+    grads = interop.tree_map(lambda p: torch.randn(p.shape, generator=gen),
+                             params)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = interop.params_from_numpy(params, dev)
+        new_p, opt, m = optim.adamw_update(
+            p, interop.params_from_numpy(grads, dev), optim.adamw_init(p, cfg),
+            cfg, torch.tensor(1e-3, device=dev))
+        out[str(dev)] = (interop.flatten_with_paths(
+            {"p": new_p, "mu": opt["mu"], "nu": opt["nu"]}), m["grad_norm"])
+    (want, wn), (got, gn) = out["cpu"], out[str(cuda)]
+    assert abs(float(gn) - float(wn)) <= 1e-6 * float(wn)
+    for key in want:
+        w, g = want[key].float(), got[key].cpu().float()
+        bound = 1e-6 * (w.abs() + w.abs().max())
+        assert bool(((g - w).abs() <= bound).all()), key

@@ -94,7 +94,7 @@ def test_int8_matmul_pads_for_int_mm_and_is_exact(shape):
 
 def test_plan_routes_and_validators():
     assert planlib.MODE_ROUTES["serve_int8"] == planlib.INT8
-    assert "serve_int8" not in planlib._UNPORTED_MODES
+    assert planlib.MODE_ROUTES["fake_quant"] == planlib.FAKE_QUANT
     cfg = configs.get("paper_cnn", smoke=True)
     plan = planlib.build_plan(cfg, uniform_policy(8, 8), "serve_int8",
                               conv_route="im2col")
@@ -104,8 +104,9 @@ def test_plan_routes_and_validators():
         assert plan.layers[(c.name, "linear")].route == planlib.INT8
     with pytest.raises(ValueError, match="conv_route"):
         planlib.build_plan(cfg, conv_route="winograd")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        repro_torch.compile(cfg, mode="fake_quant", device="cpu")
+    fq = repro_torch.compile(cfg, mode="fake_quant", device="cpu")
+    assert all(lp.route == planlib.FAKE_QUANT
+               for lp in fq.plan.layers.values())
     with pytest.raises(ValueError, match="serving conversion"):
         L.convert_linear_for_serving({"w": torch.zeros(8, 8)}, None, "dense")
 

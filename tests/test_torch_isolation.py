@@ -26,7 +26,12 @@ def test_port_files_exist():
     for new in ("src/repro_torch/ckpt/__init__.py",
                 "src/repro_torch/ckpt/checkpoint.py",
                 "src/repro_torch/core/integrity.py",
-                "src/repro_torch/runtime/audit.py"):
+                "src/repro_torch/runtime/audit.py",
+                "src/repro_torch/optim/adamw.py",
+                "src/repro_torch/optim/schedule.py",
+                "src/repro_torch/optim/compression.py",
+                "src/repro_torch/data/pipeline.py",
+                "src/repro_torch/launch/train.py"):
         assert new in names, new
 
 

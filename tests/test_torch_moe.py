@@ -93,10 +93,11 @@ def test_routing_matches_jax_exactly(block, capacity_factor):
                                 tp["router"]["w"])
     np.testing.assert_allclose(_f32(tlogits), _f32(jlogits), atol=1e-5,
                                rtol=0)
-    jprobs, jids, _ = jmoe._route(jlogits, jcfg)
-    tprobs, tids = moe._route(tlogits, tcfg)
+    jprobs, jids, jaux = jmoe._route(jlogits, jcfg)
+    tprobs, tids, taux = moe._route(tlogits, tcfg)
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_allclose(_f32(tprobs), _f32(jprobs), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
     s, k, e = x.shape[1], jcfg.top_k, jcfg.n_experts
     cap = max(1, int(s * k / e * capacity_factor))
     jslot, jkeep = _jax_dispatch(jids, e, cap)
