@@ -182,10 +182,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               ``fake_quant`` (8, 8) from seed-0 weights drawn on the card,
               finite losses and grad norms, the mean of the last three
               losses below the first; step ms (CUDA events, the first
-              apart), tokens/s, ``train_mfu``, optimizer ms, peak memory,
-              one profiled step each; 3 dense steps with the groups'
-              params taken by indexing instead of ``unbind``, timed beside
-              them; mamba2-370m (48 layers) and deepseek-moe-16b (4 of 28
+              apart), tokens/s, ``train_mfu``, peak memory, one profiled
+              step each, then AdamW alone (OPT_CALLS calls of its own after
+              the steps, which run as the launcher runs them); mamba2-370m
+              (48 layers) and deepseek-moe-16b (4 of 28
               layers; its auxiliary loss positive) TRAIN_ARCH_STEPS steps.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
@@ -2664,6 +2664,7 @@ def phase_archs(card: str) -> dict:
 # (one dense, three MoE: 64 experts x 27 MoE layers with float32 moments
 # would not fit one card) for TRAIN_ARCH_STEPS steps each.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_ARCH_STEPS = 4, 512, 8, 3
+OPT_CALLS = 3                    # AdamW timed alone, after the steps
 TRAIN_MOE_LAYERS = 4
 # The flash VJP against autograd through chunked_attention, both in
 # float32 from the same bf16 inputs ([B, S, H, D], causal, window): the
@@ -2754,11 +2755,14 @@ def train_run(cfg, mode: str, steps: int, label: str, card: str,
     just before the steps and read just after: the training path runs
     none of the port's kernels. Prints and returns the losses, step ms
     (CUDA events: the first step apart, the median of the rest),
-    tokens/s, train_mfu, peak memory and the optimizer's ms."""
+    tokens/s, train_mfu, peak memory and the optimizer's ms: the median of
+    OPT_CALLS calls of ``adamw_update`` alone after the steps, on the
+    final params with the params as their gradients (same leaves, shapes
+    and dtypes as the step's), so that no timed step holds a host sync."""
     from repro_torch.api.plan import build_plan
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.launch import train as train_mod
-    from repro_torch.optim import Schedule
+    from repro_torch.optim import Schedule, make_schedule
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     tc = train_mod.TrainConfig(sched=Schedule(warmup_steps=2,
@@ -2772,25 +2776,19 @@ def train_run(cfg, mode: str, steps: int, label: str, card: str,
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH)
     batches = [synthetic_batch(dcfg, i) for i in range(steps)]
-    opt_ms, update = [], train_mod.adamw_update
-
-    def timed_update(*args, **kwargs):
-        out, ms = _event_ms(lambda: update(*args, **kwargs))
-        opt_ms.append(ms)
-        return out
-    train_mod.adamw_update = timed_update
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     metrics, step_ms = [], []
-    try:
-        for batch in batches:
-            (state, m), ms = _event_ms(lambda: step(state, batch))
-            metrics.append({k: float(v) for k, v in m.items()})
-            step_ms.append(ms)
-    finally:
-        train_mod.adamw_update = update
+    for batch in batches:
+        (state, m), ms = _event_ms(lambda: step(state, batch))
+        metrics.append({k: float(v) for k, v in m.items()})
+        step_ms.append(ms)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() - base
+    lr = make_schedule(tc.sched)(state["opt"]["step"])
+    opt_ms = sorted(_event_ms(lambda: train_mod.adamw_update(
+        state["params"], state["params"], state["opt"], tc.opt, lr))[1]
+        for _ in range(OPT_CALLS))
     check(not any(launches.values()), f"{label}: the training path "
           f"launched kernels of the port: {launches}")
     losses = [m["loss"] for m in metrics]
@@ -2798,7 +2796,7 @@ def train_run(cfg, mode: str, steps: int, label: str, card: str,
     check(all(np.isfinite(m["grad_norm"]) for m in metrics),
           f"{label}: grad norms {[m['grad_norm'] for m in metrics]}")
     rest = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
-    opt = sorted(opt_ms[1:])[len(opt_ms[1:]) // 2]
+    opt = opt_ms[len(opt_ms) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     mfu = flops * tokens / (rest / 1e3) / BF16_FLOPS
     n_weights = sum(t.numel() for t in
@@ -2811,7 +2809,7 @@ def train_run(cfg, mode: str, steps: int, label: str, card: str,
           f"{step_ms[0]:.3f} ms first, {rest:.3f} ms median of the other "
           f"{steps - 1} (CUDA events), {tokens / (rest / 1e3):.1f} tokens/s, "
           f"train_mfu {mfu:.4f} ({flops:.4g} FLOPs/token over {BF16_FLOPS:.4g}"
-          f" FLOP/s bf16 dense peak); optimizer {opt:.3f} ms median; peak "
+          f" FLOP/s bf16 dense peak); optimizer {opt:.3f} ms (median of {OPT_CALLS} calls of its own); peak "
           f"memory {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
           f"held before; the port's kernels launched 0 times", flush=True)
     busy = None
@@ -2830,9 +2828,7 @@ def phase_train(card: str) -> None:
     (phase_flash_vjp); qwen3-1.7b at full width and depth (remat "none"),
     TRAIN_STEPS steps in ``dense`` and in ``fake_quant`` (8, 8), every loss
     finite and the mean of the last three below the first, one step of
-    each profiled, and TRAIN_ARCH_STEPS dense steps with the groups'
-    params taken by indexing (the step's cost without ``unbind``);
-    mamba2-370m (48 layers) and deepseek-moe-16b (its first
+    each profiled; mamba2-370m (48 layers) and deepseek-moe-16b (its first
     TRAIN_MOE_LAYERS layers) TRAIN_ARCH_STEPS dense steps each, finite
     losses, deepseek's auxiliary loss positive and finite."""
     t_phase = time.perf_counter()
@@ -2845,26 +2841,6 @@ def phase_train(card: str) -> None:
         check(last < r["losses"][0], f"qwen3-1.7b {mode}: the last three "
               f"losses' mean {last} is not below the first "
               f"{r['losses'][0]}")
-        if mode == "dense":
-            # The groups' params taken by indexing each stacked leaf, as
-            # serving does (each select's backward writes a zero-filled
-            # gradient of the whole leaf), against one unbind per leaf.
-            unbind = M._unbind_tree
-            M._unbind_tree = lambda tree, n: [M._index_tree(tree, g)
-                                              for g in range(n)]
-            try:
-                idx = train_run(qwen, mode, TRAIN_ARCH_STEPS,
-                                "qwen3-1.7b dense, groups by indexing", card)
-            finally:
-                M._unbind_tree = unbind
-            check(np.allclose(idx["losses"], r["losses"][:TRAIN_ARCH_STEPS],
-                              rtol=1e-2),
-                  f"indexing the groups changed the losses: {idx['losses']}")
-            print(f"[train] {card}: qwen3-1.7b dense step, the groups' "
-                  f"params by one unbind per leaf {r['median_ms']:.3f} ms, "
-                  f"by indexing {idx['median_ms']:.3f} ms (medians); peak "
-                  f"memory {r['peak'] / 2**30:.3f} against "
-                  f"{idx['peak'] / 2**30:.3f} GiB", flush=True)
     mamba = dataclasses.replace(configs.get("mamba2-370m"), remat="none")
     train_run(mamba, "dense", TRAIN_ARCH_STEPS, "mamba2-370m dense", card)
     full = configs.get("deepseek-moe-16b")

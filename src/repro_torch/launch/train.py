@@ -104,7 +104,8 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig):
     data pipeline's dict (numpy or tensors), put on the params' device.
     The input state is left unchanged. Metrics: ``loss``, ``grad_norm``
     and ``lr`` (and, without accumulation, ``nll`` and ``aux``), as 0-d
-    tensors."""
+    tensors. A batch whose rows do not split into ``accum`` equal
+    microbatches raises ``ValueError``, as the reference's reshape does."""
     sched_fn = make_schedule(tc.sched)
 
     def train_step(state: dict, batch: dict) -> tuple:
@@ -115,6 +116,10 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig):
         if tc.accum == 1:
             loss, parts, grads = value_and_grad(params, cfg, batch, plan)
         else:
+            if batch["tokens"].shape[0] % tc.accum:
+                raise ValueError(
+                    f"a batch of {batch['tokens'].shape[0]} rows does not "
+                    f"split into {tc.accum} equal microbatches")
             n = batch["tokens"].shape[0] // tc.accum
             grads = interop.tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
@@ -143,7 +148,6 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-1.7b")
-    ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
@@ -163,7 +167,7 @@ def main(argv=None):
     from repro_torch.runtime.supervisor import Supervisor
 
     device = _device(args.device)
-    cfg = configs.get(args.arch, smoke=args.smoke)
+    cfg = configs.get(args.arch, smoke=True)
     plan = planlib.build_plan(cfg, uniform_policy(args.a_bits, args.w_bits),
                               mode=args.mode)
     tc = TrainConfig(accum=args.accum,

@@ -368,6 +368,20 @@ def test_cli_refuses_to_fall_back_to_the_cpu(monkeypatch):
         train.main(["--steps", "1"])
 
 
+@pytest.mark.parametrize("batch,accum", [(5, 2), (2, 4)])
+def test_cli_refuses_a_batch_that_does_not_split(batch, accum):
+    """``--batch 5 --accum 2`` would drop a row and ``--batch 2 --accum 4``
+    would leave every microbatch empty: both raise, as the reference's
+    reshape to ``(accum, batch // accum, ...)`` does."""
+    old = signal.getsignal(signal.SIGTERM)
+    try:
+        with pytest.raises(ValueError, match="equal microbatches"):
+            train.main(["--device", "cpu", "--steps", "1", "--batch",
+                        str(batch), "--seq", "32", "--accum", str(accum)])
+    finally:
+        signal.signal(signal.SIGTERM, old)
+
+
 def test_cli_accumulation_equals_one_batch(tmp_path):
     """``--accum 2`` and ``--accum 1`` on the same batch (one step,
     checkpointed): the first moment within 2% of each leaf's max, the
