@@ -187,6 +187,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               the steps, which run as the launcher runs them); mamba2-370m
               (48 layers) and deepseek-moe-16b (4 of 28
               layers; its auxiliary loss positive) TRAIN_ARCH_STEPS steps.
+   paper   -- the paper's evaluation (PAPER_*): the cycle model's Table 4
+              headline and Fig 5 curve (modeled, printed as such); the
+              paper CNN (256 images, numpy seed 1) profiled by Table 1's
+              method through ``fake_quant`` forwards on the card, the
+              activations' dynamic and the weights' per-group precisions,
+              then the profiled (Pa capped at 8, Pw) policy served
+              ``serve_packed``: logits equal a ``torch_ref`` twin's and a
+              CPU session's (16 images), K2/K4 and K1/K3 as the recorded
+              counts imply; ``dynamic_a`` equal to static with K5 and K3
+              once per 7-bit subplane; ``session.dynamic_stats`` equal to
+              the CPU's. qwen3-1.7b profiled per layer class on 4 x 32
+              tokens, its mixed-Pw policy served (prefill of 2 x 512,
+              PAPER_GEN - 1 decode steps): every step's logits and tokens
+              equal ``torch_ref``'s, K1 + K3 197 times per call, prefill and
+              decode ms (CUDA events), packed against dense bytes, the
+              logits' correlation to the dense model's. The plane-width
+              engine at layer 0's q projection (PAPER_ENGINE_CASES) equal
+              to ``reference_int_matmul``, and at (8, 8) to ``_int_mm`` and
+              K1, with its times beside theirs. The three examples'
+              ``main(device="cuda")``. Wall time and peak memory.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -242,7 +262,8 @@ from repro_torch.api import backend as backend_module  # noqa: E402
 from repro_torch.api import guards  # noqa: E402
 from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.core import bitpack, integrity, quantize as q  # noqa: E402
-from repro_torch.core.policy import uniform_policy  # noqa: E402
+from repro_torch.core.policy import (  # noqa: E402
+    LayerPrecision, PrecisionPolicy, uniform_policy)
 from repro_torch.core.weightgroups import truncate_columns_grouped  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -933,6 +954,31 @@ def skewed_params(cfg):
     return params
 
 
+def plan_kernels(plan) -> dict:
+    """The kernel each layer of a static ``serve_packed`` CNN plan
+    launches, by its recorded weight-group counts: K4 on a conv whose
+    counts fall below Pw, else K2; K3 on such an FC, else K1."""
+    out = {}
+    for (name, kind), lp in plan.layers.items():
+        if kind == "linear" and (name, "conv") in plan.layers:
+            continue                  # a conv's twin: no route reads it
+        trimmed = lp.w_group_counts is not None and min(
+            lp.w_group_counts) < lp.w_bits
+        out[name, kind] = {("conv", True): "bitserial_conv_wgroup",
+                           ("conv", False): "bitserial_conv",
+                           ("linear", True): "bitserial_matmul_dynamic",
+                           ("linear", False): "bitserial_matmul"}[kind, trimmed]
+    return out
+
+
+def plan_launches(plan) -> dict:
+    """:func:`plan_kernels` counted: launches per request by kernel."""
+    expect = {}
+    for kname in plan_kernels(plan).values():
+        expect[kname] = expect.get(kname, 0) + 1
+    return expect
+
+
 def serve(label: str, sess, requests: list, expect: dict) -> tuple:
     """Serve ``requests`` with every launch count reset just before; the
     counts read just after must equal ``expect`` (per request) for every
@@ -1051,18 +1097,11 @@ def phase_serve() -> dict:
     wsess = repro_torch.compile(cfg, uniform_policy(8, 8),
                                 mode="serve_packed", backend="cuda",
                                 params=wparams, device="cuda")
-    expect = {}
-    for (name, kind), lp in wsess.plan.layers.items():
-        if kind == "linear" and (name, "conv") in wsess.plan.layers:
-            continue                  # a conv's twin: no route reads it
-        trimmed = min(lp.w_group_counts) < lp.w_bits
-        kname = {("conv", True): "bitserial_conv_wgroup",
-                 ("conv", False): "bitserial_conv",
-                 ("linear", True): "bitserial_matmul_dynamic",
-                 ("linear", False): "bitserial_matmul"}[kind, trimmed]
-        expect[kname] = expect.get(kname, 0) + 1
+    for (name, kind), kname in plan_kernels(wsess.plan).items():
+        lp = wsess.plan.layers[name, kind]
         print(f"[serve] path W {name} weight plane counts per group of "
               f"{lp.w_group}: {list(lp.w_group_counts)} -> {kname}")
+    expect = plan_launches(wsess.plan)
     check(expect == {"bitserial_conv_wgroup": 3,
                      "bitserial_matmul_dynamic": 1, "bitserial_matmul": 1},
           f"path W counts route to {expect}")
@@ -1106,7 +1145,8 @@ def hold_path_calls(errs: dict, calls: list, label: str) -> str:
         spec = KERNELS[name]
         got = spec["fn"](*args, **kw)
         torch.cuda.synchronize()
-        _hold(errs, name, got, spec["plain"](*args, **kw),
+        plain_kw = {k: v for k, v in kw.items() if k != "rows_per_band"}
+        _hold(errs, name, got, spec["plain"](*args, **plain_kw),
               f"{label}: the path's call {_shape_key(name, args, kw)}")
         ms.setdefault(name, []).append((int(args[0].shape[0]),
                                         int(args[1].shape[-1])))
@@ -1127,7 +1167,8 @@ def lm_layer0_operands(sess, tokens) -> dict:
     """Layer 0's operands as one ``sess.prefill`` hands them on: the
     head-repeated q/k/v that ``chunked_attention`` gets ([B, S, H, D]) and
     the FFN's two inputs (the up projection's [B, S, d] and the down
-    projection's [B, S, d_ff])."""
+    projection's [B, S, d_ff]); the q projection's input and its weight
+    leaf ``"w"`` (None on a session whose linears hold no dense weight)."""
     seen = {}
     chunked, linear = attn.chunked_attention, L.linear_apply
 
@@ -1136,7 +1177,7 @@ def lm_layer0_operands(sess, tokens) -> dict:
         return chunked(q_, k_, v_, **kw)
 
     def linear_apply(p, x, plan, layer_name=""):
-        seen.setdefault(layer_name, x)
+        seen.setdefault(layer_name, (x, p.get("w")))
         return linear(p, x, plan, layer_name)
     attn.chunked_attention, L.linear_apply = chunked_attention, linear_apply
     try:
@@ -1145,8 +1186,9 @@ def lm_layer0_operands(sess, tokens) -> dict:
     finally:
         attn.chunked_attention, L.linear_apply = chunked, linear
     q_, k_, v_ = seen["qkv"]
-    return dict(q=q_, k=k_, v=v_, ffn_in=seen["ffn_up"],
-                down_in=seen["ffn_down"])
+    return dict(q=q_, k=k_, v=v_, ffn_in=seen["ffn_up"][0],
+                down_in=seen["ffn_down"][0], q_in=seen["attn_q"][0],
+                q_w=seen["attn_q"][1])
 
 
 def lm_ops_path(o: dict) -> tuple:
@@ -2447,6 +2489,16 @@ def _event_ms(fn) -> tuple:
     return out, start.elapsed_time(end)
 
 
+def counted_call(label: str, expect: dict, fn):
+    """``fn()`` with the counts reset just before and held to ``expect``
+    just after; returns (result, ms between CUDA events, launches)."""
+    reset_launches()
+    out, ms = _event_ms(fn)
+    got = read_launches()
+    lm_step_launches(label, got, expect)
+    return out, ms, got
+
+
 def arch_run(sess, tokens, img, label: str, expect_pre: int,
              expect_dec: int, gen: int = ARCHS_GEN) -> dict:
     """Prefill and ``gen`` - 1 greedy decode steps, the counts reset just
@@ -2457,11 +2509,8 @@ def arch_run(sess, tokens, img, label: str, expect_pre: int,
     total = {name: 0 for name in KERNELS}
 
     def counted(what, expect, fn):
-        reset_launches()
-        out, ms = _event_ms(fn)
-        got = read_launches()
-        lm_step_launches(f"{label} {what}", got,
-                         {"bitserial_matmul": expect})
+        out, ms, got = counted_call(f"{label} {what}",
+                                    {"bitserial_matmul": expect}, fn)
         for name in total:
             total[name] += got[name]
         return out, ms
@@ -2858,6 +2907,415 @@ def phase_train(card: str) -> None:
           flush=True)
 
 
+# The paper phase: the paper's evaluation on the card. The CNN's profile
+# (benchmarks/table1.py's method: tolerance 0.02, min_bits 2, a_bits then
+# w_bits) on PAPER_IMAGES images (numpy seed 1); the LM's per-class search
+# (examples/precision_profiles.py's: tolerance 0.03, min_bits 3) on
+# PAPER_LM_TOKENS tokens (numpy seed 0), then a prefill of LM_BATCH x
+# LM_PROMPT prompts (numpy seed 1) and PAPER_GEN - 1 greedy decode steps;
+# the plane-width engine at qwen3-1.7b's layer-0 q projection.
+PAPER_IMAGES = 256
+PAPER_LM_TOKENS = (4, 32)
+PAPER_GEN = 9
+# (label, a_bits, w_bits, plane bits, mode); the last two take the
+# engine's float64 product (an unsigned 8-bit low plane; whole 16-bit
+# activations), the rest its int8 one.
+PAPER_ENGINE_CASES = [("LM_1b", 8, 8, 1, "serial_both"),
+                      ("LM_2b", 8, 8, 2, "serial_both"),
+                      ("LM_4b", 8, 8, 4, "serial_both"),
+                      ("LM_8b", 8, 8, 8, "serial_both"),
+                      ("LM_8b (16, 8)", 16, 8, 8, "serial_both"),
+                      ("serial_weights (16, 8)", 16, 8, 8, "serial_weights")]
+# A hand-set per-layer mix for the paper CNN (the card tests' own):
+# K2 on packed (Pw 5) and wide (Pw 11, 13) planes, K1 split lo/hi at Pw
+# 9 and 16, activations below 8 bits.
+PAPER_CNN_MIX = PrecisionPolicy(default=LayerPrecision(8, 8), per_layer={
+    "conv1": LayerPrecision(8, 13), "conv2": LayerPrecision(6, 11),
+    "conv3": LayerPrecision(8, 5), "fc0": LayerPrecision(7, 16),
+    "fc1": LayerPrecision(8, 9)})
+
+
+def subplanes(w_bits: int) -> int:
+    """Launches of an int8-weight kernel per layer on a dynamic route: one
+    per 7-bit subplane above Pw = 8 (``backend.sum_int8_subplanes``)."""
+    return 1 if w_bits <= 8 else -(-w_bits // 7)
+
+
+
+
+def phase_paper_model() -> None:
+    """The cycle model's headline numbers: MODELED cycles of the paper's
+    65 nm designs (host arithmetic), not measurements of this card."""
+    from repro_torch.core import cyclemodel as cm
+    s = cm.geomean_speedup("lm1b", "t3", "all")
+    print(f"[paper] cycle model (modeled, not measured): Table 4 LM_1b "
+          f"geomean speedup over DPNN {s:.4f}x (paper 4.38x), energy "
+          f"efficiency {cm.efficiency('lm1b', s):.4f}x (paper 3.54x)")
+    for profile in ("100", "t3"):
+        curve = cm.scaling_curve("lm1b", profile)
+        print(f"[paper] cycle model (modeled): Fig 5 LM_1b profile {profile}, "
+              f"speedup by equivalent MACs/cycle: "
+              f"{ {k: round(v, 4) for k, v in curve.items()} }")
+
+
+def phase_paper_engine(x_bf16: torch.Tensor, w_bf16: torch.Tensor,
+                       errs: dict) -> dict:
+    """``engine.plane_matmul`` at the LM's layer-0 q projection (its input
+    from one prefill, [M, K], and its dense weight [K, N]), every case of
+    PAPER_ENGINE_CASES ``torch.equal`` to ``reference_int_matmul``; at
+    (8, 8) also to ``ops.int8_matmul`` and to K1 on the packed weight.
+    Times between CUDA events beside K1's and ``_int_mm``'s. Returns the
+    K1 launches of the comparison."""
+    from repro_torch.core import engine
+    x2 = x_bf16.reshape(-1, x_bf16.shape[-1])
+    m, k = x2.shape
+    n = w_bf16.shape[1]
+    k1_launches = 0
+    for label, a_bits, w_bits, pb, mode in PAPER_ENGINE_CASES:
+        xq, _ = q.quantize(x2.to(torch.float32), a_bits)
+        wq, _ = q.quantize(w_bf16.to(torch.float32), w_bits)
+        cfg = engine.LoomConfig(a_bits=a_bits, w_bits=w_bits, a_plane_bits=pb,
+                                w_plane_bits=pb, mode=mode)
+        a_range = (engine.plane_range(a_bits, pb) if mode == "serial_both"
+                   else (q.qmin(a_bits), q.qmax(a_bits)))
+        route = engine.product_route(k, a_range,
+                                     engine.plane_range(w_bits, pb))
+        got = engine.plane_matmul(xq, wq, cfg)
+        want = engine.reference_int_matmul(xq, wq)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and got.shape == (m, n)
+              and torch.equal(got, want), f"engine {label}: plane_matmul "
+              f"differs from reference_int_matmul on the card (max abs err "
+              f"{max_err(got, want)})")
+        ms = cuda_ms(lambda: engine.plane_matmul(xq, wq, cfg), iters=5,
+                     warmup=1)
+        line = (f"[paper] engine {label} (Pa, Pw) = ({a_bits}, {w_bits}), "
+                f"{cfg.n_a_planes} x {cfg.n_w_planes} plane passes, {route} "
+                f"product, [{m}, {k}] x [{k}, {n}]: == reference_int_matmul "
+                f"on the card; {ms:.4f} ms (CUDA events, mean of 5)")
+        if (a_bits, w_bits) == (8, 8):
+            x8, w8 = xq.to(torch.int8), wq.to(torch.int8)
+            packed = bitpack.pack_weights(wq, 8)
+            k1, _, got_k1 = counted_call(
+                f"paper engine {label}", {"bitserial_matmul": 1},
+                lambda: bitserial_matmul(x8, packed, w_bits=8))
+            k1_launches += got_k1["bitserial_matmul"]
+            mm = ops.int8_matmul(x8, w8)
+            torch.cuda.synchronize()
+            _hold(errs, "bitserial_matmul", k1, want,
+                  f"K1 at the engine's (8, 8) {label} operands")
+            check(torch.equal(got, mm), f"engine {label}: differs from "
+                  f"ops.int8_matmul")
+            k1_ms = cuda_ms(lambda: bitserial_matmul(x8, packed, w_bits=8),
+                            iters=20)
+            mm_ms = cuda_ms(lambda: ops.int8_matmul(x8, w8), iters=20)
+            line += (f"; == ops.int8_matmul and K1; K1 {k1_ms:.4f} ms, "
+                     f"_int_mm {mm_ms:.4f} ms (CUDA events, launched from "
+                     f"Python)")
+        print(line, flush=True)
+    return {name: (k1_launches if name == "bitserial_matmul" else 0)
+            for name in KERNELS}
+
+
+def phase_paper_cnn(card: str, errs: dict) -> dict:
+    """The paper CNN at full size: the Table 1 profile through fake_quant
+    forwards on the card, dynamic and weight-group statistics, then the
+    profiled mixed policy and a hand-set per-layer mix served
+    ``serve_packed`` on the static and the ``dynamic_a`` paths."""
+    from repro_torch.api.plan import build_plan
+    from repro_torch.core import dynamic, policy as pol, profiler
+    cfg = configs.get("paper_cnn")
+    params = cnn.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(PAPER_IMAGES, cfg.img, cfg.img, cfg.in_ch)).astype(
+        np.float32)).cuda()
+    names = cfg.layer_names
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        base = cnn.forward(params, cfg, x, build_plan(cfg, mode="dense"))
+        n_evals = [0]
+
+        def eval_fn(p):
+            n_evals[0] += 1
+            lg = cnn.forward(params, cfg, x,
+                             build_plan(cfg, p, mode="fake_quant"))
+            return float(-torch.linalg.norm(lg - base)
+                         / torch.linalg.norm(base))
+        prof_a = profiler.profile_layer_precisions(
+            eval_fn, names, tolerance=0.02, what="a_bits", min_bits=2)
+        prof_w = profiler.profile_layer_precisions(
+            eval_fn, names, tolerance=0.02, what="w_bits", min_bits=2)
+        _, acts = cnn.forward(params, cfg, x, build_plan(cfg, mode="dense"),
+                              collect_activations=True)
+    search_s = time.perf_counter() - t0
+    print(f"[paper] {card}: paper CNN ({PAPER_IMAGES} images, seed 1) Table 1 "
+          f"profile on the card in {n_evals[0]} fake_quant forwards, "
+          f"{search_s:.2f} s: Pa {'-'.join(str(prof_a[n]) for n in names)}, "
+          f"Pw {'-'.join(str(prof_w[n]) for n in names)}", flush=True)
+    fractions = {}
+    for name in names:
+        a = acts[name].reshape(-1)
+        n = (a.shape[0] // 256) * 256
+        xq, _ = q.quantize(a[:n].to(torch.float32), prof_a[name])
+        st = dynamic.dynamic_stats(xq.reshape(-1, 256), prof_a[name], 256)
+        wgp = profiler.measure_weight_group_precision(params[name]["w"],
+                                                      prof_w[name])
+        fractions[name] = float(st["plane_fraction_executed"])
+        print(f"[paper] {name}: activations static {prof_a[name]}b -> "
+              f"dynamic mean {float(st['mean_effective_bits']):.4f}b "
+              f"(x{fractions[name]:.4f} of the planes, groups of 256); "
+              f"weights static {prof_w[name]}b -> per-group mean "
+              f"{wgp['mean_effective_bits']:.4f}b over {wgp['n_groups']} "
+              f"groups of 16 filters")
+    cvl = [fractions[c.name] for c in cfg.convs]
+    print(f"[paper] measured dynamic ratio (mean plane fraction): CVLs "
+          f"{sum(cvl) / len(cvl):.4f}, all layers "
+          f"{sum(fractions.values()) / len(fractions):.4f}, beside the "
+          f"cycle model's DYN_RATIO 0.80 (Lascorz et al.)")
+
+    # The mixed policy, Pa capped at 8 (the kernels take int8 activations).
+    mixed = pol.PrecisionPolicy(
+        default=pol.LayerPrecision(8, 8),
+        per_layer={n: pol.LayerPrecision(min(prof_a[n], 8), prof_w[n])
+                   for n in names})
+    sess, cpu, launches = paper_cnn_paths("paper CNN", cfg, params, x, mixed,
+                                          errs)
+    stats = {}
+    for layer in (cfg.convs[-1].name, "fc0"):
+        a = acts[layer]
+        on_card = sess.dynamic_stats(a, layer)
+        on_cpu = cpu.dynamic_stats(a.cpu(), layer)
+        for key, v in on_card.items():
+            same_v = (torch.equal(v.cpu(), on_cpu[key])
+                      if isinstance(v, torch.Tensor) else v == on_cpu[key])
+            check(same_v, f"paper CNN session.dynamic_stats({layer}) {key}: "
+                  f"card {v} against CPU {on_cpu[key]}")
+        stats[layer] = round(float(on_card["plane_fraction_executed"]), 4)
+    print(f"[paper] paper CNN: session.dynamic_stats on the card == the CPU "
+          f"session's (plane fraction {stats})", flush=True)
+    # The profile on random weights is uniform; a hand-set per-layer mix
+    # (Pa 6-8, Pw 5-16) sends K1/K2 down their packed and wide-plane
+    # routes layer by layer.
+    _, _, mix_launches = paper_cnn_paths("paper CNN hand-set mix", cfg,
+                                         params, x, PAPER_CNN_MIX, errs)
+    launches.update(mix_launches)
+    return launches
+
+
+def paper_cnn_paths(label: str, cfg, params, x: torch.Tensor, policy,
+                    errs: dict) -> tuple:
+    """``policy`` served ``serve_packed`` on the card, static and then
+    ``dynamic_a``, with the counts reset just before each request and held
+    to the plan's (static) or one launch per 7-bit subplane (``dynamic_a``)
+    just after, every kernel call held against its plain version at the
+    shapes it got, the static logits ``torch.equal`` to a ``torch_ref``
+    twin's and a CPU session's, ``dynamic_a``'s to the static ones.
+    Returns (the static session, the CPU session, launches by path)."""
+    sess = repro_torch.compile(cfg, policy, mode="serve_packed",
+                               backend="cuda", params=params, device="cuda")
+    expect = plan_launches(sess.plan)
+    sess.classify(x)                                      # warm-up
+    with recorded_calls(distinct=True) as calls:
+        y, ms, static = counted_call(label, expect, lambda: sess.classify(x))
+    held = hold_path_calls(errs, calls, label)
+    check(y.shape == (x.shape[0], 10) and bool(torch.isfinite(y).all()),
+          f"{label} logits {tuple(y.shape)}")
+    twin = twin_session(sess, "torch_ref")
+    check(torch.equal(y, twin.classify(x)),
+          f"{label}: cuda logits differ from the torch_ref twin's")
+    cpu = repro_torch.compile(cfg, policy, mode="serve_packed",
+                              backend="torch_ref", params=params,
+                              device="cpu")
+    small = x[:16]
+    check(torch.equal(sess.classify(small).cpu(), cpu.classify(small.cpu())),
+          f"{label}: cuda logits differ from a CPU session's")
+    counts = {name: list(lp.w_group_counts)
+              for (name, kind), lp in sess.plan.layers.items()
+              if lp.w_group_counts is not None and not (
+                  kind == "linear" and (name, "conv") in sess.plan.layers)}
+    bits = [(policy.lookup(n).a_bits, policy.lookup(n).w_bits)
+            for n in cfg.layer_names]
+    print(f"[paper] {label} (Pa, Pw) {bits}: cuda == torch_ref twin "
+          f"({x.shape[0]} images) == CPU session (16 images); {ms:.4f} ms a "
+          f"request (CUDA events); launches "
+          f"{ {k: v for k, v in static.items() if v} } as the recorded "
+          f"weight-group counts imply: {counts}; == plain: {held}",
+          flush=True)
+
+    dyn = repro_torch.compile(cfg, dataclasses.replace(policy, dynamic_a=True),
+                              mode="serve_packed", backend="cuda",
+                              params=params, device="cuda")
+    dyn_expect = {
+        "bitserial_conv_dynamic": sum(subplanes(policy.lookup(c.name).w_bits)
+                                      for c in cfg.convs),
+        "bitserial_matmul_dynamic": sum(
+            subplanes(policy.lookup(f"fc{i}").w_bits)
+            for i in range(len(cfg.fcs)))}
+    dyn.classify(x)                                       # warm-up
+    with recorded_calls(distinct=True) as dcalls:
+        yd, dms, dynamic_launches = counted_call(
+            f"{label} dynamic_a", dyn_expect, lambda: dyn.classify(x))
+    dheld = hold_path_calls(errs, dcalls, f"{label} dynamic_a")
+    check(torch.equal(yd, y), f"{label} dynamic_a logits differ from the "
+          f"static path's")
+    print(f"[paper] {label} dynamic_a: logits == static bit for bit; "
+          f"{dms:.4f} ms a request (CUDA events); launches "
+          f"{ {k: v for k, v in dynamic_launches.items() if v} } (K5 and K3 "
+          f"once per 7-bit subplane above Pw 8); == plain: {dheld}",
+          flush=True)
+    return sess, cpu, {label: static, f"{label} dynamic_a": dynamic_launches}
+
+
+def phase_paper_lm(card: str, errs: dict) -> dict:
+    """qwen3-1.7b at full width and depth: the per-class profile search,
+    the mixed-Pw policy served ``serve_packed`` (a prefill and PAPER_GEN -
+    1 greedy decode steps), every step's logits and tokens ``cuda`` ==
+    ``torch_ref``, K1 + K3 197 times per call; the engine at layer 0's q
+    projection. Returns the launches by path and the peak device memory
+    up to the serving (the phase's CNN, the profile search, compile and
+    warm-up; the serving's own peak is printed apart)."""
+    from repro_torch.api.backend import _trims
+    from repro_torch.examples import precision_profiles as pp
+    cfg = configs.get("qwen3-1.7b")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, PAPER_LM_TOKENS)).cuda()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _, prof_a, prof_w, n_evals = pp.profile_classes(params, cfg, toks)
+    search_s = time.perf_counter() - t0
+    mixed = pp.mixed_policy(prof_a, prof_w)
+    served = {c: (mixed.lookup(c).a_bits, mixed.lookup(c).w_bits)
+              for c in pp.CLASSES}
+    print(f"[paper] {card}: {cfg.name} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}) per-class profile on {PAPER_LM_TOKENS[0]} x "
+          f"{PAPER_LM_TOKENS[1]} tokens (seed 0) in {n_evals} fake_quant "
+          f"forwards, {search_s:.2f} s; (Pa, Pw) served: {served}",
+          flush=True)
+    dense = repro_torch.compile(cfg, mode="dense", params=params,
+                                device="cuda")
+    sess = repro_torch.compile(cfg, mixed, mode="serve_packed",
+                               backend="cuda", params=params, device="cuda")
+    ref = twin_session(sess, "torch_ref")
+    head = sess.plan.layer("lm_head")
+    n_k3 = 1 if _trims(head.w_group_counts, head.w_bits) else 0
+    n_lin = 7 * cfg.n_layers + 1
+    expect = {"bitserial_matmul": n_lin - n_k3,
+              "bitserial_matmul_dynamic": n_k3}
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).cuda()
+    max_seq = LM_PROMPT + PAPER_GEN
+
+    # Layer 0's q projection: its input and dense weight, for the engine.
+    layer0 = lm_layer0_operands(dense, tokens)
+    q_in, q_w = layer0["q_in"], layer0["q_w"]
+    del layer0
+    dcache = dense.init_cache(LM_BATCH, max_seq)
+    dense_y, dcache = dense.prefill(tokens, dcache)
+
+    sess.prefill(tokens, sess.init_cache(LM_BATCH, max_seq))   # warm-up
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    caches = {"cuda": sess.init_cache(LM_BATCH, max_seq),
+              "torch_ref": ref.init_cache(LM_BATCH, max_seq)}
+    total = {name: 0 for name in KERNELS}
+    with recorded_calls(distinct=True) as calls:
+        (y, caches["cuda"]), pre_ms, got = counted_call(
+            "paper LM prefill", expect,
+            lambda: sess.prefill(tokens, caches["cuda"]))
+    for name in total:
+        total[name] += got[name]
+    y_ref, caches["torch_ref"] = ref.prefill(tokens, caches["torch_ref"])
+    check(y.shape == (LM_BATCH, 1, cfg.vocab) and bool(torch.isfinite(y).all())
+          and torch.equal(y, y_ref), "paper LM prefill: cuda logits differ "
+          "from torch_ref (or are not finite)")
+    tok = torch.argmax(y[:, 0], dim=-1)
+    logits, dense_logits, dec_ms = [y[:, 0]], [dense_y[:, 0]], []
+    toks_out = [tok]
+    for i in range(PAPER_GEN - 1):
+        # The first step's calls are held too: the decode's shapes (M = 2).
+        with recorded_calls(distinct=True) as step_calls:
+            (y, caches["cuda"]), ms, got = counted_call(
+                f"paper LM decode {i}", expect,
+                lambda: sess.decode(tok, LM_PROMPT + i, caches["cuda"]))
+        if i == 0:
+            calls += step_calls
+        for name in total:
+            total[name] += got[name]
+        y_ref, caches["torch_ref"] = ref.decode(tok, LM_PROMPT + i,
+                                                caches["torch_ref"])
+        check(torch.equal(y, y_ref), f"paper LM decode step {i}: cuda logits "
+              f"differ from torch_ref")
+        dy, dcache = dense.decode(tok, LM_PROMPT + i, dcache)
+        logits.append(y)
+        dense_logits.append(dy)
+        dec_ms.append(ms)
+        tok = torch.argmax(y, dim=-1)
+        check(torch.equal(tok, torch.argmax(y_ref, dim=-1)),
+              f"paper LM decode step {i}: tokens differ from torch_ref's")
+        toks_out.append(tok)
+    peak = torch.cuda.max_memory_allocated()
+    held = hold_path_calls(errs, calls, "paper LM")
+    del calls
+    corr = pp.corr(torch.stack(logits), torch.stack(dense_logits))
+    packed_b, dense_b = _param_bytes(sess.params), _param_bytes(params)
+    print(f"[paper] {cfg.name} mixed-Pw serve_packed: prefill {LM_BATCH} x "
+          f"{LM_PROMPT} and {PAPER_GEN - 1} decode steps, cuda == torch_ref "
+          f"on every step's logits and tokens (first row "
+          f"{torch.stack(toks_out, 1)[0].tolist()}); K1 "
+          f"{expect['bitserial_matmul']} + K3 {n_k3} launches per call "
+          f"(lm_head counts {'below' if n_k3 else 'all at'} Pw); prefill "
+          f"{pre_ms:.3f} ms, decode {sorted(dec_ms)[len(dec_ms) // 2]:.3f} "
+          f"ms/step (median of {len(dec_ms)}; CUDA events); packed weights "
+          f"{packed_b} B against dense {dense_b} B "
+          f"({packed_b / dense_b:.4f}x); logits' correlation to the dense "
+          f"model's (fed the same tokens) {corr:.6f}; peak device memory "
+          f"while serving {peak / 2**30:.3f} GiB; == plain: {held}",
+          flush=True)
+    check(corr > 0.97, f"paper LM: logit correlation {corr} to dense")
+    del ref, caches, dcache, dense, sess, params
+    engine_launches = phase_paper_engine(q_in, q_w, errs)
+    return {"paper LM": total, "paper engine": engine_launches}, setup_peak
+
+
+def phase_paper(card: str, errs: dict) -> dict:
+    """The paper's evaluation: the cycle model's modeled numbers, the
+    profiled CNN and LM on the card, the plane-width engine and the three
+    examples. Returns the launches by path."""
+    from repro_torch.examples import (precision_profiles, quickstart,
+                                      serve_quantized)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    phase_paper_model()
+    out = phase_paper_cnn(card, errs)
+    lm_launches, setup_peak = phase_paper_lm(card, errs)
+    out.update(lm_launches)
+    t0 = time.perf_counter()
+    reset_launches()
+    with recorded_calls() as calls:
+        for example in (quickstart, precision_profiles, serve_quantized):
+            example.main(device="cuda")
+    torch.cuda.synchronize()
+    out["paper examples"] = read_launches()
+    check(out["paper examples"]["bitserial_matmul"] > 0,
+          "the examples launched no K1")
+    held = hold_path_calls(errs, calls, "paper examples")
+    print(f"[paper] the three examples ran on the card with their asserts "
+          f"held in {time.perf_counter() - t0:.2f} s; launches "
+          f"{ {k: v for k, v in out['paper examples'].items() if v} }; every "
+          f"call == plain: {held}")
+    del calls
+    phase_peak = max(setup_peak, torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    print(f"[paper] {card}: phase took {time.perf_counter() - t_phase:.1f} s, "
+          f"peak device memory {phase_peak / 2**30:.3f} GiB (of which "
+          f"{base / 2**30:.3f} GiB held before the phase)", flush=True)
+    return out
+
+
 def phase_engine_cli(card: str) -> None:
     """``python -m repro_torch.launch.serve`` in three subprocesses at
     once: server mode (3 requests, 2 slots), a solo ``--batch 1`` run of
@@ -3245,6 +3703,7 @@ def main() -> None:
     kv_launches = phase_kvcache(lm, engine, card, errs)
     arch_launches = phase_archs(card)
     phase_train(card)
+    paper_launches = phase_paper(card, errs)
     launches = dict(served["launches"])
     launches["CNN im2col"] = int8["im2col_launches"]
     launches["LM generate"] = lm["gen_launches"]
@@ -3252,6 +3711,7 @@ def main() -> None:
     launches["LM engine dynamic_a"] = engine["dyn_launches"]
     launches.update(kv_launches)
     launches.update(arch_launches)
+    launches.update(paper_launches)
     launches["ops"] = lm["ops_launches"]
     runs = {label: (lambda sess=sess, x=x: sess.classify(x))
             for label, (sess, x, _) in served["runs"].items()}

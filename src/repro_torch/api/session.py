@@ -171,6 +171,20 @@ class ServingSession:
         layer (an LM's layer class, or a CNN layer's name)."""
         return self.plan.layer(name, kind=kind)
 
+    def dynamic_stats(self, x, layer_name: str = "") -> dict:
+        """Runtime trimming report for ``x`` entering ``layer_name``: what
+        fraction of the static activation planes the OR-tree path executes
+        (Loom's dynamic speedup contribution). ``x`` (a tensor or array)
+        is taken onto the session's device; the means are float32 0-d
+        tensors there."""
+        from repro_torch.core import dynamic, quantize
+        lp = self.plan.layer(layer_name)
+        bits = min(lp.a_bits, 8)
+        x = torch.as_tensor(x, device=self.device)
+        xq, _ = quantize.quantize(
+            x.to(torch.float32).reshape(-1, x.shape[-1]), bits)
+        return dynamic.dynamic_stats(xq, bits, lp.group_size)
+
 
 def entry_points(cfg, plan) -> dict:
     """The session's entry-point closures over ``cfg`` and ``plan``

@@ -7,10 +7,13 @@ row 8j+i, K zero-padded to a multiple of 8.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quantize as q
+from repro_torch.core import weightgroups as wg
 
 
 def pack_bits_along_axis(bits01: torch.Tensor, axis: int) -> torch.Tensor:
@@ -81,6 +84,35 @@ def pack_weights(wq: torch.Tensor, bits: int) -> torch.Tensor:
         wq, 8 * bits * wq.shape[0])
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupedWeights:
+    """Packed planes + the pack-time per-filter-group precision metadata.
+
+    ``planes`` is exactly :func:`pack_weights`' layout; ``counts`` is the
+    OR-tree effective plane count per group of ``group_size`` output
+    columns (``weightgroups.weight_group_counts``, the function that
+    ``ExecutionPlan.record_weight_groups`` reads back off packed trees, so
+    the two cannot drift) and ``plane_weights`` the per-group shift/negate
+    table (``weightgroups.group_plane_weights``).
+    """
+
+    planes: torch.Tensor         # uint8 [bits, ceil(K/8), N]
+    counts: torch.Tensor         # int32 [ceil(N/group_size)]
+    plane_weights: torch.Tensor  # int32 [ceil(N/group_size), bits]
+    group_size: int
+    bits: int
+
+
+def pack_weights_grouped(wq: torch.Tensor, bits: int,
+                         group_size: int = 16) -> GroupedWeights:
+    """:func:`pack_weights` plus the per-filter-group plane metadata."""
+    counts = wg.weight_group_counts(wq, bits, group_size)
+    return GroupedWeights(
+        planes=pack_weights(wq, bits), counts=counts,
+        plane_weights=wg.group_plane_weights(counts, bits),
+        group_size=group_size, bits=bits)
+
+
 def unpack_weights(packed: torch.Tensor, bits: int,
                    k: int | None = None) -> torch.Tensor:
     """Reconstruct signed int32 [K, N] from the packed plane representation.
@@ -101,3 +133,9 @@ def packed_nbytes(shape_kn: tuple[int, int], bits: int) -> int:
     pack_weights adds for K % 8 != 0."""
     k, n = shape_kn
     return bits * -(-k // 8) * n
+
+
+def baseline_nbytes(shape_kn: tuple[int, int], base_bits: int = 16) -> int:
+    """Bytes of the bit-parallel baseline store (16-bit by default)."""
+    k, n = shape_kn
+    return k * n * (base_bits // 8)

@@ -68,3 +68,44 @@ def conv_window_group_counts(xq: torch.Tensor, kernel: int, stride: int,
     flat = win.reshape(b, -1).to(torch.int32)        # [B, Ho*Wo]
     eff = group_effective_bits(flat, group_size)
     return torch.clamp(eff, max=max_bits).to(torch.int32)
+
+
+def f32_mean(v: torch.Tensor) -> torch.Tensor:
+    """The float32 mean of integer counts as the reference's ``jnp.mean``
+    takes it: the exact sum times the float32 reciprocal of the count
+    (XLA's rewrite of the division), on every device."""
+    total = torch.sum(v.to(torch.int64)).to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=v.device)
+    return total * q.true_div(one, float(v.numel()))
+
+
+def dynamic_stats(xq: torch.Tensor, static_bits: int,
+                  group_size: int) -> dict:
+    """The savings dynamic precision reduction achieves against the static
+    profile -- the quantity that drives Loom's runtime speedup. The means
+    are float32 0-d tensors on ``xq``'s device."""
+    eff = torch.clamp(group_effective_bits(xq, group_size), max=static_bits)
+    mean = f32_mean(eff)
+    return {
+        "mean_effective_bits": mean,
+        "static_bits": static_bits,
+        "plane_fraction_executed": q.true_div(mean, static_bits),
+    }
+
+
+def trim_to_group_bits(xq: torch.Tensor, group_size: int,
+                       max_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Clamp each group to its effective precision (identity on values --
+    every value fits in its group's effective bits) and return (xq,
+    per-group plane counts) for the serial engine."""
+    eff = torch.clamp(group_effective_bits(xq, group_size), max=max_bits)
+    return xq, eff
+
+
+def expected_speedup(eff_bits: torch.Tensor,
+                     static_bits: int) -> torch.Tensor:
+    """Cycle-model speedup of dynamic trimming for a serial-activation
+    layer: planes executed shrink from static_bits to E[eff]."""
+    one = torch.full((), float(static_bits), dtype=torch.float32,
+                     device=eff_bits.device)
+    return one / f32_mean(eff_bits)

@@ -44,3 +44,46 @@ def truncate_columns_grouped(wq: torch.Tensor, counts,
     c = torch.as_tensor(counts, dtype=torch.int32, device=wq.device)
     ccol = torch.repeat_interleave(c, group_size)[:n]
     return truncate_signed(wq, ccol[None, :])
+
+
+def group_plane_weights(counts, bits: int) -> torch.Tensor:
+    """Per-group shift/negate metadata: the signed weight of each plane.
+
+    Returns int32 [n_groups, bits]: plane p of group g contributes
+    ``out[g, p] * plane_p`` -- +2^p below the group's MSB, -2^(count-1) at
+    it (the SIP negation block moved to the effective width), 0 for the
+    skipped planes: the per-group metadata a SIP-style accelerator ships
+    next to the packed planes. ``counts``: a list, numpy array or tensor
+    (the result lies on a tensor's device).
+    """
+    c = torch.as_tensor(counts, dtype=torch.int32).reshape(-1, 1)
+    p = torch.arange(bits, dtype=torch.int32, device=c.device).reshape(1, -1)
+    w = torch.where(p == c - 1, -(1 << p), 1 << p)
+    return torch.where(p < c, w, 0).to(torch.int32)
+
+
+def _ints(counts) -> list:
+    if isinstance(counts, torch.Tensor):
+        counts = counts.reshape(-1).tolist()
+    return [c.item() if hasattr(c, "item") else c for c in counts]
+
+
+def grouped_packed_nbytes(shape_kn: tuple[int, int], counts,
+                          group_size: int) -> int:
+    """Bytes of the per-group packed store: each group keeps only its
+    ``count`` planes. Ragged tail groups are charged only their real
+    columns; K%8 zero-padding is charged as in ``bitpack.packed_nbytes``."""
+    k, n = shape_kn
+    k8rows = -(-k // 8)
+    total = 0
+    for g, c in enumerate(_ints(counts)):
+        cols = min(group_size, n - g * group_size)
+        total += int(c) * k8rows * cols
+    return total
+
+
+def mean_group_bits(counts) -> float:
+    """Mean effective weight precision over the groups -- the quantity the
+    cycle model's weight-serial pass count scales with."""
+    vals = [float(c) for c in _ints(counts)]
+    return sum(vals) / len(vals)

@@ -80,9 +80,14 @@ def _im2col(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 
 
 def forward(params: dict, cfg: CNNConfig, x: torch.Tensor,
-            plan: ExecutionPlan) -> torch.Tensor:
-    """x: [B, H, W, C] float -> logits [B, n_classes]."""
+            plan: ExecutionPlan, collect_activations: bool = False):
+    """x: [B, H, W, C] float -> logits [B, n_classes]; with
+    ``collect_activations``, (logits, {layer: its input}) -- the live
+    activations the profiler measures (no extra operator either way)."""
+    acts = {}
     for c in cfg.convs:
+        if collect_activations:
+            acts[c.name] = x
         lp = plan.layer(c.name, kind="conv", kernel=c.kernel,
                         stride=c.stride)
         if lp.conv_route == "fused":
@@ -100,7 +105,11 @@ def forward(params: dict, cfg: CNNConfig, x: torch.Tensor,
         x = y
     x = x.reshape(x.shape[0], -1)
     for i in range(len(cfg.fcs)):
+        if collect_activations:
+            acts[f"fc{i}"] = x
         x = L.linear_apply(params[f"fc{i}"], x, plan, f"fc{i}")
         if i < len(cfg.fcs) - 1:
             x = torch.relu(x)
+    if collect_activations:
+        return x, acts
     return x

@@ -31,7 +31,14 @@ def test_port_files_exist():
                 "src/repro_torch/optim/schedule.py",
                 "src/repro_torch/optim/compression.py",
                 "src/repro_torch/data/pipeline.py",
-                "src/repro_torch/launch/train.py"):
+                "src/repro_torch/launch/train.py",
+                "src/repro_torch/core/cyclemodel.py",
+                "src/repro_torch/core/engine.py",
+                "src/repro_torch/core/profiler.py",
+                "src/repro_torch/examples/__init__.py",
+                "src/repro_torch/examples/quickstart.py",
+                "src/repro_torch/examples/precision_profiles.py",
+                "src/repro_torch/examples/serve_quantized.py"):
         assert new in names, new
 
 
