@@ -207,6 +207,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               to ``reference_int_matmul``, and at (8, 8) to ``_int_mm`` and
               K1, with its times beside theirs. The three examples'
               ``main(device="cuda")``. Wall time and peak memory.
+   dist    -- serving on a ("data", "model") mesh (DIST_*): world size 1
+              on NCCL at (1, 1) in this process, then ranks spawned on the
+              one card over gloo: (1, 2), (2, 2), and deepseek-moe-16b's
+              first 4 layers at (1, 4) (16 experts a rank). qwen3-1.7b at
+              published width and depth, phase_lm's prompts, a prefill and
+              DIST_STEPS decode steps: every rank's logits equal the
+              unsharded session's rows, K1 once per Loom linear and step
+              on every rank and nothing else, a ``dynamic_a`` prefill (K3)
+              equal to them; every K1 / K3 call at its shard shape held
+              against its plain version. A dense checkpoint (published
+              width, 2 layers) restored with ``shardings=`` onto (1, 2)
+              equals the unsharded restore's slices. Per mesh and rank:
+              prefill and decode ms (CUDA events), peak memory, launches,
+              the collectives by kind.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -1176,9 +1190,9 @@ def lm_layer0_operands(sess, tokens) -> dict:
         seen.setdefault("qkv", (q_, k_, v_))
         return chunked(q_, k_, v_, **kw)
 
-    def linear_apply(p, x, plan, layer_name=""):
+    def linear_apply(p, x, plan, layer_name="", shard=None):
         seen.setdefault(layer_name, (x, p.get("w")))
-        return linear(p, x, plan, layer_name)
+        return linear(p, x, plan, layer_name, shard)
     attn.chunked_attention, L.linear_apply = chunked_attention, linear_apply
     try:
         with torch.inference_mode():
@@ -2471,12 +2485,14 @@ def twin_session(sess, backend: str, policy=None):
     policy): what ``compile`` builds from the same packed tree, without a
     second copy of the weights."""
     from repro_torch.api.plan import build_plan, counted_weights
-    from repro_torch.api.session import entry_points
+    from repro_torch.api.session import counted_shards, entry_points
     plan = build_plan(sess.cfg, policy or sess.plan.policy, sess.plan.mode,
                       backend)
-    plan.record_weight_groups(counted_weights(sess.cfg, sess.params))
+    plan.record_weight_groups(
+        counted_weights(sess.cfg, sess.params) if sess.shard is None
+        else counted_shards(sess.params, plan.mode, sess.shard))
     return dataclasses.replace(sess, plan=plan,
-                               **entry_points(sess.cfg, plan))
+                               **entry_points(sess.cfg, plan, sess.shard))
 
 
 def _event_ms(fn) -> tuple:
@@ -3316,6 +3332,289 @@ def phase_paper(card: str, errs: dict) -> dict:
     return out
 
 
+# The dist phase: the port served on a ("data", "model") device mesh of
+# torch.distributed ranks (ROADMAP A.13a). (a) World size 1 on NCCL, mesh
+# (1, 1), in this process. (b) Ranks spawned on the one card over gloo
+# (NCCL refuses two ranks on one device): a 2-rank world serves mesh
+# (1, 2) and restores (d)'s checkpoint onto it; a 4-rank world serves
+# (2, 2) and (c), deepseek-moe-16b cut to its first DIST_MOE_LAYERS layers
+# on (1, 4), 16 local experts a rank. qwen3-1.7b at published width and
+# depth, serve_packed (8, 8), seed-0 weights, phase_lm's prompts: a
+# prefill and DIST_STEPS greedy decode steps whose logits on every rank
+# equal the unsharded session's rows (torch.equal), then a dynamic_a
+# prefill (K3) equal to them too. (d): qwen3-1.7b's dense tree at
+# published width cut to DIST_CKPT_LAYERS layers (the whole depth's 4 GB
+# would take the phase's budget to write), restored with shardings=.
+DIST_STEPS = 8
+DIST_MOE_LAYERS = 4
+DIST_CKPT_LAYERS = 2
+DIST_TIMEOUT_S = 240
+DIST_LABEL = "gloo on one H100, transport through the host"
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        return s_.getsockname()[1]
+
+
+def _dist_expect(sess, tokens, max_seq: int) -> list:
+    """The unsharded session's logits: a prefill and DIST_STEPS greedy
+    decode steps (on the host)."""
+    cache = sess.init_cache(tokens.shape[0], max_seq)
+    logits, cache = sess.prefill(tokens, cache)
+    out = [logits]
+    for i in range(DIST_STEPS):
+        tok = torch.argmax(out[-1].reshape(tokens.shape[0], -1), dim=-1)
+        logits, cache = sess.decode(tok, tokens.shape[1] + i, cache)
+        out.append(logits)
+    return [t.cpu() for t in out]
+
+
+def _moe_cut(smoke: bool = False):
+    """deepseek-moe-16b's first DIST_MOE_LAYERS layers (``smoke``: its
+    smoke config, for a short rehearsal of the phase)."""
+    if smoke:
+        return configs.get("deepseek-moe-16b", smoke=True)
+    full = configs.get("deepseek-moe-16b")
+    return dataclasses.replace(full, n_layers=DIST_MOE_LAYERS,
+                               pattern=full.pattern[:DIST_MOE_LAYERS])
+
+
+def _dist_serve(mesh, cfg, tokens, expect: list, max_seq: int, errs: dict,
+                label: str) -> dict:
+    """``cfg`` compiled on ``mesh`` (seed-0 weights drawn on the card, each
+    rank packing its own shards) and served: a warm-up prefill, then a
+    prefill and DIST_STEPS decode steps with the counts reset just before,
+    each step's logits torch.equal to ``expect``'s rows; K1 once per
+    Loom linear and step, nothing else; then a dynamic_a prefill (K3 once
+    per linear) equal to them. Every kernel call of both runs is held
+    against its plain version at its shard shape, after the counts are
+    read. Returns this rank's numbers."""
+    sess = repro_torch.compile(
+        cfg, uniform_policy(8, 8), mode="serve_packed",
+        generator=torch.Generator(device="cuda").manual_seed(0), mesh=mesh)
+    rows = sess.rows(tokens.shape[0])
+    want = [t.cuda()[rows] for t in expect]
+    n_pre, n_dec = loom_linears(cfg, decode=False), loom_linears(cfg, True)
+    sess.prefill(tokens, sess.init_cache(tokens.shape[0], max_seq))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = sess.init_cache(tokens.shape[0], max_seq)
+    reset_launches()
+    dec_ms = []
+    with recorded_calls(distinct=True) as calls:
+        (logits, cache), pre_ms = _event_ms(
+            lambda: sess.prefill(tokens, cache))
+        check(torch.equal(logits, want[0]), f"dist {label}: prefill logits "
+              f"differ from the unsharded session's (max abs err "
+              f"{max_err(logits, want[0])})")
+        for i in range(DIST_STEPS):
+            tok = torch.argmax(expect[i].cuda().reshape(tokens.shape[0], -1),
+                               dim=-1)
+            (logits, cache), ms = _event_ms(
+                lambda: sess.decode(tok, tokens.shape[1] + i, cache))
+            dec_ms.append(ms)
+            check(torch.equal(logits, want[i + 1]), f"dist {label}: decode "
+                  f"step {i} logits differ from the unsharded session's "
+                  f"(max abs err {max_err(logits, want[i + 1])})")
+    launches = read_launches()
+    lm_step_launches(f"dist {label}", launches, {
+        "bitserial_matmul": n_pre + DIST_STEPS * n_dec})
+    peak = torch.cuda.max_memory_allocated()
+    held = hold_path_calls(errs, calls, f"dist {label}")
+    del cache
+    dyn = twin_session(sess, "cuda", uniform_policy(8, 8, dynamic_a=True))
+    reset_launches()
+    with recorded_calls(distinct=True) as dcalls:
+        (dlogits, _), dyn_ms = _event_ms(lambda: dyn.prefill(
+            tokens, dyn.init_cache(tokens.shape[0], max_seq)))
+    dyn_launches = read_launches()
+    lm_step_launches(f"dist {label} dynamic_a", dyn_launches,
+                     {"bitserial_matmul_dynamic": n_pre})
+    check(torch.equal(dlogits, want[0]), f"dist {label}: the dynamic_a "
+          f"prefill differs from the static one")
+    counts = [c.float().mean().item() for name, a, _ in dcalls
+              if name == "bitserial_matmul_dynamic" for c in a[2:3]]
+    dheld = hold_path_calls(errs, dcalls, f"dist {label} dynamic_a")
+    return {"label": label, "rank": dist_rank(), "prefill_ms": pre_ms,
+            "decode_ms": float(np.median(dec_ms)),
+            "dyn_prefill_ms": dyn_ms, "peak_gib": peak / 2**30,
+            "launches": launches, "dyn_launches": dyn_launches,
+            "k3_mean_planes": float(np.mean(counts)), "held": held,
+            "dyn_held": dheld, "collectives": {
+                f"{op} {str(dt).replace('torch.', '')} {red or ''}".strip(): n
+                for (op, dt, red), n in sorted(
+                    sess.shard.comm.calls.items(), key=str)}}
+
+
+def dist_rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _ckpt_cfg(smoke: bool):
+    return dataclasses.replace(configs.get("qwen3-1.7b", smoke=smoke),
+                               n_layers=DIST_CKPT_LAYERS)
+
+
+def _dist_ckpt(mesh, tmp: str, smoke: bool) -> dict:
+    """(d): the dense checkpoint restored with ``shardings=`` equals the
+    unsharded restore's slices, leaf for leaf."""
+    from repro_torch.dist import sharding
+    cfg = _ckpt_cfg(smoke)
+    skel, specs = M.param_skeleton(cfg), M.param_spec_tree(cfg)
+    t0 = time.perf_counter()
+    got, step = ckpt.restore_checkpoint(
+        os.path.join(tmp, "ckpt"), 0, skel, device="cuda",
+        shardings=sharding.named_tree(specs, mesh))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    whole, _ = ckpt.restore_checkpoint(os.path.join(tmp, "ckpt"), 0, skel,
+                                       device="cuda")
+    want = interop.flatten_with_paths(sharding.shard_tree(whole, specs, mesh))
+    flat = interop.flatten_with_paths(got)
+    for key, t in flat.items():
+        check(torch.equal(t, want[key]), f"dist ckpt: leaf {key} is not the "
+              f"slice of the unsharded restore")
+    return {"leaves": len(flat), "restore_s": restore_s,
+            "bytes": sum(t.numel() * t.element_size() for t in flat.values())}
+
+
+def _dist_rank(rank: int, world: int, port: int, tmp: str,
+               smoke: bool) -> None:
+    """One spawned rank of the dist phase; writes ``rank<r>_<world>.json``."""
+    from repro_torch.dist import init_process
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = init_process(rank, world, port, "cuda", timeout_s=DIST_TIMEOUT_S)
+    expect = torch.load(os.path.join(tmp, "expect.pt"))
+    tokens = expect["tokens"].cuda()
+    max_seq = tokens.shape[1] + DIST_STEPS + 1
+    errs = {k: 0 for k in KERNELS}
+    runs, extra = [], {}
+    qwen = configs.get("qwen3-1.7b", smoke=smoke)
+    if world == 2:
+        mesh = make_host_mesh(2, model=2, device="cuda")
+        runs.append(_dist_serve(mesh, qwen, tokens, expect["qwen"], max_seq,
+                                errs, "(1, 2)"))
+        extra["ckpt"] = _dist_ckpt(mesh, tmp, smoke)
+    else:
+        mesh = make_host_mesh(4, model=2, device="cuda")
+        runs.append(_dist_serve(mesh, qwen, tokens, expect["qwen"], max_seq,
+                                errs, "(2, 2)"))
+        mesh = make_host_mesh(4, model=4, device="cuda")
+        runs.append(_dist_serve(mesh, _moe_cut(smoke),
+                                expect["moe_tokens"].cuda(), expect["moe"],
+                                max_seq, errs, "(1, 4) deepseek"))
+    with open(os.path.join(tmp, f"rank{rank}_{world}.json"), "w") as f:
+        json.dump({"backend": backend, "runs": runs, "errs": errs, **extra},
+                  f)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _print_dist(r: dict, card: str) -> None:
+    la, dl = r["launches"], r["dyn_launches"]
+    print(f"[dist] {r['label']} rank {r['rank']} ({card}; {r['transport']}): "
+          f"prefill {r['prefill_ms']:.3f} ms, decode {r['decode_ms']:.3f} "
+          f"ms/step (median of {DIST_STEPS}), dynamic_a prefill "
+          f"{r['dyn_prefill_ms']:.3f} ms, peak {r['peak_gib']:.3f} GiB; K1 "
+          f"{la['bitserial_matmul']}, K3 {dl['bitserial_matmul_dynamic']} "
+          f"(mean activation planes {r['k3_mean_planes']:.3f}); "
+          f"collectives since compile {r['collectives'] or 'none'}; held: "
+          f"{r['held']}; {r['dyn_held']}")
+
+
+def phase_dist(lm: dict, card: str, errs: dict, smoke: bool = False) -> dict:
+    """The dist phase (see DIST_STEPS above); returns the launches by path
+    (rank 0's of each spawned mesh). ``smoke``: the smoke configs (``lm``
+    then holds a smoke qwen3 session), a rehearsal of the phase."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.dist import init_process
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    sess, tokens = lm["sess"], lm["tokens"]
+    qwen = sess.cfg
+    max_seq = tokens.shape[1] + DIST_STEPS + 1
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        expect = {"tokens": tokens.cpu(),
+                  "qwen": _dist_expect(sess, tokens, max_seq)}
+        moe_cfg = _moe_cut(smoke)
+        moe_sess = repro_torch.compile(
+            moe_cfg, uniform_policy(8, 8), mode="serve_packed",
+            generator=torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        expect["moe_tokens"] = (tokens % moe_cfg.vocab).cpu()  # its vocab
+        expect["moe"] = _dist_expect(moe_sess, expect["moe_tokens"].cuda(),
+                                     max_seq)
+        del moe_sess
+        torch.save(expect, os.path.join(tmp, "expect.pt"))
+        ckpt.save_checkpoint(os.path.join(tmp, "ckpt"), 0, M.init_params(
+            _ckpt_cfg(smoke), torch.Generator(device="cuda").manual_seed(0),
+            "cuda"))
+        torch.cuda.empty_cache()
+        print(f"[dist] unsharded expectations and the checkpoint in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        launches = {}
+        backend = init_process(0, 1, _free_port(), "cuda",
+                               timeout_s=DIST_TIMEOUT_S)
+        check(backend == "nccl", f"dist: world size 1 ran on {backend}")
+        r = _dist_serve(make_host_mesh(1, 1, device="cuda"), qwen, tokens,
+                        expect["qwen"], max_seq, errs, "(1, 1)")
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        r["transport"] = "NCCL, world size 1"
+        _print_dist(r, card)
+        launches["dist (1, 1) nccl"] = r["launches"]
+        launches["dist (1, 1) nccl dynamic_a"] = r["dyn_launches"]
+
+        for world in (2, 4):
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(_dist_rank,
+                                     args=(world, _free_port(), tmp, smoke),
+                                     nprocs=world, join=False,
+                                     start_method="spawn")
+            while not ctx.join():
+                pass
+            for rank in range(world):
+                with open(os.path.join(tmp, f"rank{rank}_{world}.json")) as f:
+                    got = json.load(f)
+                check(got["backend"] == "gloo", f"dist: {world} ranks on "
+                      f"one card ran on {got['backend']}")
+                for k, v in got["errs"].items():
+                    errs[k] = max(errs[k], v)
+                for r in got["runs"]:
+                    r["transport"] = DIST_LABEL
+                    _print_dist(r, card)
+                    if rank == 0:
+                        launches[f"dist {r['label']} rank 0"] = r["launches"]
+                        launches[f"dist {r['label']} rank 0 dynamic_a"] = \
+                            r["dyn_launches"]
+                if "ckpt" in got:
+                    c = got["ckpt"]
+                    print(f"[dist] (1, 2) rank {rank}: checkpoint of "
+                          f"qwen3-1.7b at published width, {DIST_CKPT_LAYERS}"
+                          f" layers, restored with shardings= in "
+                          f"{c['restore_s']:.2f} s: {c['leaves']} leaves, "
+                          f"{c['bytes']} bytes of shards, each the slice of "
+                          f"the unsharded restore")
+            print(f"[dist] the {world}-rank world took "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[dist] {card}: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def phase_engine_cli(card: str) -> None:
     """``python -m repro_torch.launch.serve`` in three subprocesses at
     once: server mode (3 requests, 2 slots), a solo ``--batch 1`` run of
@@ -3704,6 +4003,7 @@ def main() -> None:
     arch_launches = phase_archs(card)
     phase_train(card)
     paper_launches = phase_paper(card, errs)
+    dist_launches = phase_dist(lm, card, errs)
     launches = dict(served["launches"])
     launches["CNN im2col"] = int8["im2col_launches"]
     launches["LM generate"] = lm["gen_launches"]
@@ -3712,6 +4012,7 @@ def main() -> None:
     launches.update(kv_launches)
     launches.update(arch_launches)
     launches.update(paper_launches)
+    launches.update(dist_launches)
     launches["ops"] = lm["ops_launches"]
     runs = {label: (lambda sess=sess, x=x: sess.classify(x))
             for label, (sess, x, _) in served["runs"].items()}

@@ -23,6 +23,16 @@ backend in a :class:`~repro_torch.api.backend.GuardedBackend`. A session
 compiled for serving carries the CRC32 fingerprint of its weights
 (``core.integrity``), taken once at ``compile``; ``verify_integrity``
 re-checks it.
+
+On a mesh (``compile(..., mesh=mesh)``, a ("data", "model") ``DeviceMesh``
+of ``torch.distributed`` ranks, one process each) an LM session holds this
+rank's shards only: the dense weights are split by their logical specs,
+each rank quantizes and packs its own shard under the whole leaf's scale
+(an all-reduced absmax), so its bytes are the slice of the unsharded
+packing. ``prefill`` / ``decode`` take the whole batch and return this
+rank's rows (:meth:`ServingSession.rows`), run tensor-parallel over
+"model" and batch-parallel over "data"; ``generate`` returns every row.
+A CNN ignores the mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -54,6 +64,8 @@ class ServingSession:
     _prefill: Any = None
     _decode: Any = None
     _classify: Any = None
+    # This rank's place on a mesh (dist.parallel.ShardCtx); None unsharded.
+    shard: Any = None
     # Content identity of the compiled weights (core.integrity), computed
     # once per compile/reload for serving modes; None = not fingerprinted.
     fingerprint: Any = None
@@ -69,11 +81,33 @@ class ServingSession:
 
     # -- LM entry points ----------------------------------------------------
 
+    def rows(self, batch: int) -> slice:
+        """The rows of a ``batch``-row input this rank serves (all of them
+        without a mesh)."""
+        if self.shard is None:
+            return slice(0, batch)
+        n = self.shard.local(batch, "data")
+        return slice(self.shard.rank("data") * n,
+                     (self.shard.rank("data") + 1) * n)
+
     def init_cache(self, batch: int, max_seq: int | None = None) -> dict:
+        """A cache for ``batch`` rows (on a mesh: this rank's rows and KV
+        heads of it, ``model.cache_shard_spec_tree``)."""
         from repro_torch.models import model as M
         self._need(lm=True)
-        return M.init_cache(self.cfg, batch, max_seq or self.cfg.max_seq,
-                            self.device)
+        cache = M.init_cache(self.cfg, batch, max_seq or self.cfg.max_seq,
+                             self.device)
+        if self.shard is None:
+            return cache
+        from repro_torch.dist import sharding
+        return sharding.shard_tree(cache, M.cache_shard_spec_tree(self.cfg),
+                                   self.shard.mesh)
+
+    def _local_rows(self, t):
+        if self.shard is None or not isinstance(t, torch.Tensor) \
+                or t.ndim == 0:
+            return t
+        return t[self.rows(t.shape[0])]
 
     def prefill(self, tokens, cache=None, img_embeds=None):
         """Fill caches from a full prompt (int [B, S]). Returns
@@ -85,11 +119,13 @@ class ServingSession:
         tokens = torch.as_tensor(tokens, device=self.device).long()
         if cache is None:
             cache = self.init_cache(tokens.shape[0])
+        tokens = self._local_rows(tokens)
         with torch.inference_mode():
             if img_embeds is None:
                 return self._prefill(self.params, tokens, cache)
             from repro_torch import interop
-            img_embeds = interop.params_from_numpy(img_embeds, self.device)
+            img_embeds = self._local_rows(
+                interop.params_from_numpy(img_embeds, self.device))
             return self._prefill(self.params, tokens, cache, img_embeds)
 
     def decode(self, token, pos, cache):
@@ -97,9 +133,11 @@ class ServingSession:
         int for the whole batch or an int [B] tensor per row. Returns
         (logits [B, V], cache)."""
         self._need(lm=True)
-        token = torch.as_tensor(token, device=self.device).long()
+        token = self._local_rows(
+            torch.as_tensor(token, device=self.device).long())
         if not isinstance(pos, int):
-            pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
+            pos = self._local_rows(
+                torch.as_tensor(pos, dtype=torch.int32, device=self.device))
         with torch.inference_mode():
             return self._decode(self.params, token, pos, cache)
 
@@ -107,17 +145,23 @@ class ServingSession:
         """Greedy generation: prefill + gen_len - 1 decode steps over a
         cache of ``max_seq`` slots (default ``cfg.max_seq``). The tokens
         stay on the device; returns numpy int32 [B, gen_len] after one
-        transfer."""
+        transfer. On a mesh each rank decodes its rows; every rank gets
+        the whole batch's tokens."""
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         logits, cache = self.prefill(tokens, self.init_cache(b, max_seq))
         tok = torch.argmax(logits[:, 0], dim=-1)
         out = [tok]
         for i in range(gen_len - 1):
-            logits, cache = self.decode(tok, s + i, cache)
+            logits, cache = self.decode(self._whole_rows(tok), s + i, cache)
             tok = torch.argmax(logits, dim=-1)
             out.append(tok)
-        return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+        out = self._whole_rows(torch.stack(out, dim=1).to(torch.int32))
+        return out.cpu().numpy()
+
+    def _whole_rows(self, t):
+        """Every rank's rows of ``t`` (t itself without a mesh)."""
+        return t if self.shard is None else self.shard.gather(t, 0, "data")
 
     # -- CNN entry point ----------------------------------------------------
 
@@ -164,7 +208,8 @@ class ServingSession:
         guarded backend's sticky fallbacks included), so the fresh
         closures only drop any instrumentation wrapped around the old
         ones. The fingerprint is kept."""
-        return dataclasses.replace(self, **entry_points(self.cfg, self.plan))
+        return dataclasses.replace(
+            self, **entry_points(self.cfg, self.plan, self.shard))
 
     def layer_plan(self, name: str = "", kind: str = "linear"):
         """The resolved :class:`~repro_torch.api.plan.LayerPlan` of one
@@ -186,18 +231,21 @@ class ServingSession:
         return dynamic.dynamic_stats(xq, bits, lp.group_size)
 
 
-def entry_points(cfg, plan) -> dict:
+def entry_points(cfg, plan, shard=None) -> dict:
     """The session's entry-point closures over ``cfg`` and ``plan``
-    (``_prefill`` and ``_decode`` for an LM, ``_classify`` for a CNN);
-    ``launch.serve.make_serve_fns`` hands out the LM's pair."""
+    (``_prefill`` and ``_decode`` for an LM, on a mesh over ``shard``,
+    a :class:`~repro_torch.dist.parallel.ShardCtx`; ``_classify`` for a
+    CNN); ``launch.serve.make_serve_fns`` and ``jit_serve_steps`` hand out
+    the LM's pair."""
     if hasattr(cfg, "pattern"):
         from repro_torch.models import model as M
 
         def prefill(params, tokens, cache, img_embeds=None):
-            return M.prefill(params, cfg, tokens, cache, plan, img_embeds)
+            return M.prefill(params, cfg, tokens, cache, plan, img_embeds,
+                             shard)
 
         def decode(params, token, pos, cache):
-            return M.decode_step(params, cfg, token, pos, cache, plan)
+            return M.decode_step(params, cfg, token, pos, cache, plan, shard)
 
         return dict(_prefill=prefill, _decode=decode)
     from repro_torch.models import cnn
@@ -212,7 +260,7 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
             mode: str = "dense", backend="cuda", *, params=None,
             generator: torch.Generator | None = None,
             device="cuda", guarded: bool = False,
-            conv_route: str = "fused") -> ServingSession:
+            conv_route: str = "fused", mesh=None) -> ServingSession:
     """Compile a model for serving: plans + params on ``device``.
 
     ``cfg``: a CNN config (``classify``) or an LM ``ModelConfig``
@@ -233,8 +281,18 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
     fault-free path (pair with ``repro_torch.runtime.ServingSupervisor``
     for request-level retry/timeout/health). A serving mode fingerprints
     the packed weights (``session.fingerprint``), hashing every leaf on
-    the host.
+    the host. ``mesh``: a ("data", "model") ``DeviceMesh``
+    (``launch.mesh.make_host_mesh``): an LM is then compiled as this
+    rank's shards on the mesh's device (module docstring); ``params`` may
+    be whole or this rank's shards (``interop.params_from_numpy(...,
+    specs=, mesh=)``), told apart by the embedding table's shape.
     """
+    if mesh is not None and hasattr(cfg, "pattern"):
+        from repro_torch.dist.parallel import ShardCtx
+        shard = ShardCtx(mesh)
+        device = shard.device
+    else:
+        shard = None
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("compile(device='cuda'): no CUDA device is "
@@ -254,14 +312,70 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
             from repro_torch.models import cnn
             params = cnn.init_params(cfg, generator, device)
     params = interop.params_from_numpy(params, device)
-    if mode in _SERVING_MODES:
+    if shard is not None:
+        params = _shard_params(cfg, policy, mode, params, shard)
+        plan.record_weight_groups(counted_shards(params, mode, shard))
+    elif mode in _SERVING_MODES:
         if lm:
             params = M.convert_params_for_serving(params, policy, mode)
         else:
             params = M.convert_tree(params, policy, mode)
         plan.record_weight_groups(counted_weights(cfg, params))
     sess = ServingSession(cfg=cfg, plan=plan, params=params, device=device,
-                          **entry_points(cfg, plan))
+                          shard=shard, **entry_points(cfg, plan, shard))
     if mode in _SERVING_MODES:
         sess.refingerprint()
     return sess
+
+
+def _is_converted(params) -> bool:
+    from repro_torch import interop
+    return any(k.endswith(("/w_packed", "/wq"))
+               for k in interop.flatten_with_paths(params))
+
+
+def _spec_at(specs, path: tuple):
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def _shard_params(cfg, policy, mode: str, params: dict, shard) -> dict:
+    """This rank's serving tree from ``params`` (whole, or this rank's
+    shards already). Dense leaves are split by ``param_spec_tree``; in a
+    serving mode each rank then converts its own shards, every linear's
+    (and expert's) absmax all-reduced with MAX over the ranks holding its
+    pieces, so the scale is the whole leaf's and the packed bytes are the
+    slice of the unsharded packing."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import Spec
+    from repro_torch.models import model as M
+    dense_specs = M.param_spec_tree(cfg)
+    whole = tuple(params["embed"]["emb"].shape) == (cfg.vocab, cfg.d_model)
+    if mode in _SERVING_MODES and _is_converted(params):
+        specs = M.convert_specs_for_serving(M.param_skeleton(cfg),
+                                            dense_specs, mode)
+        return sharding.shard_tree(params, specs, shard.mesh) if whole \
+            else params
+    if whole:
+        params = sharding.shard_tree(params, dense_specs, shard.mesh)
+    if mode not in _SERVING_MODES:
+        return params
+
+    def absmax_hook(path, expert):
+        spec = _spec_at(dense_specs, path)
+        spec = spec if expert else spec["w"]
+        if path[0] == "blocks":
+            spec = Spec(*spec[1:])
+        return shard.absmax_reducer(spec, (1, 2) if expert else (0, 1))
+
+    return M.convert_params_for_serving(params, policy, mode, absmax_hook)
+
+
+def counted_shards(params: dict, mode: str, shard) -> dict:
+    """The head's weight-group counts are taken over its whole K: the
+    rank's column shard, its "fsdp" split gathered."""
+    if mode not in _SERVING_MODES:
+        return {}
+    from repro_torch.models import model as M
+    return {"lm_head": shard.lin(*M.HEAD_AXES).weights(params["head"])}

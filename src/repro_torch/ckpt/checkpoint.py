@@ -23,9 +23,16 @@ The ``ckpt.leaf_corrupt`` / ``ckpt.crash_rename`` fault points
 
 Leaves are saved from the host: a tensor on the card is copied to the
 host first. Restored leaves are tensors on the ``device`` the caller
-names. ``compress="bf16"`` stores float32 leaves as bf16 (rounded to
-nearest even, as ``ml_dtypes`` rounds). The reference's ``shardings=``
-(elastic placement on a mesh) comes with ROADMAP A.13.
+names, by default the device of ``like``'s tensors (the card where
+``like`` holds none, or only meta tensors), as the reference restores
+onto its default device. ``compress="bf16"`` stores float32 leaves as
+bf16 (rounded to nearest even, as ``ml_dtypes`` rounds).
+
+On a mesh (``shardings=``, a tree matching the state of
+:class:`repro_torch.dist.sharding.NamedSharding`): a restore CRC-checks
+each whole ``.npy`` on every rank, as unsharded, and keeps this rank's
+slice; a save all-gathers the shards and rank 0 writes the whole leaves,
+so the files are those of an unsharded save, byte for byte.
 """
 from __future__ import annotations
 
@@ -79,7 +86,7 @@ def _corrupt_one_leaf(tmp: str) -> None:
 
 def save_checkpoint(ckpt_dir: str, step: int, state, *, compress: str = "none",
                     extra_meta: dict | None = None,
-                    verify: bool = False) -> str:
+                    verify: bool = False, shardings=None) -> str | None:
     """Synchronous atomic + durable save of a tree of tensors (or numpy
     arrays). compress: "none" | "bf16".
 
@@ -91,7 +98,15 @@ def save_checkpoint(ckpt_dir: str, step: int, state, *, compress: str = "none",
     CRC32-checks it against the manifest just written: a torn/partial
     write surfaces as a typed :class:`CheckpointCorruptError` at SAVE
     time, not at first restore.
+
+    ``shardings``: ``state`` holds this rank's shards; every rank of the
+    mesh calls, rank 0 writes the gathered leaves (and returns the path;
+    the others return None once it is written).
     """
+    if shardings is not None:
+        return _save_sharded(ckpt_dir, step, state, shardings,
+                             compress=compress, extra_meta=extra_meta,
+                             verify=verify)
     if compress not in ("none", "bf16"):
         raise ValueError(f"compress must be 'none' or 'bf16', got "
                          f"{compress!r}")
@@ -156,12 +171,35 @@ def _all_steps(ckpt_dir: str) -> list[int]:
                   if d.startswith("step_") and not d.endswith(".tmp"))
 
 
+def _save_sharded(ckpt_dir, step, state, shardings, **kw):
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding
+    shard_of = interop.flatten_with_paths(shardings)
+    whole = interop.map_with_paths(
+        lambda key, t: sharding.gather_leaf(t, shard_of[key].spec,
+                                            shard_of[key].mesh), state)
+    path = save_checkpoint(ckpt_dir, step, whole, **kw) \
+        if dist.get_rank() == 0 else None
+    dist.barrier()
+    return path
+
+
+def _default_device(like):
+    """The device of ``like``'s first tensor leaf that is not a meta
+    tensor, else the card."""
+    for leaf in interop.flatten_with_paths(like).values():
+        if isinstance(leaf, torch.Tensor) and leaf.device.type != "meta":
+            return leaf.device
+    return torch.device("cuda")
+
+
 def latest_step(ckpt_dir: str) -> int | None:
     steps = _all_steps(ckpt_dir)
     return max(steps) if steps else None
 
 
-def restore_latest(ckpt_dir: str, like, *, device="cpu"):
+def restore_latest(ckpt_dir: str, like, *, device=None, shardings=None):
     """Restore the newest checkpoint that passes integrity verification.
 
     A corrupt step (CRC/shape/dtype mismatch, torn files) is skipped with
@@ -176,7 +214,8 @@ def restore_latest(ckpt_dir: str, like, *, device="cpu"):
     last_exc = None
     for step in reversed(steps):
         try:
-            return restore_checkpoint(ckpt_dir, step, like, device=device)
+            return restore_checkpoint(ckpt_dir, step, like, device=device,
+                                      shardings=shardings)
         except CheckpointCorruptError as exc:
             warnings.warn(f"[ckpt] skipping corrupt checkpoint: {exc} -- "
                           f"falling back to the previous step",
@@ -187,11 +226,15 @@ def restore_latest(ckpt_dir: str, like, *, device="cpu"):
         f"verification") from last_exc
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like, *, device="cpu"):
+def restore_checkpoint(ckpt_dir: str, step: int, like, *, device=None,
+                       shardings=None):
     """Restore into the structure of ``like``: a tree whose leaves carry a
     ``shape`` and a ``dtype`` (tensors, meta tensors or numpy arrays;
     only the keys, shapes and dtypes are read). Returns ``(tree of
-    tensors on device, step)``.
+    tensors on device, step)``; ``device`` defaults to like's
+    (:func:`_default_device`). ``shardings``: a matching tree of
+    ``NamedSharding``; each leaf is then this rank's slice of it (``like``
+    keeps the whole shapes).
 
     Integrity: each leaf's stored bytes are CRC32-verified (and its
     shape/stored-dtype cross-checked) against the manifest; any mismatch,
@@ -200,12 +243,15 @@ def restore_checkpoint(ckpt_dir: str, step: int, like, *, device="cpu"):
     previous good step instead of serving from corrupt state.
     """
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    device = _default_device(like) if device is None else device
     try:
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
     except (OSError, json.JSONDecodeError) as exc:
         raise CheckpointCorruptError(
             f"step {step}: unreadable manifest ({exc})") from exc
+    shard_of = {} if shardings is None else \
+        interop.flatten_with_paths(shardings)
 
     def restore(key, tgt):
         if key not in manifest["leaves"]:
@@ -237,6 +283,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, like, *, device="cpu"):
             raise ValueError(f"{key}: ckpt shape {tuple(t.shape)} != "
                              f"{tuple(tgt.shape)} (restore requires the "
                              f"same logical shapes)")
+        if key in shard_of:
+            from repro_torch.dist import sharding
+            ns = shard_of[key]
+            t = sharding.shard_leaf(t, ns.spec, ns.mesh)
         return t.to(device=device, dtype=interop.torch_dtype(tgt.dtype))
 
     # Leaves in path order, as the reference reads them (a corrupt step
@@ -300,8 +350,9 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, like, *, device="cpu"):
+    def restore_latest(self, like, *, device=None, shardings=None):
         """Newest VERIFIED checkpoint (corrupt steps are skipped with a
         warning; see module-level :func:`restore_latest`)."""
         self.wait()
-        return restore_latest(self.dir, like, device=device)
+        return restore_latest(self.dir, like, device=device,
+                              shardings=shardings)

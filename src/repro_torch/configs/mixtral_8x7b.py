@@ -14,7 +14,8 @@ def config() -> ModelConfig:
         n_heads=32, n_kv_heads=8, d_head=128, d_ff=14336,
         rope_theta=1e6,
         pattern=(LayerSpec(kind="attn", ffn="moe", window=WINDOW),),
-        moe=MoEConfig(d_model=4096, d_ff=14336, n_experts=8, top_k=2),
+        moe=MoEConfig(d_model=4096, d_ff=14336, n_experts=8, top_k=2,
+                      expert_parallel=False),
         max_seq=524288)
 
 
@@ -24,5 +25,6 @@ def smoke_config() -> ModelConfig:
         n_layers=2, d_model=64, vocab=256,
         n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
         pattern=(LayerSpec(kind="attn", ffn="moe", window=32),),
-        moe=MoEConfig(d_model=64, d_ff=128, n_experts=4, top_k=2),
+        moe=MoEConfig(d_model=64, d_ff=128, n_experts=4, top_k=2,
+                      expert_parallel=False),
         max_seq=128, remat="none")

@@ -49,7 +49,13 @@ def compute_scale(x: torch.Tensor, bits: int, axis=None,
     Computed in float32 whatever ``x``'s dtype: the reference's clamp
     against float32's ``tiny`` promotes a bf16 absmax to float32 before
     the division."""
-    absmax = torch.amax(x.abs(), dim=_dims(x, axis), keepdim=keepdims)
+    return scale_from_absmax(
+        torch.amax(x.abs(), dim=_dims(x, axis), keepdim=keepdims), bits)
+
+
+def scale_from_absmax(absmax: torch.Tensor, bits: int) -> torch.Tensor:
+    """:func:`compute_scale` from an absmax already taken (e.g. reduced
+    over the ranks that hold a row's pieces)."""
     absmax = torch.clamp(absmax.to(torch.float32),
                          min=torch.finfo(torch.float32).tiny)
     return true_div(absmax, qmax(bits))

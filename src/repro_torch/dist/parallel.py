@@ -1,0 +1,291 @@
+"""The collectives of a mesh, and the sharded Loom linear, exact by
+construction on the integer routes.
+
+A :class:`ShardCtx` is what a meshed session passes down the model: the
+mesh, its "data" and "model" groups, this rank's place in them, and a
+:class:`Comm` that runs every collective. :meth:`ShardCtx.lin` gives the
+:class:`LinearShard` of one projection from the logical axes of its dense
+weight, the same (in, out) pair its spec carries:
+
+* out on "tp" (**column-parallel**): the rank's N/tp columns, no
+  collective; K1 / K3 run at the column-shard shape.
+* in on "tp" (**row-parallel**): the rank's K/tp rows. The activations
+  take the whole row's scale (a row absmax, all-reduced with MAX where the
+  input arrives already split), each rank quantizes its K-slice, the
+  integer product runs on the local rows, and the int32 partial products
+  are summed over "model" before the dequantizing cast: all-reduced, or
+  reduce-scattered where the rank keeps only its own columns (K and V,
+  whose cache is placed by heads). Integer sums
+  associate, wrap-around included, so the result is the unsharded one bit
+  for bit. ``dynamic_a`` counts each slice's activation planes (never
+  more than the whole row's; trimming drops only all-zero planes), so it
+  stays exact too. ``dense`` sums float partial products and is held by
+  tolerance only.
+* "fsdp" dims (over "data") are stored split and all-gathered at every
+  use, as GSPMD does for the reference.
+
+Collectives call ``torch.distributed`` directly on the rank's tensors,
+on NCCL and gloo alike: gloo takes every kind used here on CUDA tensors
+(it moves them through host memory itself), and a kind it ever refused
+would raise.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import torch
+import torch.distributed as dist
+from torch.distributed import ReduceOp
+
+from repro_torch.api import plan as planlib
+from repro_torch.core import quantize as q
+from repro_torch.dist import sharding
+from repro_torch.kernels import ops
+
+_OPS = {"sum": ReduceOp.SUM, "max": ReduceOp.MAX}
+
+
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+class Comm:
+    """Collectives over a mesh's groups. ``calls``: how many of each kind
+    (op, dtype, reduction) ran."""
+
+    def __init__(self):
+        self.calls = collections.Counter()
+
+    def all_reduce(self, t: torch.Tensor, red: str, group) -> torch.Tensor:
+        """``t`` reduced (``"sum"`` or ``"max"``) over ``group``."""
+        if _size(group) == 1:
+            return t
+        self.calls["all_reduce", t.dtype, red] += 1
+        t = t.contiguous()
+        dist.all_reduce(t, op=_OPS[red], group=group)
+        return t
+
+    def reduce_scatter(self, t: torch.Tensor, group) -> torch.Tensor:
+        """The SUM over ``group`` of ``t`` [..., N], of which this rank
+        gets its group rank's N/size columns."""
+        n = _size(group)
+        if n == 1:
+            return t
+        if t.shape[-1] % n:
+            raise ValueError(f"{t.shape[-1]} columns do not split over {n} "
+                             f"ranks")
+        self.calls["reduce_scatter", t.dtype, "sum"] += 1
+        parts = [c.contiguous() for c in t.chunk(n, dim=-1)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, op=ReduceOp.SUM, group=group)
+        return out
+
+    def all_gather(self, t: torch.Tensor, dim: int, group) -> torch.Tensor:
+        """Every rank's ``t`` of ``group``, concatenated along ``dim`` in
+        group-rank order (moved as bytes, so any dtype)."""
+        n = _size(group)
+        if n == 1:
+            return t
+        self.calls["all_gather", torch.uint8, None] += 1
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        parts = [torch.empty_like(b) for _ in range(n)]
+        dist.all_gather(parts, b, group=group)
+        return torch.cat([p.view(t.dtype).reshape(t.shape) for p in parts],
+                         dim=dim)
+
+    def sum_one_hot(self, t: torch.Tensor, group) -> torch.Tensor:
+        """The sum over ``group`` of tensors that are nonzero on at most one
+        rank per element, bit for bit (the bits ride an int32 SUM, so even
+        a -0.0 survives)."""
+        if _size(group) == 1:
+            return t
+        width = {2: torch.int16, 4: torch.int32}[t.element_size()]
+        bits = t.contiguous().view(width).to(torch.int32)
+        bits = self.all_reduce(bits, "sum", group)
+        return bits.to(width).view(t.dtype)
+
+
+class ShardCtx:
+    """One rank's view of a ("data", "model") mesh for serving: sizes,
+    ranks and groups of both axes, and its :class:`Comm`. Execution takes
+    the default rules (dp/fsdp on "data", tp/sp on "model"); overrides
+    that move them elsewhere are resolution-only and raise here."""
+
+    def __init__(self, mesh):
+        names = sharding.axis_names(mesh)
+        if names != ("data", "model"):
+            raise NotImplementedError(
+                f"sharded serving runs on a ('data', 'model') mesh; got "
+                f"{names}")
+        for logical, phys in (("dp", "data"), ("fsdp", "data"),
+                              ("tp", "model"), ("sp", "model")):
+            got = sharding.resolve(sharding.Spec(logical), mesh)[0]
+            if got != phys:
+                raise NotImplementedError(
+                    f"rule override {logical!r} -> {got!r}: sharded "
+                    f"execution takes {logical!r} on {phys!r}")
+        self.mesh = mesh
+        self.comm = Comm()
+        self.device = torch.device(mesh.device_type,
+                                   torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device("cpu")
+        self._groups = {a: mesh.get_group(a) for a in names}
+        self._size = {a: mesh.size(i) for i, a in enumerate(names)}
+        self._rank = {a: mesh.get_local_rank(a) for a in names}
+
+    def rank(self, axis: str) -> int:
+        return self._rank[axis]
+
+    def group(self, axis: str):
+        return self._groups[axis]
+
+    def group_over(self, axes) -> object:
+        """The group of the ranks that differ only along ``axes`` (a set
+        of mesh axis names): None for none, the world for both."""
+        axes = set(axes)
+        if not axes:
+            return None
+        if axes == {"data", "model"}:
+            return dist.group.WORLD
+        (a,) = axes
+        return self._groups[a]
+
+    def local(self, n: int, axis: str = "model") -> int:
+        """n / the axis size; raises where it does not divide."""
+        size = self._size[axis]
+        if n % size:
+            raise ValueError(f"{n} does not split over {size} {axis!r} "
+                             f"ranks")
+        return n // size
+
+    def take(self, t: torch.Tensor, dim: int,
+             axis: str = "model") -> torch.Tensor:
+        """This rank's piece of a whole (replicated) ``t`` along ``dim``."""
+        n = self.local(t.shape[dim], axis)
+        return t.narrow(dim, self._rank[axis] * n, n)
+
+    def gather(self, t: torch.Tensor, dim: int,
+               axis: str = "model") -> torch.Tensor:
+        return self.comm.all_gather(t, dim, self._groups[axis])
+
+    def lin(self, in_axis, out_axis, x_local: bool = False,
+            scatter: bool = False) -> "LinearShard":
+        """The shard of a projection whose dense weight has the logical
+        axes (``in_axis``, ``out_axis``). ``x_local``: a row-parallel
+        input arrives split over "model" already (else it is whole, and
+        the rank takes its K-slice). ``scatter``: a row-parallel output
+        is reduce-scattered, each rank getting its N/tp columns (else
+        all-reduced whole)."""
+        k_ax, n_ax = sharding.resolve(sharding.Spec(in_axis, out_axis),
+                                      self.mesh)
+        return LinearShard(self, k_ax, n_ax, x_local, scatter)
+
+    def absmax_reducer(self, spec, dims):
+        """MAX over the ranks holding pieces of the same block of a leaf
+        placed by ``spec``, where the absmax was taken over ``dims``."""
+        resolved = sharding.resolve(spec, self.mesh)
+        axes = {a for d in dims for a in sharding._axes(resolved[d])}
+        group = self.group_over(axes)
+        return lambda m: self.comm.all_reduce(
+            m.to(torch.float32).contiguous(), "max", group)
+
+
+# Weight leaves of a linear by layout; each keeps K at dim -2, N at -1.
+_WEIGHT_KEYS = ("w", "wq", "w_packed")
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearShard:
+    ctx: ShardCtx
+    k_axis: str | None       # mesh axis splitting K (in), or None
+    n_axis: str | None       # mesh axis splitting N (out), or None
+    x_local: bool = False
+    scatter: bool = False
+
+    @property
+    def row(self) -> bool:
+        return self.k_axis == "model"
+
+    def weights(self, p: dict) -> dict:
+        """``p`` with its "data"-split dims all-gathered."""
+        out = dict(p)
+        for key in _WEIGHT_KEYS:
+            if key in out:
+                if self.k_axis == "data":
+                    out[key] = self.ctx.gather(out[key], -2, "data")
+                if self.n_axis == "data":
+                    out[key] = self.ctx.gather(out[key], -1, "data")
+        return out
+
+    def apply(self, route_fn, p: dict, x: torch.Tensor, lp, backend):
+        """The linear of this shard: ``route_fn`` (the unsharded route) on
+        the local columns, or the row-parallel product."""
+        p = self.weights(p)
+        if not self.row:
+            return route_fn(p, x, lp, backend)
+        if x.ndim > 3:
+            raise NotImplementedError("row-parallel linears take token-"
+                                      "shaped input ([B, D] or [B, S, D])")
+        absmax = x.abs().amax(-1, keepdim=True).to(torch.float32)
+        if self.x_local:
+            absmax = self.ctx.comm.all_reduce(absmax, "max",
+                                              self.ctx.group("model"))
+        else:
+            x = self.ctx.take(x, -1)
+        return _ROW_ROUTES[lp.route](self, p, x, absmax, lp, backend)
+
+    def sum(self, y: torch.Tensor) -> torch.Tensor:
+        """The SUM over "model" of the ranks' partial products: the rank's
+        columns with ``scatter``, else the whole."""
+        comm, group = self.ctx.comm, self.ctx.group("model")
+        if self.scatter:
+            return comm.reduce_scatter(y, group)
+        return comm.all_reduce(y, "sum", group)
+
+
+def _row_packed(ls, p, x, absmax, lp, be):
+    wp = p["w_packed"]
+    if x.shape[-1] != wp.shape[1] * 8:
+        raise ValueError(f"a row-parallel packed shard needs K/tp a "
+                         f"multiple of 8 (one packed byte row); the rank "
+                         f"holds {wp.shape[1]} byte rows for {x.shape[-1]} "
+                         f"inputs")
+    scale = q.scale_from_absmax(absmax, min(lp.a_bits, 8)).reshape(-1, 1)
+    kw = dict(a_bits=lp.a_bits, w_bits=wp.shape[0], backend=be,
+              w_counts=lp.w_group_counts, w_group=lp.w_group, a_axis=-1,
+              x_scale=scale, int_sum=ls.sum)
+    if lp.dynamic_a:
+        return ops.loom_linear_serve_dynamic(x, wp, p["w_scale"],
+                                             group_size=lp.group_size, **kw)
+    return ops.loom_linear_serve(x, wp, p["w_scale"], **kw)
+
+
+def _row_int8(ls, p, x, absmax, lp, be):
+    bits = min(lp.a_bits, 8)
+    xq, x_scale = q.quantize(x.to(torch.float32), bits,
+                             scale=q.scale_from_absmax(absmax, bits))
+    y = ls.sum(ops.int8_matmul(xq.to(torch.int8), p["wq"]))
+    return (y.to(torch.float32) * (x_scale * p["w_scale"])).to(x.dtype)
+
+
+def _row_dense(ls, p, x, absmax, lp, be):
+    return ls.sum((x @ p["w"].to(x.dtype)).to(torch.float32)).to(x.dtype)
+
+
+def _row_unsupported(ls, p, x, absmax, lp, be):
+    raise NotImplementedError(f"route {lp.route!r} has no sharded form "
+                              f"(training on a mesh is ROADMAP A.13b)")
+
+
+_ROW_ROUTES = collections.defaultdict(
+    lambda: _row_unsupported,
+    {planlib.PACKED: _row_packed, planlib.INT8: _row_int8,
+     planlib.DENSE: _row_dense})
+
+
+def lin(shard: ShardCtx | None, in_axis, out_axis, x_local: bool = False,
+        scatter: bool = False) -> LinearShard | None:
+    """:meth:`ShardCtx.lin`, or None without a mesh."""
+    return None if shard is None else shard.lin(in_axis, out_axis, x_local,
+                                                scatter)

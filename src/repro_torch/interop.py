@@ -44,9 +44,17 @@ def _leaf(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cpu", specs=None, mesh=None):
     """Nested dict of numpy arrays (or tensors) -> nested dict of tensors
-    on ``device``, dtypes kept."""
+    on ``device``, dtypes kept. With a logical ``specs`` tree and a
+    ``mesh`` (``repro_torch.dist``), only this rank's shard of each leaf
+    crosses (``dist.sharding.shard_tree``)."""
+    if specs is not None:
+        from repro_torch.dist import sharding
+        return sharding.map_specs(
+            lambda a, s: params_from_numpy(
+                a[sharding.local_slices(a.shape, s, mesh)], device),
+            tree, specs)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):

@@ -24,13 +24,17 @@ from repro_torch.kernels import ref
 def loom_linear_serve(x: torch.Tensor, w_packed: torch.Tensor,
                       w_scale: torch.Tensor, *, a_bits: int, w_bits: int,
                       backend=None, w_counts=None, w_group: int = 16,
-                      a_axis: int | None = -1) -> torch.Tensor:
+                      a_axis: int | None = -1, x_scale=None,
+                      int_sum=None) -> torch.Tensor:
     """Serving-path linear: activations quantized to a_bits at run time,
     weights pre-packed bit-serially. Output in x.dtype.
 
     x: [..., K]; w_packed: uint8 [Pw, K8/8, N]; w_scale: per-tensor f32.
     ``a_axis``: -1 = one scale per row (the default), None = one scale for
-    the whole tensor.
+    the whole tensor. A row-parallel shard (``repro_torch.dist.parallel``)
+    passes ``x_scale`` ([rows, 1] float32, the whole row's scale) and
+    ``int_sum``, applied to the int32 product before dequantization (the
+    sum over the ranks' K-slices).
     """
     be = resolve_backend(backend)
     lead = x.shape[:-1]
@@ -40,9 +44,11 @@ def loom_linear_serve(x: torch.Tensor, w_packed: torch.Tensor,
     if k8 != k:  # pack_weights zero-pads K%8 rows; mirror on activations
         x2 = F.pad(x2, (0, k8 - k))
     a_bits = min(a_bits, 8)  # int8 kernel ABI
-    xq, x_scale = q.quantize(x2, a_bits, axis=a_axis)
+    xq, x_scale = q.quantize(x2, a_bits, scale=x_scale, axis=a_axis)
     y = be.matmul_planes(xq.to(torch.int8), w_packed, w_bits=w_bits,
                          w_counts=w_counts, w_group=w_group)
+    if int_sum is not None:
+        y = int_sum(y)
     out = (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
     return out if x.ndim == 2 else out.reshape(*lead, -1)
 
@@ -55,7 +61,8 @@ def loom_linear_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
                               w_scale: torch.Tensor, *, a_bits: int,
                               w_bits: int, group_size: int = 256,
                               backend=None, w_counts=None, w_group: int = 16,
-                              a_axis: int | None = -1) -> torch.Tensor:
+                              a_axis: int | None = -1, x_scale=None,
+                              int_sum=None) -> torch.Tensor:
     """Serving linear with runtime activation-plane trimming; bit-identical
     to :func:`loom_linear_serve`.
 
@@ -70,7 +77,10 @@ def loom_linear_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
     multiple of the group. The dense weights ride int8; Pw > 8 splits them
     into 7-bit subplanes whose shifted partials sum exactly. ``w_counts``
     composes static weight-group trimming in by truncating the dense
-    weights per filter group first.
+    weights per filter group first. ``x_scale`` and ``int_sum`` as in
+    :func:`loom_linear_serve`: a row-parallel shard counts the planes of
+    its own K-slice, never more than the whole row needs, so the product
+    stays exact.
     """
     be = resolve_backend(backend)
     lead = x.shape[:-1]
@@ -80,7 +90,7 @@ def loom_linear_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
     if k8 != k:
         x2 = F.pad(x2, (0, k8 - k))
     a_bits = min(a_bits, 8)
-    xq, x_scale = q.quantize(x2, a_bits, axis=a_axis)
+    xq, x_scale = q.quantize(x2, a_bits, scale=x_scale, axis=a_axis)
     m = xq.shape[0]
     # A group is group_size rows; a small batch is one 8-row-aligned group.
     g = min(group_size, _round_up(m, 8))
@@ -96,6 +106,8 @@ def loom_linear_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
     # Row-major like the static path's output: the float ops downstream
     # (attention's products) may sum in another order for another layout.
     y = yt.T[:m].contiguous()
+    if int_sum is not None:
+        y = int_sum(y)
     out = (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
     return out if x.ndim == 2 else out.reshape(*lead, -1)
 

@@ -33,7 +33,8 @@ oracle on the serving kernels would audit them against themselves) and ``--integ
 re-verifies the weight fingerprint every N engine steps; the summary line
 counts both.
 
-Not ported yet: ``jit_serve_steps`` (meshes) comes with ROADMAP A.13.
+On a mesh, :func:`jit_serve_steps` hands out the meshed session's steps
+(``repro_torch.dist``); this CLI serves one process.
 """
 from __future__ import annotations
 
@@ -55,6 +56,34 @@ def make_serve_fns(cfg, plan):
     cannot drift); the port runs them eagerly (the reference jits them)."""
     from repro_torch.api.session import entry_points
     fns = entry_points(cfg, plan)
+    return fns["_prefill"], fns["_decode"]
+
+
+def jit_serve_steps(cfg, plan, mesh, param_specs, cache_specs):
+    """(prefill_step, decode_step) on ``mesh``: the meshed session's own
+    steps (``api.session.entry_points`` over a ``ShardCtx``), as the
+    reference shares ``_jit_lm`` with its session. Nothing is compiled:
+    PyTorch runs them eagerly. The steps take this rank's shards of
+    the params and the cache; ``param_specs`` and ``cache_specs`` must be
+    the trees they were placed by (``model.param_spec_tree``, converted
+    for the plan's mode, and ``model.cache_shard_spec_tree``: the cache's
+    KV heads over "model", not the reference's sequence split), else
+    ValueError. ``mesh=None`` gives the unsharded steps."""
+    from repro_torch.api.session import entry_points
+    if mesh is None:
+        return make_serve_fns(cfg, plan)
+    from repro_torch.dist.parallel import ShardCtx
+    want = M.param_spec_tree(cfg)
+    if plan.mode in ("serve_int8", "serve_packed"):
+        want = M.convert_specs_for_serving(M.param_skeleton(cfg), want,
+                                           plan.mode)
+    if param_specs != want:
+        raise ValueError("param_specs are not the model's spec tree for "
+                         f"mode {plan.mode!r}")
+    if cache_specs != M.cache_shard_spec_tree(cfg):
+        raise ValueError("cache_specs must be model.cache_shard_spec_tree"
+                         "(cfg): the port places the KV cache by heads")
+    fns = entry_points(cfg, plan, ShardCtx(mesh))
     return fns["_prefill"], fns["_decode"]
 
 

@@ -25,7 +25,7 @@ spike guard, SIGTERM checkpoint). With ``--ckpt-dir`` it checkpoints
 every ``--ckpt-every`` steps through ``ckpt.CheckpointManager`` and
 resumes from the newest checkpoint there. ``--device`` defaults to
 ``cuda``; without a card it raises unless ``--device cpu`` is given. Not
-ported yet: ``jit_train_step`` (the mesh) comes with ROADMAP A.13.
+ported yet: ``jit_train_step`` (the mesh) comes with ROADMAP A.13b.
 """
 from __future__ import annotations
 

@@ -29,6 +29,16 @@ body); and on an int8 cache ``attn_int8``, integer QK and PV products on
 the stored int8 values (:func:`_decode_attend_gqa_int8`). Both keep a
 row's result independent of the other rows.
 
+On a mesh (``shard``, a :class:`~repro_torch.dist.parallel.ShardCtx`)
+attention is head-parallel: q column-parallel over "model", K and V
+row-parallel (their whole outputs summed exactly; each rank keeps its own
+KV heads), the output projection row-parallel, every layer running on its
+local heads (:func:`local_cfg`). The KV cache is placed by KV heads over
+"model" (:func:`cache_shard_specs`), where the reference's
+:func:`cache_specs` split the sequence ("sp", flash-decoding): with the
+heads local a decode step needs no softmax combine across ranks and stays
+bit-exact.
+
 Cross-attention (llama-3.2-vision's image layers): the prefill projects
 the image embeddings' K/V into the layer's cache
 (:func:`init_cross_cache`) and attends to them non-causally through the
@@ -43,6 +53,8 @@ import dataclasses
 import torch
 
 from repro_torch.core.quantize import true_div
+from repro_torch.dist.parallel import lin
+from repro_torch.dist.sharding import Spec
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -81,16 +93,52 @@ def init(cfg: AttnConfig, generator: torch.Generator,
     return p
 
 
-def _project_qkv(p, cfg: AttnConfig, x, positions, plan, kv_x=None):
+# Logical axes (in, out) of the projections, the reference's defaults: q
+# column-parallel, K/V and the output projection row-parallel.
+WQ_AXES, WKV_AXES, WO_AXES = ("fsdp", "tp"), ("tp", "fsdp"), ("tp", "fsdp")
+
+
+def param_specs(cfg: AttnConfig) -> dict:
+    """Logical specs of :func:`init`'s tree."""
+    s = {"wq": L.linear_specs(*WQ_AXES), "wk": L.linear_specs(*WKV_AXES),
+         "wv": L.linear_specs(*WKV_AXES), "wo": L.linear_specs(*WO_AXES)}
+    if cfg.qk_norm:
+        s["qnorm"], s["knorm"] = L.norm_specs(), L.norm_specs()
+    return s
+
+
+def local_cfg(cfg: AttnConfig, shard) -> AttnConfig:
+    """``cfg`` with this rank's q and KV heads (``cfg`` itself without a
+    mesh)."""
+    if shard is None:
+        return cfg
+    return dataclasses.replace(cfg, n_heads=shard.local(cfg.n_heads),
+                               n_kv_heads=shard.local(cfg.n_kv_heads))
+
+
+def _kv_proj(p, x, plan, name, shard):
+    """K or V of ``x``: on a mesh the rank's KV heads' columns of the
+    row-parallel product, reduce-scattered over "model"."""
+    return L.linear_apply(p, x, plan, name, lin(shard, *WKV_AXES,
+                                                scatter=True))
+
+
+def _o_proj(p, out, plan, shard):
+    return L.linear_apply(p["wo"], out, plan, "attn_o",
+                          lin(shard, *WO_AXES, x_local=True))
+
+
+def _project_qkv(p, cfg: AttnConfig, x, positions, plan, kv_x=None,
+                 shard=None):
     """q from x, K and V from ``kv_x`` (a cross layer's image embeddings;
     x itself when None); RMSNorm'd with ``qk_norm``; roped unless
-    cross."""
+    cross. ``cfg`` carries the rank's heads on a mesh."""
     kv_x = x if kv_x is None else kv_x
-    q = L.linear_apply(p["wq"], x, plan, "attn_q")
+    q = L.linear_apply(p["wq"], x, plan, "attn_q", lin(shard, *WQ_AXES))
     q = q.reshape(*x.shape[:-1], cfg.n_heads, cfg.d_head)
-    k = L.linear_apply(p["wk"], kv_x, plan, "attn_k")
+    k = _kv_proj(p["wk"], kv_x, plan, "attn_k", shard)
     k = k.reshape(*kv_x.shape[:-1], cfg.n_kv_heads, cfg.d_head)
-    v = L.linear_apply(p["wv"], kv_x, plan, "attn_v")
+    v = _kv_proj(p["wv"], kv_x, plan, "attn_v", shard)
     v = v.reshape(*kv_x.shape[:-1], cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["qnorm"]["g"])
@@ -286,6 +334,28 @@ def init_cache(cfg: AttnConfig, batch: int, max_seq: int,
     return cache
 
 
+def cache_specs(cfg: AttnConfig) -> dict:
+    """The reference's logical cache specs: the sequence over "sp" (its
+    flash-decoding layout)."""
+    s = {"k": Spec("dp", "sp", None, None), "v": Spec("dp", "sp", None, None),
+         "slot_pos": Spec("dp", "sp")}
+    if cfg.kv_cache_bits == 8:
+        s["k_scale"] = Spec("dp", "sp", None)
+        s["v_scale"] = Spec("dp", "sp", None)
+    return s
+
+
+def cache_shard_specs(cfg: AttnConfig) -> dict:
+    """Where the port places the cache on a mesh: rows over "dp", KV heads
+    over "tp" (a port difference by design; module docstring)."""
+    s = {"k": Spec("dp", None, "tp", None), "v": Spec("dp", None, "tp", None),
+         "slot_pos": Spec("dp", None)}
+    if cfg.kv_cache_bits == 8:
+        s["k_scale"] = Spec("dp", None, "tp")
+        s["v_scale"] = Spec("dp", None, "tp")
+    return s
+
+
 def _quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., H, D] -> int8 values and one float32 scale per head
     ([..., H]): absmax / 127 (a true division, floored at 1e-20), values
@@ -451,15 +521,17 @@ def _decode_attend_gqa_int8(q, cache, cfg: AttnConfig, pos):
 # Layer-level entry points
 # ---------------------------------------------------------------------------
 
-def apply_train(p, cfg: AttnConfig, x, positions, plan, kv_x=None):
+def apply_train(p, cfg: AttnConfig, x, positions, plan, kv_x=None,
+                shard=None):
     """The full-sequence forward (training, and a cross layer's prefill):
     x [B, S, d] -> [B, S, d]. A cross layer attends to ``kv_x`` [B, N, d]
     without rope, causal mask or window. With ``flash_vjp`` a layer whose
     window covers the sequence (or that has none) takes
     :class:`FlashAttention`; a short window keeps autograd's backward,
     whose saved blocks are span-sized already, as the reference chooses."""
+    cfg = local_cfg(cfg, shard)
     q, k, v = _project_qkv(p, cfg, x, positions, plan,
-                           kv_x=kv_x if cfg.cross else None)
+                           kv_x=kv_x if cfg.cross else None, shard=shard)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     causal = not cfg.cross
@@ -470,13 +542,15 @@ def apply_train(p, cfg: AttnConfig, x, positions, plan, kv_x=None):
         out = chunked_attention(q, k, v, causal=causal, window=win,
                                 bq=cfg.block, bk=cfg.block)
     out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.d_head)
-    return L.linear_apply(p["wo"], out, plan, "attn_o")
+    return _o_proj(p, out, plan, shard)
 
 
-def apply_prefill(p, cfg: AttnConfig, x, positions, plan, cache):
+def apply_prefill(p, cfg: AttnConfig, x, positions, plan, cache,
+                  shard=None):
     """Prefill: full forward over x [B, S, d] (positions [S]), and the
     cache filled with the last S_cache tokens' K/V. Returns (out, cache)."""
-    q, k, v = _project_qkv(p, cfg, x, positions, plan)
+    cfg = local_cfg(cfg, shard)
+    q, k, v = _project_qkv(p, cfg, x, positions, plan, shard=shard)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
                             causal=True, window=cfg.window)
@@ -490,18 +564,19 @@ def apply_prefill(p, cfg: AttnConfig, x, positions, plan, cache):
                                    v[:, s - take:]).items():
         cache[key][:, slots] = val
     cache["slot_pos"][:, slots] = pos_tail.to(torch.int32)
-    return L.linear_apply(p["wo"], out, plan, "attn_o"), cache
+    return _o_proj(p, out, plan, shard), cache
 
 
-def apply_decode(p, cfg: AttnConfig, x, pos, plan, cache):
+def apply_decode(p, cfg: AttnConfig, x, pos, plan, cache, shard=None):
     """One-token decode. x: [B, 1, d]; ``pos`` an int or an int [B]
     tensor. Returns (out [B, 1, d], cache)."""
+    cfg = local_cfg(cfg, shard)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         positions = pos[:, None]                       # [B, 1]
     else:
         positions = torch.arange(int(pos), int(pos) + 1, device=x.device)
     b = x.shape[0]
-    q = L.linear_apply(p["wq"], x, plan, "attn_q")
+    q = L.linear_apply(p["wq"], x, plan, "attn_q", lin(shard, *WQ_AXES))
     q = q.reshape(b, 1, cfg.n_heads, cfg.d_head)
     if cfg.cross:
         # The image K/V were projected into the cache at prefill.
@@ -509,10 +584,10 @@ def apply_decode(p, cfg: AttnConfig, x, pos, plan, cache):
             q = L.rms_norm(q, p["qnorm"]["g"])
         out = decode_attend(q, cache, cfg, pos)
         out = out.reshape(b, 1, cfg.n_heads * cfg.d_head)
-        return L.linear_apply(p["wo"], out, plan, "attn_o"), cache
-    k = L.linear_apply(p["wk"], x, plan, "attn_k")
+        return _o_proj(p, out, plan, shard), cache
+    k = _kv_proj(p["wk"], x, plan, "attn_k", shard)
     k = k.reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
-    v = L.linear_apply(p["wv"], x, plan, "attn_v")
+    v = _kv_proj(p["wv"], x, plan, "attn_v", shard)
     v = v.reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["qnorm"]["g"])
@@ -522,21 +597,23 @@ def apply_decode(p, cfg: AttnConfig, x, pos, plan, cache):
     cache = cache_update(cache, cfg, k, v, pos)
     out = decode_attend(q, cache, cfg, pos)
     out = out.reshape(b, 1, cfg.n_heads * cfg.d_head)
-    return L.linear_apply(p["wo"], out, plan, "attn_o"), cache
+    return _o_proj(p, out, plan, shard), cache
 
 
 # ---------------------------------------------------------------------------
 # Cross-attention (the image layers of llama-3.2-vision)
 # ---------------------------------------------------------------------------
 
-def init_cross_cache(p, cfg: AttnConfig, img_embeds, plan, cache) -> dict:
+def init_cross_cache(p, cfg: AttnConfig, img_embeds, plan, cache,
+                     shard=None) -> dict:
     """Project the image embeddings [B, N, d] into a cross layer's cache,
     in place: ``k`` and ``v`` [B, N, H_kv, D] bf16 (K RMSNorm'd with
     ``qk_norm``), ``slot_pos`` zeros (every slot valid). Returns it."""
+    cfg = local_cfg(cfg, shard)
     b, n, _ = img_embeds.shape
-    k = L.linear_apply(p["wk"], img_embeds, plan, "attn_k").reshape(
+    k = _kv_proj(p["wk"], img_embeds, plan, "attn_k", shard).reshape(
         b, n, cfg.n_kv_heads, cfg.d_head)
-    v = L.linear_apply(p["wv"], img_embeds, plan, "attn_v").reshape(
+    v = _kv_proj(p["wv"], img_embeds, plan, "attn_v", shard).reshape(
         b, n, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         k = L.rms_norm(k, p["knorm"]["g"])

@@ -68,6 +68,14 @@ def init_params(cfg: CNNConfig, generator: torch.Generator | None = None,
             for name, p in params.items()}
 
 
+def param_specs(cfg: CNNConfig) -> dict:
+    """Logical specs of :func:`init_params`'s tree: every layer
+    replicated (the reference serves no CNN on a mesh)."""
+    names = [c.name for c in cfg.convs] + [f"fc{i}"
+                                           for i in range(len(cfg.fcs))]
+    return {name: L.linear_specs() for name in names}
+
+
 def _im2col(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     """x: [B, H, W, C] -> "same"-padded patches [B, Ho, Wo, k*k*C], features
     in the (di, dj, c) order of the weight rows."""

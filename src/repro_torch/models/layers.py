@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.api import plan as planlib
 from repro_torch.core import bitpack, quantize as q
+from repro_torch.dist.sharding import Spec
 from repro_torch.kernels import ops
 
 
@@ -129,8 +130,35 @@ def embed_init(vocab: int, d_model: int, generator: torch.Generator,
     return {"emb": w.mul_(0.02).to(dtype)}
 
 
-def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["emb"][tokens]
+def linear_specs(in_axis=None, out_axis=None) -> dict:
+    """The logical spec of a dense linear ``{"w": [d_in, d_out]}``."""
+    return {"w": Spec(in_axis, out_axis)}
+
+
+def embed_specs() -> dict:
+    """The embedding table [V, d]: vocab over "tp" (vocab-parallel), d
+    over "fsdp"."""
+    return {"emb": Spec("tp", "fsdp")}
+
+
+def norm_specs() -> dict:
+    return {"g": Spec(None)}
+
+
+def embed_apply(p: dict, tokens: torch.Tensor, shard=None) -> torch.Tensor:
+    """Rows of the table for ``tokens``. On a mesh the table is
+    vocab-parallel: each rank looks up the tokens in its own rows (zeros
+    elsewhere), its "fsdp" split of d gathered, and the pieces are summed
+    over "model" bit for bit (one nonzero term each)."""
+    if shard is None:
+        return p["emb"][tokens]
+    emb = shard.gather(p["emb"], 1, "data")
+    v = emb.shape[0]
+    lo = shard.rank("model") * v
+    local = (tokens >= lo) & (tokens < lo + v)
+    rows = emb[torch.where(local, tokens - lo, 0)]
+    rows = torch.where(local[..., None], rows, torch.zeros_like(rows))
+    return shard.comm.sum_one_hot(rows, shard.group("model"))
 
 
 def norm_init(d: int, dtype=torch.bfloat16, device="cpu") -> dict:
@@ -199,9 +227,12 @@ _LINEAR_ROUTES = {
 
 
 def linear_apply(p: dict, x: torch.Tensor, plan: planlib.ExecutionPlan,
-                 layer_name: str = "") -> torch.Tensor:
-    """Dispatch a linear through its resolved LayerPlan."""
+                 layer_name: str = "", shard=None) -> torch.Tensor:
+    """Dispatch a linear through its resolved LayerPlan; on a mesh through
+    its :class:`~repro_torch.dist.parallel.LinearShard` (``shard``)."""
     lp = plan.layer(layer_name, kind="linear")
+    if shard is not None:
+        return shard.apply(_LINEAR_ROUTES[lp.route], p, x, lp, plan.backend)
     return _LINEAR_ROUTES[lp.route](p, x, lp, plan.backend)
 
 
@@ -261,46 +292,74 @@ def conv_apply(p: dict, x: torch.Tensor, kernel: int, stride: int,
     return _CONV_ROUTES[lp.route](p, x, kernel, stride, lp, plan)
 
 
-def quantize_by_columns(w: torch.Tensor, bits: int, convert):
+def quantize_by_columns(w: torch.Tensor, bits: int, convert,
+                        reduce_max=None):
     """``convert(quantize(w.float(), bits)[0])`` of a weight [K, N] under
     one absmax scale, taken over blocks of its columns (concatenated on
     the last dim, bit for bit the whole tensor's), so that an LM head of
     billions of weights converts without its float32 copy (18.9 GB for
-    nemotron-4-340b's). Returns (converted, scale float32 [1, 1])."""
+    nemotron-4-340b's). ``reduce_max`` (a shard of a leaf on a mesh) maps
+    the local absmax to the whole leaf's. Returns (converted, scale
+    float32 [1, 1])."""
     per_column = 20 * w.shape[0]      # float32 copy and quantize's passes
     absmax = bitpack.by_columns(lambda b: b.abs().amax().reshape(1), w,
-                                per_column).amax()
-    scale = q.compute_scale(absmax.to(torch.float32).reshape(1, 1), bits)
+                                per_column).amax().to(torch.float32)
+    if reduce_max is not None:
+        absmax = reduce_max(absmax.reshape(1))
+    scale = q.compute_scale(absmax.reshape(1, 1), bits)
     return bitpack.by_columns(
         lambda b: convert(q.quantize(b.to(torch.float32), bits,
                                      scale=scale)[0]),
         w, per_column), scale
 
 
-def _convert_linear_int8(p, prec):
-    wq, scale = quantize_by_columns(p["w"], 8, lambda b: b.to(torch.int8))
+def _convert_linear_int8(p, prec, reduce_max=None):
+    wq, scale = quantize_by_columns(p["w"], 8, lambda b: b.to(torch.int8),
+                                    reduce_max)
     return {"wq": wq, "w_scale": scale}
 
 
-def _convert_linear_packed(p, prec):
+def _convert_linear_packed(p, prec, reduce_max=None):
     bits = prec.w_bits
     wp, scale = quantize_by_columns(
-        p["w"], bits, lambda b: bitpack.pack_weights(b, bits))
+        p["w"], bits, lambda b: bitpack.pack_weights(b, bits), reduce_max)
     return {"w_packed": wp, "w_scale": scale}
 
 
 _LINEAR_CONVERTERS = {"serve_int8": _convert_linear_int8,
                       "serve_packed": _convert_linear_packed}
 
+# The serving layouts' logical specs, from the dense weight's (in, out):
+# the packed K/8 axis takes the input's split and N the output's, the
+# planes and the scale replicated.
+_LINEAR_SPEC_CONVERTERS = {
+    "serve_int8": lambda in_ax, out_ax: {"wq": Spec(in_ax, out_ax),
+                                         "w_scale": Spec(None, None)},
+    "serve_packed": lambda in_ax, out_ax: {
+        "w_packed": Spec(None, in_ax, out_ax), "w_scale": Spec(None, None)},
+}
 
-def convert_linear_for_serving(p: dict, prec, mode: str) -> dict:
+
+def convert_linear_for_serving(p: dict, prec, mode: str,
+                               reduce_max=None) -> dict:
     """Offline weight conversion for one linear or conv, per-tensor scale:
     int8 weights ``{"wq", "w_scale"}`` (``serve_int8``, always 8 bits) or
-    planes packed at ``prec.w_bits`` (``serve_packed``)."""
+    planes packed at ``prec.w_bits`` (``serve_packed``). ``reduce_max``:
+    see :func:`quantize_by_columns` (a rank's shard packs to the slice of
+    the whole leaf's bytes when its K-slice is whole packed rows)."""
     try:
         converter = _LINEAR_CONVERTERS[mode]
     except KeyError:
         raise ValueError(f"no serving conversion for mode {mode!r}; "
                          f"expected one of {sorted(_LINEAR_CONVERTERS)}"
                          ) from None
-    return converter(p, prec)
+    return converter(p, prec, reduce_max)
+
+
+def convert_linear_specs(spec: dict, mode: str) -> dict:
+    """Spec-only counterpart of :func:`convert_linear_for_serving`."""
+    try:
+        converter = _LINEAR_SPEC_CONVERTERS[mode]
+    except KeyError:
+        raise ValueError(f"no serving conversion for mode {mode!r}") from None
+    return converter(spec["w"][0], spec["w"][1])

@@ -20,6 +20,15 @@ do: ``"none"`` everything, ``"full"`` only the group's input (the group
 runs again in the backward, ``torch.utils.checkpoint``), ``"dots"`` the
 outputs of the products without batch dims (``aten.mm``), the rest
 recomputed.
+
+Logical specs (:mod:`repro_torch.dist.sharding`): :func:`param_spec_tree`
+and :func:`cache_spec_tree` are the reference's, leaf for leaf, and
+:func:`convert_specs_for_serving` maps a dense spec tree to the serving
+layouts'. On a mesh (``shard``) :func:`prefill` and :func:`decode_step`
+take this rank's batch rows and shards: the embedding vocab-parallel,
+every block as its specs place it, the head column-parallel with its
+logits all-gathered; the cache is placed by :func:`cache_shard_spec_tree`
+(KV heads over "model", not the reference's sequence split).
 """
 from __future__ import annotations
 
@@ -30,7 +39,12 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.api.plan import PARAM_CLASS_NAMES
 from repro_torch.core import bitpack
+from repro_torch.dist.parallel import lin
+from repro_torch.dist.sharding import Spec, is_spec
 from repro_torch.models import layers as L, transformer as T
+
+# Logical axes (in, out) of the LM head: column-parallel over the vocab.
+HEAD_AXES = ("fsdp", "tp")
 
 
 def _stack_trees(trees: list) -> dict:
@@ -56,6 +70,41 @@ def _unbind_tree(tree, n: int) -> list:
         parts = {k: _unbind_tree(v, n) for k, v in tree.items()}
         return [{k: v[g] for k, v in parts.items()} for g in range(n)]
     return torch.unbind(tree, 0)
+
+
+def _stack_specs(tree):
+    """A block's spec tree with the leading [n_groups] axis replicated."""
+    if is_spec(tree):
+        return Spec(None, *tree)
+    return {k: _stack_specs(v) for k, v in tree.items()}
+
+
+def _unstack_specs(tree):
+    if is_spec(tree):
+        return Spec(*tree[1:])
+    return {k: _unstack_specs(v) for k, v in tree.items()}
+
+
+def param_spec_tree(cfg: T.ModelConfig) -> dict:
+    """The logical specs of :func:`init_params`'s tree (the reference's
+    ``init_params`` specs)."""
+    return {"embed": L.embed_specs(), "final_norm": L.norm_specs(),
+            "head": L.linear_specs(*HEAD_AXES),
+            "blocks": {f"p{i}": _stack_specs(T.block_specs(cfg, spec))
+                       for i, spec in enumerate(cfg.pattern)}}
+
+
+def cache_spec_tree(cfg: T.ModelConfig) -> dict:
+    """The reference's logical specs of :func:`init_cache`'s tree."""
+    return {f"p{i}": _stack_specs(T.block_cache_specs(cfg, spec))
+            for i, spec in enumerate(cfg.pattern)}
+
+
+def cache_shard_spec_tree(cfg: T.ModelConfig) -> dict:
+    """Where a meshed session places the cache: rows over "dp", KV heads
+    and SSM heads over "tp" (ROADMAP: port differences by design)."""
+    return {f"p{i}": _stack_specs(T.block_cache_shard_specs(cfg, spec))
+            for i, spec in enumerate(cfg.pattern)}
 
 
 def _leaves(tree) -> list:
@@ -177,22 +226,31 @@ def loss_fn(params, cfg: T.ModelConfig, batch: dict, plan) -> tuple:
     return nll + aux, {"nll": nll, "aux": aux}
 
 
+def _head(params, x, plan, shard):
+    """The LM head; on a mesh column-parallel, its logits all-gathered."""
+    y = L.linear_apply(params["head"], x, plan, "lm_head",
+                       lin(shard, *HEAD_AXES))
+    return y if shard is None else shard.gather(y, -1)
+
+
 def prefill(params, cfg: T.ModelConfig, tokens, cache, plan,
-            img_embeds=None):
+            img_embeds=None, shard=None):
     """Fill the caches from a full prompt (tokens: int [B, S]; a VLM's
     cross-attention layers also take ``img_embeds`` [B, n_img_tokens, d]
-    bf16). Returns (last-token logits [B, 1, V], cache)."""
+    bf16). Returns (last-token logits [B, 1, V], cache). On a mesh
+    (``shard``) everything is this rank's: its rows, shards and cache."""
     s = tokens.shape[1]
-    x = L.embed_apply(params["embed"], tokens).to(torch.bfloat16)
+    x = L.embed_apply(params["embed"], tokens, shard).to(torch.bfloat16)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     for spec, p, c in _layers(params, cache, cfg):
         x = T.block_apply_prefill(p, cfg, spec, x, positions, plan, c,
-                                  img_embeds)
+                                  img_embeds, shard)
     x = L.rms_norm(x[:, -1:], params["final_norm"]["g"])
-    return L.linear_apply(params["head"], x, plan, "lm_head"), cache
+    return _head(params, x, plan, shard), cache
 
 
-def decode_step(params, cfg: T.ModelConfig, token, pos, cache, plan):
+def decode_step(params, cfg: T.ModelConfig, token, pos, cache, plan,
+                shard=None):
     """One decode step. token: int [B]; pos: the absolute position, an int
     (or 0-d tensor) for the whole batch or an int [B] tensor per row.
     Returns (logits [B, V], cache). Row b of the result is written not to
@@ -200,11 +258,12 @@ def decode_step(params, cfg: T.ModelConfig, token, pos, cache, plan):
     bit on an H100 at the sizes its docstring names)."""
     if isinstance(pos, torch.Tensor) and pos.ndim == 0:
         pos = int(pos)
-    x = L.embed_apply(params["embed"], token[:, None]).to(torch.bfloat16)
+    x = L.embed_apply(params["embed"], token[:, None], shard).to(
+        torch.bfloat16)
     for spec, p, c in _layers(params, cache, cfg):
-        x = T.block_apply_decode(p, cfg, spec, x, pos, plan, c)
+        x = T.block_apply_decode(p, cfg, spec, x, pos, plan, c, shard)
     x = L.rms_norm(x, params["final_norm"]["g"])
-    return L.linear_apply(params["head"], x[:, 0], plan, "lm_head"), cache
+    return _head(params, x[:, 0], plan, shard), cache
 
 
 # ---------------------------------------------------------------------------
@@ -221,23 +280,25 @@ def _policy_key(path: tuple) -> str:
     return "/".join(path)
 
 
-def _convert_expert_int8(w, prec) -> dict:
+def _convert_expert_int8(w, prec, reduce_max=None) -> dict:
     """Experts [E, din, dout] -> ``{"wq": int8 [E, din, dout], "scale":
     float32 [E]}``, one absmax scale per expert (weight-only int8: the
     products take bf16 activations)."""
-    out = [L.quantize_by_columns(we, 8, lambda b: b.to(torch.int8))
+    out = [L.quantize_by_columns(we, 8, lambda b: b.to(torch.int8),
+                                 reduce_max)
            for we in w]
     return {"wq": torch.stack([wq for wq, _ in out]),
             "scale": torch.cat([scale.reshape(1) for _, scale in out])}
 
 
-def _convert_expert_packed(w, prec) -> dict:
+def _convert_expert_packed(w, prec, reduce_max=None) -> dict:
     """Experts [E, din, dout] -> ``{"w_packed": uint8 [E, Pw, din/8,
     dout], "scale": float32 [E]}``: each expert quantized under its own
     absmax scale and bit-packed at ``prec.w_bits``."""
     bits = prec.w_bits
     out = [L.quantize_by_columns(we, bits,
-                                 lambda b: bitpack.pack_weights(b, bits))
+                                 lambda b: bitpack.pack_weights(b, bits),
+                                 reduce_max)
            for we in w]
     return {"w_packed": torch.stack([wp for wp, _ in out]),
             "scale": torch.cat([scale.reshape(1) for _, scale in out])}
@@ -246,22 +307,76 @@ def _convert_expert_packed(w, prec) -> dict:
 _EXPERT_CONVERTERS = {"serve_int8": _convert_expert_int8,
                       "serve_packed": _convert_expert_packed}
 
+# The serving layouts' expert specs from the dense (E, in, out) axes.
+_EXPERT_SPEC_CONVERTERS = {
+    "serve_int8": lambda e_ax, in_ax, out_ax: {
+        "wq": Spec(e_ax, in_ax, out_ax), "scale": Spec(e_ax)},
+    "serve_packed": lambda e_ax, in_ax, out_ax: {
+        "w_packed": Spec(e_ax, None, in_ax, out_ax), "scale": Spec(e_ax)},
+}
 
-def convert_tree(params: dict, policy, mode: str, root: tuple = ()) -> dict:
+
+def _is_linear(p, path) -> bool:
+    return ("w" in p and getattr(p["w"], "ndim", 0) == 2
+            and (not path or path[-1] not in _SKIP_LINEARS))
+
+
+def _convert_specs(p, s, mode: str, path: tuple = ()):
+    if not isinstance(p, dict):
+        return s
+    if _is_linear(p, path):
+        return L.convert_linear_specs(s, mode)
+    out = {}
+    for k, v in p.items():
+        if k in _EXPERT_KEYS and getattr(v, "ndim", 0) == 3:
+            try:
+                out[k] = _EXPERT_SPEC_CONVERTERS[mode](*s[k])
+            except KeyError:
+                raise ValueError(f"no serving conversion for mode "
+                                 f"{mode!r}") from None
+        else:
+            out[k] = _convert_specs(v, s[k], mode, path + (k,))
+    return out
+
+
+def convert_specs_for_serving(params: dict, specs: dict, mode: str) -> dict:
+    """Spec-tree counterpart of :func:`convert_params_for_serving` (and of
+    :func:`convert_tree` on a tree without ``blocks``, a CNN's): the same
+    routing, read off ``params``' keys and ranks (meta tensors do, e.g.
+    :func:`param_skeleton`), no arithmetic."""
+    out = {}
+    for k, v in params.items():
+        if k == "blocks":
+            out[k] = {pk: _stack_specs(_convert_specs(
+                _index_tree(stacked, 0), _unstack_specs(specs[k][pk]), mode))
+                for pk, stacked in v.items()}
+        else:
+            out[k] = _convert_specs(v, specs[k], mode)
+    return out
+
+
+def convert_tree(params: dict, policy, mode: str, root: tuple = (),
+                 absmax_hook=None, where: tuple = ()) -> dict:
     """Walk an UNSTACKED tree, converting every dense 2-D linear ``{"w"}``
     for ``mode`` (``serve_int8``: ``{"wq", "w_scale"}``; ``serve_packed``:
     ``{"w_packed", "w_scale"}``) under its layer class's precision, and
     every 3-D expert tensor under the policy key of its path
     (``ffn/w_gate``; ``{"wq", "scale"}`` or ``{"w_packed", "scale"}``);
     the router and the SSM's conv stay, as do converted layers and other
-    leaves."""
+    leaves. ``absmax_hook(path, expert)`` (a rank's shards on a mesh),
+    given the leaf's path under ``where``, returns the map from a local
+    absmax to the whole leaf's (one expert's for an expert tensor)."""
+    def hook(path, expert):
+        return None if absmax_hook is None else absmax_hook(
+            tuple(where) + path, expert)
+
     def walk(p, path):
         if not isinstance(p, dict):
             return p
-        if ("w" in p and getattr(p["w"], "ndim", 0) == 2
-                and (not path or path[-1] not in _SKIP_LINEARS)):
+        if _is_linear(p, path):
             return L.convert_linear_for_serving(
-                p, policy.lookup(_policy_key(path)), mode)
+                p, policy.lookup(_policy_key(path)), mode,
+                hook(path, False))
         out = {}
         for k, v in p.items():
             if k in _EXPERT_KEYS and getattr(v, "ndim", 0) == 3:
@@ -270,7 +385,8 @@ def convert_tree(params: dict, policy, mode: str, root: tuple = ()) -> dict:
                 except KeyError:
                     raise ValueError(f"no serving conversion for mode "
                                      f"{mode!r}") from None
-                out[k] = converter(v, policy.lookup("/".join(path + (k,))))
+                out[k] = converter(v, policy.lookup("/".join(path + (k,))),
+                                   hook(path + (k,), True))
             else:
                 out[k] = walk(v, path + (k,))
         return out
@@ -278,10 +394,12 @@ def convert_tree(params: dict, policy, mode: str, root: tuple = ()) -> dict:
     return walk(params, tuple(root))
 
 
-def convert_params_for_serving(params: dict, policy, mode: str) -> dict:
+def convert_params_for_serving(params: dict, policy, mode: str,
+                               absmax_hook=None) -> dict:
     """Every linear's ``w`` -> its serving representation. Embeddings and
     norms stay bf16. Stacked block params are unstacked, converted layer by
-    layer (one weight scale per layer) and restacked."""
+    layer (one weight scale per layer) and restacked. ``absmax_hook``: see
+    :func:`convert_tree` (paths from the tree's root)."""
     out = {}
     for k, v in params.items():
         if k == "blocks":
@@ -289,8 +407,10 @@ def convert_params_for_serving(params: dict, policy, mode: str) -> dict:
             for pk, stacked in v.items():
                 n_groups = _leaves(stacked)[0].shape[0]
                 out[k][pk] = _stack_trees([
-                    convert_tree(_index_tree(stacked, g), policy, mode)
+                    convert_tree(_index_tree(stacked, g), policy, mode,
+                                 absmax_hook=absmax_hook, where=(k, pk))
                     for g in range(n_groups)])
         else:
-            out[k] = convert_tree(v, policy, mode, root=(k,))
+            out[k] = convert_tree(v, policy, mode, root=(k,),
+                                  absmax_hook=absmax_hook)
     return out

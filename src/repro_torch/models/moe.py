@@ -22,8 +22,15 @@ the row count.
 
 On the ``fake_quant`` route (training) the tokens dispatched to the
 experts and the experts' hidden activations are fake-quantized at Pa, as
-in the reference; the router reads x unquantized. Not ported: the
-shard_map expert parallelism (``apply_shardmap``, ROADMAP A.13).
+in the reference; the router reads x unquantized.
+
+On a mesh every MoE layer runs :func:`apply_shardmap` (the reference's
+explicit expert parallelism, which also serves its ``expert_parallel``
+placement): tokens are replicated within the "model" group, so the router
+and the capacity dispatch are the same on every rank; each rank computes
+its E/tp experts' slots and zeros elsewhere, and one exact sum over
+"model" (one nonzero term per slot) gives every rank the gathered
+outputs, combined over the k choices in the unsharded order.
 """
 from __future__ import annotations
 
@@ -33,6 +40,9 @@ import torch
 
 from repro_torch.api import plan as planlib
 from repro_torch.core import bitpack, quantize as quant
+from repro_torch.dist import sharding
+from repro_torch.dist.parallel import lin
+from repro_torch.dist.sharding import Spec
 from repro_torch.models import layers as L
 
 # Rows of the router's product a step multiplies out at a time (float32
@@ -50,6 +60,11 @@ class MoEConfig:
     shared_d_ff: int = 0         # hidden size of the shared expert block
     capacity_factor: float = 1.25
     activation: str = "silu"
+    expert_parallel: bool = True  # experts over "tp" (else d_ff over "tp")
+    # The reference's explicit shard_map EP switch. Read nowhere in the
+    # port: apply_shardmap serves it and expert_parallel alike; the
+    # launch analysis (ROADMAP A.13c) reads it.
+    shard_map_ep: bool = False
     router_aux_coef: float = 0.01
 
 
@@ -76,6 +91,30 @@ def init(cfg: MoEConfig, generator: torch.Generator,
                        "w_up": L.linear_init(d, sf, generator, dtype),
                        "w_down": L.linear_init(sf, d, generator, dtype)}
     return p
+
+
+# Logical axes of the shared experts' linears (in, out).
+_SHARED_IN_AXES, _SHARED_OUT_AXES = ("fsdp", "tp"), ("tp", "fsdp")
+
+
+def _expert_axes(cfg: MoEConfig) -> tuple:
+    """(E, d, f) logical axes of ``w_gate`` / ``w_up``; ``w_down`` takes
+    (E, f, d)."""
+    return ("tp", "fsdp", None) if cfg.expert_parallel \
+        else (None, "fsdp", "tp")
+
+
+def param_specs(cfg: MoEConfig) -> dict:
+    """Logical specs of :func:`init`'s tree."""
+    e_ax, d_ax, f_ax = _expert_axes(cfg)
+    s = {"router": {"w": Spec(None, None)},
+         "w_gate": Spec(e_ax, d_ax, f_ax), "w_up": Spec(e_ax, d_ax, f_ax),
+         "w_down": Spec(e_ax, f_ax, d_ax)}
+    if cfg.n_shared > 0:
+        s["shared"] = {"w_gate": L.linear_specs(*_SHARED_IN_AXES),
+                       "w_up": L.linear_specs(*_SHARED_IN_AXES),
+                       "w_down": L.linear_specs(*_SHARED_OUT_AXES)}
+    return s
 
 
 def _sum_choices(t: torch.Tensor) -> torch.Tensor:
@@ -209,3 +248,85 @@ def apply_train(p, cfg: MoEConfig, x: torch.Tensor, plan) -> tuple:
         comb = comb + L.linear_apply(sh["w_down"], hh, plan,
                                      "moe_shared_down").to(comb.dtype)
     return comb, aux
+
+
+def _gathered_experts(w, axes: tuple, shard):
+    """An expert leaf (raw [E, din, dout], or its ``wq`` / ``w_packed``
+    layout) with its "data"-split dims all-gathered."""
+    resolved = sharding.resolve(Spec(*axes), shard.mesh)
+    if not isinstance(w, dict):
+        w, key, off = {"w": w}, "w", 0
+    else:
+        key = "w_packed" if "w_packed" in w else "wq"
+        off = 1 if key == "w_packed" else 0
+    out = dict(w)
+    for d in (1, 2):
+        if resolved[d] == "data":
+            out[key] = shard.gather(out[key], d + off, "data")
+    return out["w"] if key == "w" else out
+
+
+def apply_shardmap(p, cfg: MoEConfig, x: torch.Tensor, plan,
+                   shard=None) -> torch.Tensor:
+    """The MoE layer on a mesh, x [B, S, d] (this rank's rows, whole d) ->
+    y; without one, the unsharded :func:`apply` (the reference's fallback).
+
+    Expert-parallel (``expert_parallel``, E/tp experts per rank): each
+    rank fills only its experts' capacity slots, runs them (only their
+    planes are unpacked), leaves zeros in every other slot, and the
+    gathered slot outputs are summed over "model" bit for bit. With
+    ``expert_parallel=False`` (mixtral) d_ff is split over "model" and the
+    down products' float partial sums are all-reduced: exact on the
+    gate/up columns, held by tolerance on the sum. Shared experts are Loom
+    linears, column- then row-parallel."""
+    if shard is None:
+        return apply(p, cfg, x, plan)
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = max(1, int(s * k / e * cfg.capacity_factor))
+    lp = plan.layer("moe_expert")
+    if lp.route == planlib.FAKE_QUANT:
+        raise NotImplementedError("fake_quant on a mesh is training "
+                                  "(ROADMAP A.13b)")
+    probs, ids, _ = _route(router_logits(x, p["router"]["w"]), cfg)
+    slot, keep = dispatch(ids, cfg, cap)
+    e_ax, d_ax, f_ax = _expert_axes(cfg)
+    w = {"w_gate": _gathered_experts(p["w_gate"], (e_ax, d_ax, f_ax), shard),
+         "w_up": _gathered_experts(p["w_up"], (e_ax, d_ax, f_ax), shard),
+         "w_down": _gathered_experts(p["w_down"], (e_ax, f_ax, d_ax), shard)}
+    ep = cfg.expert_parallel
+    e_loc = shard.local(e) if ep else e
+    lo = shard.rank("model") * e_loc if ep else 0
+    ours = keep & (slot >= lo * cap) & (slot < (lo + e_loc) * cap)
+    lslot = torch.where(ours, slot - lo * cap,
+                        torch.full_like(slot, e_loc * cap))
+
+    tok = torch.repeat_interleave(x, k, dim=1)                 # [B, S*k, d]
+    buf = torch.zeros((b, e_loc * cap + 1, d), dtype=x.dtype, device=x.device)
+    rows = torch.arange(b, device=x.device)[:, None]
+    buf[rows, lslot] = tok
+    buf = buf[:, :e_loc * cap].reshape(b, e_loc, cap, d)
+    h = L.activation_fn(cfg.activation)(_expert_mm(buf, w, "w_gate")) \
+        * _expert_mm(buf, w, "w_up")
+    out = _expert_mm(h, w, "w_down").reshape(b, e_loc * cap, d)
+    if not ep:
+        out = shard.comm.all_reduce(out.to(torch.float32), "sum",
+                                    shard.group("model")).to(x.dtype)
+    out = torch.cat([out, torch.zeros((b, 1, d), dtype=out.dtype,
+                                      device=out.device)], dim=1)
+    gathered = torch.gather(out, 1, lslot[..., None].expand(-1, -1, d))
+    if ep:
+        gathered = shard.comm.sum_one_hot(gathered, shard.group("model"))
+    w_flat = torch.where(keep, probs.reshape(b, s * k), 0.0).to(x.dtype)
+    comb = _sum_choices((gathered * w_flat[..., None]).reshape(b, s, k, d)
+                        .to(torch.float32)).to(x.dtype)
+    if cfg.n_shared > 0:
+        sh = p["shared"]
+        col = lin(shard, *_SHARED_IN_AXES)
+        g = L.linear_apply(sh["w_gate"], x, plan, "moe_shared_gate", col)
+        u = L.linear_apply(sh["w_up"], x, plan, "moe_shared_up", col)
+        hh = L.activation_fn(cfg.activation)(g) * u
+        comb = comb + L.linear_apply(
+            sh["w_down"], hh, plan, "moe_shared_down",
+            lin(shard, *_SHARED_OUT_AXES, x_local=True)).to(comb.dtype)
+    return comb

@@ -16,6 +16,13 @@ place by the prefill and by each decode step, where the reference returns
 a new one. The decode step's sums run over the contiguous last dim (the
 conv's taps as explicit adds), so a row's step does not depend on the
 other rows of a batch.
+
+On a mesh (``shard``) the heads are split over "model": ``in_x`` and
+``in_z`` column-parallel, the conv's channels, ``A_log``, ``D``,
+``dt_bias`` and the state local; ``in_B``, ``in_C`` and ``in_dt``
+row-parallel over the whole input (outputs whole, exact; the rank keeps
+its heads' ``dt``). The gated output is all-gathered for the RMSNorm over
+the whole inner dim, and ``out`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.parallel import lin
+from repro_torch.dist.sharding import Spec
 from repro_torch.models import layers as L
 
 
@@ -64,6 +73,54 @@ def init(cfg: SSMConfig, generator: torch.Generator,
     p["norm"] = L.norm_init(di, dtype, dev)
     p["out"] = L.linear_init(di, d, generator, dtype)
     return p
+
+
+# Logical axes (in, out) of the projections.
+_IN_AXES, _BCDT_AXES, _OUT_AXES = ("fsdp", "tp"), ("tp", None), ("tp", "fsdp")
+
+
+def param_specs(cfg: SSMConfig) -> dict:
+    """Logical specs of :func:`init`'s tree: heads over "tp"."""
+    return {"in_x": L.linear_specs(*_IN_AXES),
+            "in_z": L.linear_specs(*_IN_AXES),
+            "in_B": L.linear_specs(*_BCDT_AXES),
+            "in_C": L.linear_specs(*_BCDT_AXES),
+            "in_dt": L.linear_specs(*_BCDT_AXES),
+            "conv": {"w": Spec(None, "tp")},
+            "A_log": Spec("tp"), "D": Spec("tp"), "dt_bias": Spec("tp"),
+            "norm": L.norm_specs(), "out": L.linear_specs(*_OUT_AXES)}
+
+
+def cache_specs(cfg: SSMConfig) -> dict:
+    return {"conv": Spec("dp", None, "tp"),
+            "state": Spec("dp", "tp", None, None)}
+
+
+def _heads(cfg: SSMConfig, shard) -> int:
+    return cfg.n_heads if shard is None else shard.local(cfg.n_heads)
+
+
+def _project(p, x, plan, shard) -> tuple:
+    """(x_inner, z, B, C, dt_raw) of x: the rank's channels and heads."""
+    col, rep = lin(shard, *_IN_AXES), lin(shard, *_BCDT_AXES)
+    xi = L.linear_apply(p["in_x"], x, plan, "ssm_x", col)
+    z = L.linear_apply(p["in_z"], x, plan, "ssm_z", col)
+    Bv = L.linear_apply(p["in_B"], x, plan, "ssm_B", rep)
+    Cv = L.linear_apply(p["in_C"], x, plan, "ssm_C", rep)
+    dt = L.linear_apply(p["in_dt"], x, plan, "ssm_dt", rep)
+    if shard is not None:
+        dt = shard.take(dt, -1).contiguous()
+    return xi, z, Bv, Cv, dt
+
+
+def _gated_out(p, y, z, plan, shard):
+    """``out(rms_norm(y * silu(z)))``; on a mesh the gated product is
+    gathered whole for the norm, then ``out`` takes its K-slice."""
+    g = y * _silu(z)
+    if shard is not None:
+        g = shard.gather(g, -1)
+    return L.linear_apply(p["out"], L.rms_norm(g, p["norm"]["g"]), plan,
+                          "ssm_out", lin(shard, *_OUT_AXES))
 
 
 # PyTorch's CPU kernels run whole blocks of 16 or 32 floats through a
@@ -156,25 +213,21 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return (y_intra + y_inter).reshape(b, s, h, p), state
 
 
-def _forward_full(p, cfg: SSMConfig, x: torch.Tensor, plan):
+def _forward_full(p, cfg: SSMConfig, x: torch.Tensor, plan, shard=None):
     """The full-sequence path. Returns (out, conv_tail, final_state)."""
     b, s, _ = x.shape
-    h, pd = cfg.n_heads, cfg.head_dim
-    xi = L.linear_apply(p["in_x"], x, plan, "ssm_x")
-    z = L.linear_apply(p["in_z"], x, plan, "ssm_z")
+    h, pd = _heads(cfg, shard), cfg.head_dim
+    xi, z, Bv, Cv, dt = _project(p, x, plan, shard)
     conv_tail = xi[:, s - (cfg.d_conv - 1):, :]     # raw conv input history
     xi = _silu(_causal_conv(xi, p["conv"]["w"].to(xi.dtype)))
-    Bv = L.linear_apply(p["in_B"], x, plan, "ssm_B").to(torch.float32)
-    Cv = L.linear_apply(p["in_C"], x, plan, "ssm_C").to(torch.float32)
-    dt = _softplus(L.linear_apply(p["in_dt"], x, plan, "ssm_dt")
-                   .to(torch.float32) + p["dt_bias"][None, None, :])
+    Bv, Cv = Bv.to(torch.float32), Cv.to(torch.float32)
+    dt = _softplus(dt.to(torch.float32) + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])
     xh = xi.reshape(b, s, h, pd).to(torch.float32)
     y, final = ssd_chunked(xh, dt, A, Bv, Cv, cfg.chunk)
     y = y + xh * p["D"][None, None, :, None]
     y = y.reshape(b, s, h * pd).to(x.dtype)
-    y = L.rms_norm(y * _silu(z), p["norm"]["g"])
-    return L.linear_apply(p["out"], y, plan, "ssm_out"), conv_tail, final
+    return _gated_out(p, y, z, plan, shard), conv_tail, final
 
 
 def apply_train(p, cfg: SSMConfig, x: torch.Tensor, plan) -> torch.Tensor:
@@ -184,10 +237,10 @@ def apply_train(p, cfg: SSMConfig, x: torch.Tensor, plan) -> torch.Tensor:
 
 
 def apply_prefill(p, cfg: SSMConfig, x: torch.Tensor, plan,
-                  cache: dict) -> torch.Tensor:
+                  cache: dict, shard=None) -> torch.Tensor:
     """The full forward over x [B, S, d] (S a multiple of the chunk); the
     cache's conv history and state are written in place. Returns out."""
-    out, conv_tail, final = _forward_full(p, cfg, x, plan)
+    out, conv_tail, final = _forward_full(p, cfg, x, plan, shard)
     cache["conv"].copy_(conv_tail.to(cache["conv"].dtype))
     cache["state"].copy_(final)
     return out
@@ -203,13 +256,12 @@ def init_cache(cfg: SSMConfig, batch: int, dtype=torch.bfloat16,
 
 
 def apply_decode(p, cfg: SSMConfig, x: torch.Tensor, plan,
-                 cache: dict) -> torch.Tensor:
+                 cache: dict, shard=None) -> torch.Tensor:
     """One token, x [B, 1, d] -> out [B, 1, d]; the cache is updated in
     place."""
     b = x.shape[0]
-    h, pd = cfg.n_heads, cfg.head_dim
-    xi = L.linear_apply(p["in_x"], x, plan, "ssm_x")[:, 0]      # [B, di]
-    z = L.linear_apply(p["in_z"], x, plan, "ssm_z")[:, 0]
+    h, pd = _heads(cfg, shard), cfg.head_dim
+    xi, z, Bv, Cv, dt = (t[:, 0] for t in _project(p, x, plan, shard))
     conv_w = p["conv"]["w"].to(xi.dtype).to(torch.float32)     # [K, di]
     window = torch.cat([cache["conv"], xi[:, None, :]], dim=1)  # [B, K, di]
     # The conv's taps: float32 products of bf16 values (exact) summed in
@@ -219,10 +271,9 @@ def apply_decode(p, cfg: SSMConfig, x: torch.Tensor, plan,
         acc = acc + window[:, i].to(torch.float32) * conv_w[i]
     xc = _silu(acc.to(xi.dtype))
 
-    Bv = L.linear_apply(p["in_B"], x, plan, "ssm_B")[:, 0].to(torch.float32)
-    Cv = L.linear_apply(p["in_C"], x, plan, "ssm_C")[:, 0].to(torch.float32)
-    dt = _per_row(_softplus, L.linear_apply(p["in_dt"], x, plan, "ssm_dt")
-                  [:, 0].to(torch.float32) + p["dt_bias"][None, :])  # [B, h]
+    Bv, Cv = Bv.to(torch.float32), Cv.to(torch.float32)
+    dt = _per_row(_softplus, dt.to(torch.float32)
+                  + p["dt_bias"][None, :])                      # [B, h]
     A = -torch.exp(p["A_log"])
     xh = xc.reshape(b, h, pd).to(torch.float32)
 
@@ -232,6 +283,5 @@ def apply_decode(p, cfg: SSMConfig, x: torch.Tensor, plan,
     y = (Cv[:, None, None, :] * state).sum(-1) + xh * p["D"][None, :, None]
     cache["conv"].copy_(window[:, 1:])
     cache["state"].copy_(state)
-    y = L.rms_norm(y.reshape(b, h * pd).to(x.dtype) * _silu(z),
-                   p["norm"]["g"])
-    return L.linear_apply(p["out"], y[:, None, :], plan, "ssm_out")
+    return _gated_out(p, y.reshape(b, 1, h * pd).to(x.dtype), z[:, None],
+                      plan, shard)

@@ -14,6 +14,11 @@ returns the block's output and its MoE auxiliary loss. Every serving
 block writes its cache in place: the attention K/V slots, the
 mamba conv history and state (``models/ssm.py``), the cross-attention
 K/V over the image embeddings.
+
+Each module's ``param_specs`` / ``cache_specs`` give the reference's
+logical specs of its trees (:mod:`repro_torch.dist.sharding`); the serving
+blocks take a ``shard`` (a :class:`~repro_torch.dist.parallel.ShardCtx`)
+on a mesh, and run each projection as the shard its spec names.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist.parallel import lin
+from repro_torch.dist.sharding import Spec
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -93,16 +100,30 @@ def ffn_init(d: int, f: int, generator: torch.Generator,
     return p
 
 
-def ffn_apply(p, x, activation: str, plan) -> torch.Tensor:
+# Logical axes (in, out) of the FFN's projections: up/gate column-parallel,
+# down row-parallel.
+FFN_IN_AXES, FFN_OUT_AXES = ("fsdp", "tp"), ("tp", "fsdp")
+
+
+def ffn_specs(gated: bool = True) -> dict:
+    s = {"w_gate": L.linear_specs(*FFN_IN_AXES)} if gated else {}
+    s["w_up"] = L.linear_specs(*FFN_IN_AXES)
+    s["w_down"] = L.linear_specs(*FFN_OUT_AXES)
+    return s
+
+
+def ffn_apply(p, x, activation: str, plan, shard=None) -> torch.Tensor:
     """The dense FFN: ``act(W_gate x) * W_up x`` when gated, else
     ``act(W_up x)``, then ``W_down``."""
-    u = L.linear_apply(p["w_up"], x, plan, "ffn_up")
+    col = lin(shard, *FFN_IN_AXES)
+    u = L.linear_apply(p["w_up"], x, plan, "ffn_up", col)
     if "w_gate" in p:
-        g = L.linear_apply(p["w_gate"], x, plan, "ffn_gate")
+        g = L.linear_apply(p["w_gate"], x, plan, "ffn_gate", col)
         h = L.activation_fn(activation)(g) * u
     else:
         h = L.activation_fn(activation)(u)
-    return L.linear_apply(p["w_down"], h, plan, "ffn_down")
+    return L.linear_apply(p["w_down"], h, plan, "ffn_down",
+                          lin(shard, *FFN_OUT_AXES, x_local=True))
 
 
 def block_init(cfg: ModelConfig, spec: LayerSpec, generator: torch.Generator,
@@ -123,16 +144,34 @@ def block_init(cfg: ModelConfig, spec: LayerSpec, generator: torch.Generator,
     return p
 
 
-def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x, plan) -> tuple:
+def block_specs(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    """Logical specs of :func:`block_init`'s tree."""
+    s = {"ln1": L.norm_specs()}
+    if spec.kind == "mamba":
+        s["mix"] = ssm_mod.param_specs(cfg.ssm)
+    else:
+        s["mix"] = attn.param_specs(cfg.attn_cfg(spec))
+    if spec.ffn != "none":
+        s["ln2"] = L.norm_specs()
+        s["ffn"] = moe_mod.param_specs(cfg.moe) if spec.ffn == "moe" \
+            else ffn_specs(cfg.ffn_gated)
+    return s
+
+
+def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x, plan,
+         shard=None) -> tuple:
     """x plus the block's FFN, and the MoE's auxiliary loss (0.0 for any
     other FFN)."""
     if spec.ffn == "none":
         return x, 0.0
     h = L.rms_norm(x, p["ln2"]["g"])
     if spec.ffn == "moe":
+        if shard is not None:
+            return x + moe_mod.apply_shardmap(p["ffn"], cfg.moe, h, plan,
+                                              shard), 0.0
         f, aux = moe_mod.apply_train(p["ffn"], cfg.moe, h, plan)
         return x + f, aux
-    return x + ffn_apply(p["ffn"], h, cfg.activation, plan), 0.0
+    return x + ffn_apply(p["ffn"], h, cfg.activation, plan, shard), 0.0
 
 
 def block_apply_train(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
@@ -150,7 +189,7 @@ def block_apply_train(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
 
 
 def block_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                        plan, cache, img_embeds=None):
+                        plan, cache, img_embeds=None, shard=None):
     """One block over the prompt (x [B, S, d]), its cache filled in place,
     as the reference's ``model.prefill`` runs each kind: a mamba block
     keeps its conv history and final state; a cross-attention block
@@ -159,33 +198,33 @@ def block_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
     (``attention.apply_train``). Returns x."""
     h = L.rms_norm(x, p["ln1"]["g"])
     if spec.kind == "mamba":
-        mix = ssm_mod.apply_prefill(p["mix"], cfg.ssm, h, plan, cache)
+        mix = ssm_mod.apply_prefill(p["mix"], cfg.ssm, h, plan, cache, shard)
     elif spec.kind == "cross":
         if img_embeds is None:
             raise ValueError(f"{cfg.name}: a cross-attention layer needs "
                              f"img_embeds [B, {cfg.n_img_tokens}, "
                              f"{cfg.d_model}] at prefill")
         acfg = cfg.attn_cfg(spec)
-        attn.init_cross_cache(p["mix"], acfg, img_embeds, plan, cache)
+        attn.init_cross_cache(p["mix"], acfg, img_embeds, plan, cache, shard)
         mix = attn.apply_train(p["mix"], acfg, h, positions, plan,
-                               kv_x=img_embeds)
+                               kv_x=img_embeds, shard=shard)
     else:
         mix, _ = attn.apply_prefill(p["mix"], cfg.attn_cfg(spec), h,
-                                    positions, plan, cache)
-    return _ffn(p, cfg, spec, x + mix, plan)[0]
+                                    positions, plan, cache, shard)
+    return _ffn(p, cfg, spec, x + mix, plan, shard)[0]
 
 
 def block_apply_decode(p, cfg: ModelConfig, spec: LayerSpec, x, pos, plan,
-                       cache):
+                       cache, shard=None):
     """One block of a decode step (x [B, 1, d]), its cache updated in
     place. Returns x."""
     h = L.rms_norm(x, p["ln1"]["g"])
     if spec.kind == "mamba":
-        mix = ssm_mod.apply_decode(p["mix"], cfg.ssm, h, plan, cache)
+        mix = ssm_mod.apply_decode(p["mix"], cfg.ssm, h, plan, cache, shard)
     else:
         mix, _ = attn.apply_decode(p["mix"], cfg.attn_cfg(spec), h, pos,
-                                   plan, cache)
-    return _ffn(p, cfg, spec, x + mix, plan)[0]
+                                   plan, cache, shard)
+    return _ffn(p, cfg, spec, x + mix, plan, shard)[0]
 
 
 def block_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -202,3 +241,26 @@ def block_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
                 "slot_pos": torch.zeros(shape[:2], dtype=torch.int32,
                                         device=device)}
     return attn.init_cache(cfg.attn_cfg(spec), batch, max_seq, device=device)
+
+
+def block_cache_specs(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    """The reference's logical specs of :func:`block_cache_init`'s tree."""
+    if spec.kind == "mamba":
+        return ssm_mod.cache_specs(cfg.ssm)
+    if spec.kind == "cross":
+        return {"k": Spec("dp", "sp", None, None),
+                "v": Spec("dp", "sp", None, None),
+                "slot_pos": Spec("dp", "sp")}
+    return attn.cache_specs(cfg.attn_cfg(spec))
+
+
+def block_cache_shard_specs(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    """Where the port places a block's cache on a mesh: rows over "dp",
+    attention KV heads and the SSM's channels and heads over "tp"."""
+    if spec.kind == "mamba":
+        return ssm_mod.cache_specs(cfg.ssm)
+    if spec.kind == "cross":
+        return {"k": Spec("dp", None, "tp", None),
+                "v": Spec("dp", None, "tp", None),
+                "slot_pos": Spec("dp", None)}
+    return attn.cache_shard_specs(cfg.attn_cfg(spec))

@@ -7,7 +7,7 @@ the optimizer's memory (the paper's storage-precision lever applied to
 training state); the update itself runs in float32 either way, in the
 reference's order of operations, so the two packages agree to float32
 rounding. The reference's ``opt_state_specs`` (moment sharding) comes with
-ROADMAP A.13.
+ROADMAP A.13b (training on a mesh).
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ plus its carried residual is quantized to k bits under one absmax scale
 and dequantized; the quantization error is carried (bf16) to the next
 step, so the compression's bias vanishes to first order. The reference's
 ``compressed_psum`` (the collective over a pod axis) comes with ROADMAP
-A.13.
+A.13b (training on a mesh).
 """
 from __future__ import annotations
 

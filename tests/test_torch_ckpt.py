@@ -147,7 +147,8 @@ def test_float8_leaves_cross_both_ways(tmp_path, fmt):
     arr = vals.astype(getattr(ml_dtypes, fmt))
     jck.save_checkpoint(str(tmp_path / "jax"), 0, {"x": arr})
     got, _ = ck.restore_checkpoint(str(tmp_path / "jax"), 0, {
-        "x": torch.empty(5, dtype=getattr(torch, fmt), device="meta")})
+        "x": torch.empty(5, dtype=getattr(torch, fmt), device="meta")},
+        device="cpu")
     assert got["x"].dtype == getattr(torch, fmt)
     assert np.array_equal(got["x"].view(torch.uint8).numpy(),
                           arr.view(np.uint8))
@@ -327,3 +328,25 @@ def test_ckpt_manager_verify_passthrough(tmp_path):
     mgr.wait()
     restored, step = ck.restore_latest(str(tmp_path), state)
     assert step == 0 and torch.equal(restored["w"], state["w"])
+
+
+def test_restore_defaults_to_the_device_of_like(tmp_path):
+    """With no ``device``, a restore lands where ``like``'s tensors are;
+    a ``like`` of meta tensors or numpy arrays names no device, and the
+    default is then the card, as the reference restores onto its default
+    device (so on the CPU such a restore passes ``device="cpu"``)."""
+    tree = {"a": torch.arange(6, dtype=torch.float32).reshape(2, 3),
+            "b": {"c": torch.ones(4, dtype=torch.bfloat16)}}
+    ck.save_checkpoint(str(tmp_path), 0, tree)
+    got, _ = ck.restore_checkpoint(str(tmp_path), 0, tree)
+    assert all(t.device == torch.device("cpu")
+               for t in interop.flatten_with_paths(got).values())
+    _assert_trees_equal(got, tree)
+    meta = interop.map_with_paths(
+        lambda _, t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
+    assert ck._default_device(meta) == torch.device("cuda")
+    assert ck._default_device({"a": np.zeros(2)}) == torch.device("cuda")
+    assert ck._default_device({"m": meta["a"], "t": tree["a"]}) == \
+        torch.device("cpu")
+    got, _ = ck.restore_latest(str(tmp_path), meta, device="cpu")
+    _assert_trees_equal(got, tree)

@@ -15,7 +15,8 @@ route's row equal to the row attended alone; and the MoE's router,
 expert products and block, and the SSM's decode step, each row equal to
 the row run alone; training: the smoke LM's loss and gradients (dense
 and ``fake_quant``) on the card against the CPU, the flash VJP against
-autograd, and an AdamW step against the CPU's.
+autograd, and an AdamW step against the CPU's; a world-size-1 mesh on
+NCCL equal to the unmeshed session.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -813,3 +814,41 @@ def test_adamw_step_on_the_card_equals_the_cpu(cuda, moments):
         w, g = want[key].float(), got[key].cpu().float()
         bound = 1e-6 * (w.abs() + w.abs().max())
         assert bool(((g - w).abs() <= bound).all()), key
+
+
+def test_world_size_1_mesh_on_nccl_equals_the_unmeshed_session(cuda):
+    """A (1, 1) mesh of one rank on NCCL (``repro_torch.dist``): the
+    meshed smoke LM's prefill and decode logits equal the unmeshed
+    session's bit for bit, through K1 on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import init_process
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = configs.get("qwen3-1.7b", smoke=True)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(3))
+    plain = repro_torch.compile(cfg, uniform_policy(8, 8),
+                                mode="serve_packed")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert init_process(0, 1, port, "cuda") == "nccl"
+    try:
+        meshed = repro_torch.compile(cfg, uniform_policy(8, 8),
+                                     mode="serve_packed",
+                                     mesh=make_host_mesh(1, 1))
+        launches = bitserial_matmul.launches
+        a, ca = plain.prefill(toks, plain.init_cache(2, 32))
+        b, cb = meshed.prefill(toks, meshed.init_cache(2, 32))
+        assert torch.equal(a, b)
+        tok = torch.argmax(a[:, 0], -1)
+        for i in range(3):
+            a, ca = plain.decode(tok, 16 + i, ca)
+            b, cb = meshed.decode(tok, 16 + i, cb)
+            assert torch.equal(a, b)
+            tok = torch.argmax(a, -1)
+        assert bitserial_matmul.launches - launches == 2 * 4 * 15
+    finally:
+        dist.destroy_process_group()

@@ -38,7 +38,11 @@ def test_port_files_exist():
                 "src/repro_torch/examples/__init__.py",
                 "src/repro_torch/examples/quickstart.py",
                 "src/repro_torch/examples/precision_profiles.py",
-                "src/repro_torch/examples/serve_quantized.py"):
+                "src/repro_torch/examples/serve_quantized.py",
+                "src/repro_torch/dist/__init__.py",
+                "src/repro_torch/dist/sharding.py",
+                "src/repro_torch/dist/parallel.py",
+                "src/repro_torch/launch/mesh.py"):
         assert new in names, new
 
 
