@@ -169,7 +169,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               packed bytes, peak memory, prefill ms and decode ms/step
               (CUDA events). deepseek-moe-16b: a ``dynamic_a`` prefill
               (K3 on every linear) equal to the static one, one decode
-              step profiled. deepseek-moe-16b and mamba2-370m: the
+              step profiled (14 of its 28 layers: the dist
+              phase's training took the time). deepseek-moe-16b and
+              mamba2-370m: the
               engine's traffic (ARCHS_ENGINE_PROMPTS), every stream and
               batched decode row equal to its solo run.
    train   -- the training path (no kernel of the port runs in it; the
@@ -220,7 +222,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               width, 2 layers) restored with ``shardings=`` onto (1, 2)
               equals the unsharded restore's slices. Per mesh and rank:
               prefill and decode ms (CUDA events), peak memory, launches,
-              the collectives by kind.
+              the collectives by kind. Then the same worlds train
+              (DIST_TRAIN_*: ``jit_train_step``, qwen3-1.7b at published
+              size on (1, 2) ``dense`` and ``fake_quant`` and on (2, 2)
+              ``dense``, the deepseek cut on (1, 4)): the first step's
+              loss and grad norm within DIST_LOSS_RTOL and DIST_NORM_RTOL
+              of the unsharded ones (this process's loss and gradients on
+              the card; the (1, 1) NCCL mesh's within them too), every
+              loss and grad norm finite, no
+              kernel of the port launched; per rank step ms (CUDA
+              events), peak memory and the collectives of a step by kind
+              and bytes.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -2441,13 +2453,16 @@ def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
 
 # The archs phase: the nine other LM architectures at published width,
 # depth cut where one card or the script's time limit forces it (None =
-# the published depth; PERF.md section 4 lists each cut).
-ARCH_DEPTHS = {"deepseek-moe-16b": None, "mamba2-370m": None,
+# the published depth; PERF.md section 4 lists each cut). deepseek-moe-16b
+# keeps 14 of its 28 layers (its first 14 of the pattern: the dense
+# layer and 13 MoE): at 28 its per-call expert unpack took 170 s of the
+# phase, and the dist phase's training needed the time.
+ARCH_DEPTHS = {"deepseek-moe-16b": 14, "mamba2-370m": None,
                "jamba-v0.1-52b": 8, "mixtral-8x7b": 2, "gemma3-12b": 6,
                "llama3-405b": 1, "nemotron-4-340b": 1, "musicgen-large": 1,
                "llama-3.2-vision-90b": 5}
 ARCHS_BATCH, ARCHS_PROMPT, ARCHS_GEN = 2, 512, 8
-# Engine traffic on the full deepseek-moe-16b (request j: 96 + 64 j
+# Engine traffic on deepseek-moe-16b (request j: 96 + 64 j
 # tokens) and mamba2-370m (256 (j + 1) tokens: the SSD's chunk divides a
 # prompt), ARCHS_ENGINE_REQUESTS requests of ARCHS_GEN tokens into
 # ARCHS_ENGINE_BATCH slots, submitted one step apart.
@@ -2623,7 +2638,7 @@ def phase_archs(card: str) -> dict:
         t_arch = time.perf_counter()
         full = configs.get(name)
         cfg = full if depth is None else dataclasses.replace(
-            full, n_layers=depth)
+            full, n_layers=depth, pattern=full.pattern[:depth])
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2832,7 +2847,7 @@ def train_run(cfg, mode: str, steps: int, label: str, card: str,
     base = torch.cuda.memory_allocated()
     tc = train_mod.TrainConfig(sched=Schedule(warmup_steps=2,
                                               total_steps=TRAIN_STEPS))
-    state = train_mod.make_train_state(
+    state, _ = train_mod.make_train_state(
         cfg, tc, torch.Generator(device="cuda").manual_seed(0), "cuda")
     state_bytes = _param_bytes(state)
     flops = _train_flops(cfg, state["params"])
@@ -3350,6 +3365,32 @@ DIST_MOE_LAYERS = 4
 DIST_CKPT_LAYERS = 2
 DIST_TIMEOUT_S = 240
 DIST_LABEL = "gloo on one H100, transport through the host"
+# Training on the mesh, in the same spawned worlds after
+# their serving: qwen3-1.7b at published width and depth (remat "none",
+# float32 moments) on (1, 2) in dense and fake_quant (8, 8) and on (2, 2)
+# in dense ("fsdp" dims over "data"), deepseek-moe-16b's first
+# DIST_MOE_LAYERS layers on (1, 4) dense (16 experts a rank); a global
+# batch of DIST_TRAIN_BATCH x DIST_TRAIN_SEQ tokens (the data pipeline's
+# step j), a first step and DIST_TRAIN_STEPS timed ones. The first step's
+# loss and grad norm are held within DIST_LOSS_RTOL and DIST_NORM_RTOL of
+# the unsharded ones on the same batch (the parent's loss and gradients
+# on the card, without the optimizer, whose state the parent has no room
+# for beside the earlier phases'; a (1, 1) NCCL mesh's within them too),
+# every loss and grad norm finite, no kernel of the port launched.
+DIST_TRAIN_BATCH, DIST_TRAIN_SEQ, DIST_TRAIN_STEPS = 4, 256, 2
+# Three times the largest relative difference measured on the card
+# (4.85e-4: (1, 2) fake_quant).
+DIST_LOSS_RTOL = 1.5e-3
+# The first step's grad norm (before the clip), which reads every
+# gradient the backward's collectives carry: three times the largest
+# relative difference from the unsharded one measured on the card
+# (1.262e-3: (2, 2) dense; 7.75e-4 (1, 2) dense, 2.83e-4 fake_quant,
+# 2.27e-4 deepseek (1, 4)).
+DIST_NORM_RTOL = 3.8e-3
+DIST_TRAIN_RUNS = {2: [("qwen", "dense", "(1, 2)"),
+                       ("qwen", "fake_quant", "(1, 2)")],
+                   4: [("qwen", "dense", "(2, 2)"),
+                       ("moe", "dense", "(1, 4)")]}
 
 
 def _free_port() -> int:
@@ -3449,6 +3490,149 @@ def _dist_serve(mesh, cfg, tokens, expect: list, max_seq: int, errs: dict,
                     sess.shard.comm.calls.items(), key=str)}}
 
 
+def _train_cfgs(smoke: bool) -> dict:
+    """The dist phase's training configs: qwen3-1.7b and the deepseek
+    cut, remat "none"."""
+    return {"qwen": dataclasses.replace(configs.get("qwen3-1.7b",
+                                                    smoke=smoke),
+                                        remat="none"),
+            "moe": dataclasses.replace(_moe_cut(smoke), remat="none")}
+
+
+def _train_batches(cfg, n: int) -> list:
+    from repro_torch.data import DataConfig, synthetic_batch
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=DIST_TRAIN_SEQ,
+                      global_batch=DIST_TRAIN_BATCH)
+    return [synthetic_batch(dcfg, i) for i in range(n)]
+
+
+def _train_tc():
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import Schedule
+    return train_mod.TrainConfig(sched=Schedule(warmup_steps=1,
+                                                total_steps=10))
+
+
+def _dist_train_expect(smoke: bool, mesh=None) -> dict:
+    """The first step's loss and grad norm (before the clip) of every
+    training run of DIST_TRAIN_RUNS, seed-0 params drawn on the card:
+    {"<model> <mode>": [loss, grad norm]}; on a ``mesh`` (the (1, 1) NCCL
+    one) through ``mesh_value_and_grad`` and the sharded norm. Neither
+    needs the optimizer's state, so the card holds the params, their
+    gradients and the activations alone."""
+    from repro_torch.api.plan import build_plan
+    from repro_torch.dist.parallel import ShardCtx
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import global_norm
+    cfgs, out = _train_cfgs(smoke), {}
+    for model, mode in sorted({(m, md) for runs in DIST_TRAIN_RUNS.values()
+                               for m, md, _ in runs}):
+        cfg = cfgs[model]
+        plan = build_plan(cfg, uniform_policy(8, 8), mode)
+        params = M.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        batch = train_mod.batch_on(_train_batches(cfg, 1)[0], "cuda")
+        if mesh is None:
+            loss, _, grads = train_mod.value_and_grad(params, cfg, batch,
+                                                      plan)
+            norm = global_norm(grads)
+        else:
+            shard, specs = ShardCtx(mesh), M.param_spec_tree(cfg)
+            loss, _, grads = train_mod.mesh_value_and_grad(
+                params, cfg, batch, plan, shard, specs)
+            norm = global_norm(grads, shard, specs)
+        out[f"{model} {mode}"] = [float(loss), float(norm)]
+        del params, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dist_train(mesh, model: str, mode: str, label: str, expect: dict,
+                smoke: bool) -> dict:
+    """One training run of the dist phase on ``mesh``: this rank's shards
+    of the seed-0 state, a first step (its loss held to ``expect``'s)
+    and DIST_TRAIN_STEPS timed ones (CUDA events), the kernel counts
+    reset just before the steps and read just after. Returns this rank's
+    numbers: step ms, peak memory, the collectives of a step by kind."""
+    from repro_torch.api.plan import build_plan
+    from repro_torch.launch import train as train_mod
+    cfg, tc = _train_cfgs(smoke)[model], _train_tc()
+    plan = build_plan(cfg, uniform_policy(8, 8), mode)
+    torch.cuda.empty_cache()
+    state, specs = train_mod.make_train_state(
+        cfg, tc, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        mesh=mesh)
+    state_bytes = _param_bytes(state)
+    step = train_mod.jit_train_step(cfg, plan, tc, mesh, specs,
+                                    train_mod.batch_specs(cfg))
+    batches = _train_batches(cfg, 1 + DIST_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    (state, m), first_ms = _event_ms(lambda: step(state, batches[0]))
+    metrics = [m]
+    comm = step.shard.comm
+    comm.calls.clear()
+    comm.bytes.clear()
+    step_ms = []
+    for b in batches[1:]:
+        (state, m), ms = _event_ms(lambda: step(state, b))
+        metrics.append(m)
+        step_ms.append(ms)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    want, want_norm = expect[f"{model} {mode}"]
+    name = f"dist train {label} {cfg.name} {mode}"
+    check(all(np.isfinite(losses + norms)), f"{name}: losses {losses}, "
+          f"grad norms {norms}")
+    check(abs(losses[0] - want) <= DIST_LOSS_RTOL * abs(want),
+          f"{name}: first-step loss {losses[0]!r}, the unsharded step's "
+          f"{want!r} (limit {DIST_LOSS_RTOL} relative)")
+    check(abs(norms[0] - want_norm) <= DIST_NORM_RTOL * abs(want_norm),
+          f"{name}: first-step grad norm {norms[0]!r}, the unsharded "
+          f"step's {want_norm!r} (limit {DIST_NORM_RTOL} relative)")
+    check(not any(launches.values()), f"{name}: the training path launched "
+          f"kernels of the port: {launches}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    def kind(key):
+        op, dt, red = key
+        return f"{op} {str(dt).replace('torch.', '')} {red or ''}".strip()
+    return {"label": f"{label} {cfg.name} {mode}", "rank": dist_rank(),
+            "layers": cfg.n_layers, "state_gib": state_bytes / 2**30,
+            "first_ms": first_ms, "step_ms": float(np.median(step_ms)),
+            "peak_gib": peak / 2**30, "losses": losses, "grad_norms": norms,
+            "want": [want, want_norm],
+            "loss_err": abs(losses[0] - want) / abs(want),
+            "norm_err": abs(norms[0] - want_norm) / abs(want_norm),
+            "launches": launches, "collectives": {
+                kind(k): [n / DIST_TRAIN_STEPS,
+                          comm.bytes[k] / DIST_TRAIN_STEPS / 2**20]
+                for k, n in sorted(comm.calls.items(), key=str)}}
+
+
+def _print_dist_train(r: dict, card: str) -> None:
+    coll = ", ".join(f"{k} x{n:g} ({mib:.1f} MiB)"
+                     for k, (n, mib) in r["collectives"].items())
+    print(f"[dist] train {r['label']} rank {r['rank']} ({card}; "
+          f"{r['transport']}): {r['layers']} layers, state "
+          f"{r['state_gib']:.3f} GiB a rank; {DIST_TRAIN_BATCH} x "
+          f"{DIST_TRAIN_SEQ} tokens a step: first step {r['first_ms']:.1f} "
+          f"ms, step {r['step_ms']:.1f} ms (median of {DIST_TRAIN_STEPS}, "
+          f"CUDA events), peak {r['peak_gib']:.3f} GiB; losses "
+          f"{[round(x, 5) for x in r['losses']]}, grad norms "
+          f"{[round(x, 4) for x in r['grad_norms']]}; first loss "
+          f"{r['losses'][0]!r} against the unsharded step's "
+          f"{r['want'][0]!r} (relative {r['loss_err']:.3g}, limit "
+          f"{DIST_LOSS_RTOL}); first grad norm {r['grad_norms'][0]!r} "
+          f"against {r['want'][1]!r} (relative {r['norm_err']:.3g}, limit "
+          f"{DIST_NORM_RTOL}); kernels of the port launched 0 times; "
+          f"collectives a step: {coll or 'none'}", flush=True)
+
+
 def dist_rank() -> int:
     import torch.distributed as dist
     return dist.get_rank() if dist.is_initialized() else 0
@@ -3496,6 +3680,7 @@ def _dist_rank(rank: int, world: int, port: int, tmp: str,
     errs = {k: 0 for k in KERNELS}
     runs, extra = [], {}
     qwen = configs.get("qwen3-1.7b", smoke=smoke)
+    meshes = {"(1, 2)": (1, 2), "(2, 2)": (2, 2), "(1, 4)": (1, 4)}
     if world == 2:
         mesh = make_host_mesh(2, model=2, device="cuda")
         runs.append(_dist_serve(mesh, qwen, tokens, expect["qwen"], max_seq,
@@ -3509,9 +3694,14 @@ def _dist_rank(rank: int, world: int, port: int, tmp: str,
         runs.append(_dist_serve(mesh, _moe_cut(smoke),
                                 expect["moe_tokens"].cuda(), expect["moe"],
                                 max_seq, errs, "(1, 4) deepseek"))
+    train = []
+    for model, mode, label in DIST_TRAIN_RUNS[world]:
+        mesh = make_host_mesh(world, model=meshes[label][1], device="cuda")
+        train.append(_dist_train(mesh, model, mode, label, expect["train"],
+                                 smoke))
     with open(os.path.join(tmp, f"rank{rank}_{world}.json"), "w") as f:
-        json.dump({"backend": backend, "runs": runs, "errs": errs, **extra},
-                  f)
+        json.dump({"backend": backend, "runs": runs, "train": train,
+                   "errs": errs, **extra}, f)
     import torch.distributed as dist
     dist.barrier()
     dist.destroy_process_group()
@@ -3555,6 +3745,10 @@ def phase_dist(lm: dict, card: str, errs: dict, smoke: bool = False) -> dict:
         expect["moe"] = _dist_expect(moe_sess, expect["moe_tokens"].cuda(),
                                      max_seq)
         del moe_sess
+        torch.cuda.empty_cache()
+        expect["train"] = _dist_train_expect(smoke)
+        print(f"[dist] unsharded first train steps on the card (loss, grad "
+              f"norm before the clip): {expect['train']}", flush=True)
         torch.save(expect, os.path.join(tmp, "expect.pt"))
         ckpt.save_checkpoint(os.path.join(tmp, "ckpt"), 0, M.init_params(
             _ckpt_cfg(smoke), torch.Generator(device="cuda").manual_seed(0),
@@ -3567,8 +3761,22 @@ def phase_dist(lm: dict, card: str, errs: dict, smoke: bool = False) -> dict:
         backend = init_process(0, 1, _free_port(), "cuda",
                                timeout_s=DIST_TIMEOUT_S)
         check(backend == "nccl", f"dist: world size 1 ran on {backend}")
-        r = _dist_serve(make_host_mesh(1, 1, device="cuda"), qwen, tokens,
-                        expect["qwen"], max_seq, errs, "(1, 1)")
+        mesh11 = make_host_mesh(1, 1, device="cuda")
+        r = _dist_serve(mesh11, qwen, tokens, expect["qwen"], max_seq, errs,
+                        "(1, 1)")
+        torch.cuda.empty_cache()
+        got = _dist_train_expect(smoke, mesh11)
+        for key, (loss, norm) in got.items():
+            want, want_norm = expect["train"][key]
+            check(abs(loss - want) <= DIST_LOSS_RTOL * abs(want)
+                  and abs(norm - want_norm) <= DIST_NORM_RTOL * want_norm,
+                  f"dist: the (1, 1) NCCL mesh's first {key} train step's "
+                  f"loss {loss!r} and grad norm {norm!r}, the unsharded "
+                  f"step's {want!r}, {want_norm!r}")
+            print(f"[dist] (1, 1) NCCL train {key}: first-step loss {loss!r}"
+                  f", grad norm {norm!r}; the unsharded step's {want!r}, "
+                  f"{want_norm!r} (bit-equal: {[loss, norm] == [want, want_norm]})",
+                  flush=True)
         dist.destroy_process_group()
         torch.cuda.empty_cache()
         r["transport"] = "NCCL, world size 1"
@@ -3598,6 +3806,12 @@ def phase_dist(lm: dict, card: str, errs: dict, smoke: bool = False) -> dict:
                         launches[f"dist {r['label']} rank 0"] = r["launches"]
                         launches[f"dist {r['label']} rank 0 dynamic_a"] = \
                             r["dyn_launches"]
+                for r in got["train"]:
+                    r["transport"] = DIST_LABEL
+                    _print_dist_train(r, card)
+                    if rank == 0:
+                        launches[f"dist train {r['label']} rank 0"] = \
+                            r["launches"]
                 if "ckpt" in got:
                     c = got["ckpt"]
                     print(f"[dist] (1, 2) rank {rank}: checkpoint of "

@@ -32,7 +32,9 @@ On a mesh (``shardings=``, a tree matching the state of
 :class:`repro_torch.dist.sharding.NamedSharding`): a restore CRC-checks
 each whole ``.npy`` on every rank, as unsharded, and keeps this rank's
 slice; a save all-gathers the shards and rank 0 writes the whole leaves,
-so the files are those of an unsharded save, byte for byte.
+so the files are those of an unsharded save, byte for byte
+(``CheckpointManager.save_async(..., shardings=)`` likewise, rank 0
+writing in the background).
 """
 from __future__ import annotations
 
@@ -171,14 +173,18 @@ def _all_steps(ckpt_dir: str) -> list[int]:
                   if d.startswith("step_") and not d.endswith(".tmp"))
 
 
-def _save_sharded(ckpt_dir, step, state, shardings, **kw):
-    import torch.distributed as dist
-
+def _gathered(state, shardings):
+    """The whole leaves of a mesh's ``state`` (every rank calls)."""
     from repro_torch.dist import sharding
     shard_of = interop.flatten_with_paths(shardings)
-    whole = interop.map_with_paths(
+    return interop.map_with_paths(
         lambda key, t: sharding.gather_leaf(t, shard_of[key].spec,
                                             shard_of[key].mesh), state)
+
+
+def _save_sharded(ckpt_dir, step, state, shardings, **kw):
+    import torch.distributed as dist
+    whole = _gathered(state, shardings)
     path = save_checkpoint(ckpt_dir, step, whole, **kw) \
         if dist.get_rank() == 0 else None
     dist.barrier()
@@ -314,6 +320,7 @@ class CheckpointManager:
         self.verify = verify
         self._thread: threading.Thread | None = None
         self._async_exc: BaseException | None = None
+        self._barrier = False
         os.makedirs(ckpt_dir, exist_ok=True)
 
     def should_save(self, step: int) -> bool:
@@ -321,16 +328,32 @@ class CheckpointManager:
 
     def wait(self):
         """Join the in-flight async save; re-raise its exception if it
-        failed -- a dropped save error would silently cost a checkpoint."""
+        failed -- a dropped save error would silently cost a checkpoint.
+        After a sharded save every rank waits here until rank 0's write
+        is done."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
         if self._async_exc is not None:
             exc, self._async_exc = self._async_exc, None
             raise exc
 
-    def save_async(self, step: int, state):
+    def save_async(self, step: int, state, shardings=None):
+        """Snapshot ``state`` to the host and write it on a background
+        thread. ``shardings`` (a mesh's train state, every rank calling):
+        the shards are all-gathered here and rank 0 writes the whole
+        leaves, the files of an unsharded save."""
         self.wait()
+        if shardings is not None:
+            import torch.distributed as dist
+            state = _gathered(state, shardings)
+            self._barrier = True
+            if dist.get_rank() != 0:
+                return
         host_state = interop.map_with_paths(
             lambda _, x: interop.host_tensor(x).clone(), state)
 

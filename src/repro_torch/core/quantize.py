@@ -83,18 +83,23 @@ class _FakeQuant(torch.autograd.Function):
     through unchanged, with no clipping mask (the reference's ``_fq_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, bits):
-        return dequantize(*quantize(x, bits)).to(x.dtype)
+    def forward(ctx, x, bits, reduce_max):
+        scale = None
+        if reduce_max is not None:
+            absmax = torch.amax(x.abs(), dim=_dims(x, None), keepdim=True)
+            scale = scale_from_absmax(reduce_max(absmax), bits)
+        return dequantize(*quantize(x, bits, scale=scale)).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-def fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
+def fake_quant(x: torch.Tensor, bits: int, reduce_max=None) -> torch.Tensor:
     """Straight-through fake quantization of x to ``bits`` bits under one
-    per-tensor absmax scale."""
-    return _FakeQuant.apply(x, bits)
+    per-tensor absmax scale. ``reduce_max`` (x a rank's piece of a
+    tensor on a mesh) maps the local absmax to the whole tensor's."""
+    return _FakeQuant.apply(x, bits, reduce_max)
 
 
 def to_twos_complement(xq: torch.Tensor, bits: int) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Serving on a device mesh: logical specs, sharding rules, and the
-tensor-, data- and expert-parallel execution of the Loom linears.
+"""Serving and training on a device mesh: logical specs, sharding rules,
+and the tensor-, data- and expert-parallel execution of the Loom
+linears, with collectives that carry a gradient for training
+(``launch.train.jit_train_step``).
 
 PyTorch-port counterpart of ``repro/dist/``. The reference is
 single-controller: one process drives every device and GSPMD places the

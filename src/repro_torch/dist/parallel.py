@@ -24,6 +24,21 @@ weight, the same (in, out) pair its spec carries:
 * "fsdp" dims (over "data") are stored split and all-gathered at every
   use, as GSPMD does for the reference.
 
+Training runs the same placements through autograd: each
+collective of a float route is a ``torch.autograd.Function`` whose
+backward is the collective's transpose. An activation that every "model"
+rank holds whole and that enters rank-local work (a column-parallel or
+K-sliced linear, the expert slots, the SSM's local heads) passes
+:meth:`~ShardCtx.copy_to` (identity; its gradient, partial on each rank, SUM-reduced
+over "model"); a row-parallel output is :meth:`~ShardCtx.reduce_from`
+(SUM; identity backward) or :meth:`~ShardCtx.scatter_from`
+(reduce-scatter; all-gather backward); an "fsdp" weight
+:meth:`~ShardCtx.gather_weight` (all-gather; its gradient reduce-scattered
+over "data"); an activation gathered whole for replicated work
+:meth:`~ShardCtx.gather` (all-gather; the rank's slice of the gradient).
+The ``fake_quant`` route takes the whole tensor's absmax: MAX over "data"
+(the rows) and over "model" where the input or the weight is split there.
+
 Collectives call ``torch.distributed`` directly on the rank's tensors,
 on NCCL and gloo alike: gloo takes every kind used here on CUDA tensors
 (it moves them through host memory itself), and a kind it ever refused
@@ -42,6 +57,7 @@ from repro_torch.api import plan as planlib
 from repro_torch.core import quantize as q
 from repro_torch.dist import sharding
 from repro_torch.kernels import ops
+from repro_torch.models.layers import fake_quant_operands
 
 _OPS = {"sum": ReduceOp.SUM, "max": ReduceOp.MAX}
 
@@ -52,31 +68,38 @@ def _size(group) -> int:
 
 class Comm:
     """Collectives over a mesh's groups. ``calls``: how many of each kind
-    (op, dtype, reduction) ran."""
+    (op, dtype, reduction) ran; ``bytes``: the bytes each kind's calls
+    handed in (this rank's tensors)."""
 
     def __init__(self):
         self.calls = collections.Counter()
+        self.bytes = collections.Counter()
+
+    def _count(self, kind: tuple, t: torch.Tensor) -> None:
+        self.calls[kind] += 1
+        self.bytes[kind] += t.numel() * t.element_size()
 
     def all_reduce(self, t: torch.Tensor, red: str, group) -> torch.Tensor:
         """``t`` reduced (``"sum"`` or ``"max"``) over ``group``."""
         if _size(group) == 1:
             return t
-        self.calls["all_reduce", t.dtype, red] += 1
+        self._count(("all_reduce", t.dtype, red), t)
         t = t.contiguous()
         dist.all_reduce(t, op=_OPS[red], group=group)
         return t
 
-    def reduce_scatter(self, t: torch.Tensor, group) -> torch.Tensor:
-        """The SUM over ``group`` of ``t`` [..., N], of which this rank
-        gets its group rank's N/size columns."""
+    def reduce_scatter(self, t: torch.Tensor, group,
+                       dim: int = -1) -> torch.Tensor:
+        """The SUM over ``group`` of ``t``, of which this rank gets its
+        group rank's 1/size of dim ``dim`` (the last: columns)."""
         n = _size(group)
         if n == 1:
             return t
-        if t.shape[-1] % n:
-            raise ValueError(f"{t.shape[-1]} columns do not split over {n} "
+        if t.shape[dim] % n:
+            raise ValueError(f"{t.shape[dim]} columns do not split over {n} "
                              f"ranks")
-        self.calls["reduce_scatter", t.dtype, "sum"] += 1
-        parts = [c.contiguous() for c in t.chunk(n, dim=-1)]
+        self._count(("reduce_scatter", t.dtype, "sum"), t)
+        parts = [c.contiguous() for c in t.chunk(n, dim=dim)]
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, op=ReduceOp.SUM, group=group)
         return out
@@ -87,8 +110,8 @@ class Comm:
         n = _size(group)
         if n == 1:
             return t
-        self.calls["all_gather", torch.uint8, None] += 1
         b = t.contiguous().reshape(-1).view(torch.uint8)
+        self._count(("all_gather", torch.uint8, None), b)
         parts = [torch.empty_like(b) for _ in range(n)]
         dist.all_gather(parts, b, group=group)
         return torch.cat([p.view(t.dtype).reshape(t.shape) for p in parts],
@@ -106,8 +129,81 @@ class Comm:
         return bits.to(width).view(t.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Collectives that carry a gradient (training on a mesh). Each is the
+# identity on a group of one rank, so a (1, 1) mesh runs the unsharded
+# arithmetic.
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, group):
+        ctx.comm, ctx.group = comm, group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.clone(), "sum", ctx.group), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, group):
+        return comm.all_reduce(t.clone(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, group):
+        ctx.comm, ctx.group = comm, group
+        return comm.reduce_scatter(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, -1, ctx.group), None, None
+
+
+class _GatherActs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, comm, group):
+        ctx.dim, ctx.n = dim, t.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return comm.all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
+
+
+class _GatherWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, comm, group):
+        ctx.dim, ctx.comm, ctx.group = dim, comm, group
+        return comm.all_gather(t, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.comm.reduce_scatter(g, ctx.group, ctx.dim), None, None,
+                None)
+
+
+class _SumOneHot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, group):
+        return comm.sum_one_hot(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 class ShardCtx:
-    """One rank's view of a ("data", "model") mesh for serving: sizes,
+    """One rank's view of a ("data", "model") mesh for serving and
+    training: sizes,
     ranks and groups of both axes, and its :class:`Comm`. Execution takes
     the default rules (dp/fsdp on "data", tp/sp on "model"); overrides
     that move them elsewhere are resolution-only and raise here."""
@@ -137,6 +233,9 @@ class ShardCtx:
     def rank(self, axis: str) -> int:
         return self._rank[axis]
 
+    def size(self, axis: str) -> int:
+        return self._size[axis]
+
     def group(self, axis: str):
         return self._groups[axis]
 
@@ -165,9 +264,66 @@ class ShardCtx:
         n = self.local(t.shape[dim], axis)
         return t.narrow(dim, self._rank[axis] * n, n)
 
+    # The collectives that carry a gradient (module docstring); each is
+    # the identity over a group of one rank.
+
+    def _apply(self, fn, t: torch.Tensor, axis: str, *args) -> torch.Tensor:
+        group = self._groups[axis]
+        return t if _size(group) == 1 else fn.apply(t, *args, self.comm,
+                                                    group)
+
     def gather(self, t: torch.Tensor, dim: int,
                axis: str = "model") -> torch.Tensor:
-        return self.comm.all_gather(t, dim, self._groups[axis])
+        """Every rank's ``t`` of ``axis`` concatenated along ``dim``, for
+        work that every rank then does alike; the gradient (the same on
+        every rank) gives each rank its own slice."""
+        return self._apply(_GatherActs, t, axis, dim)
+
+    def gather_weight(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """An "fsdp" weight all-gathered over "data" along ``dim`` for one
+        use; its gradient, from each rank's own rows, is SUM-reduced and
+        each rank keeps its slice (reduce-scatter)."""
+        return self._apply(_GatherWeight, t, "data", dim)
+
+    def copy_to(self, t: torch.Tensor) -> torch.Tensor:
+        """A tensor every "model" rank holds whole, entering work local to
+        each rank (e.g. qwen3's ``qk_norm`` gains on this rank's heads):
+        the identity, its gradient, partial on each rank, SUM-reduced."""
+        return self._apply(_CopyTo, t, "model")
+
+    def reduce_from(self, t: torch.Tensor,
+                    axis: str = "model") -> torch.Tensor:
+        """The SUM over ``axis`` of the ranks' partial ``t``; the gradient
+        passes to each rank unchanged."""
+        return self._apply(_ReduceFrom, t, axis)
+
+    def scatter_from(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`Comm.reduce_scatter` over "model" along the last dim;
+        the gradient is all-gathered."""
+        return self._apply(_ScatterFrom, t, "model")
+
+    def sum_one_hot(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`Comm.sum_one_hot` over "model"; the gradient passes
+        unchanged."""
+        return self._apply(_SumOneHot, t, "model")
+
+    def mean_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over "data" of a statistic of this rank's rows (equal
+        row counts): a SUM of ``t / size``, the gradient unchanged, so
+        each rank's backward carries its 1/size share of the global
+        mean's gradient."""
+        n = self._size["data"]
+        return t if n == 1 else self.reduce_from(t / n, "data")
+
+    def max_over(self, axes):
+        """MAX over the ranks that differ along ``axes`` (float32), or
+        None where that is no rank but this one."""
+        axes = {a for a in axes if self._size[a] > 1}
+        if not axes:
+            return None
+        group = self.group_over(axes)
+        return lambda m: self.comm.all_reduce(
+            m.to(torch.float32).contiguous(), "max", group)
 
     def lin(self, in_axis, out_axis, x_local: bool = False,
             scatter: bool = False) -> "LinearShard":
@@ -185,10 +341,8 @@ class ShardCtx:
         """MAX over the ranks holding pieces of the same block of a leaf
         placed by ``spec``, where the absmax was taken over ``dims``."""
         resolved = sharding.resolve(spec, self.mesh)
-        axes = {a for d in dims for a in sharding._axes(resolved[d])}
-        group = self.group_over(axes)
-        return lambda m: self.comm.all_reduce(
-            m.to(torch.float32).contiguous(), "max", group)
+        return self.max_over(a for d in dims for a in sharding._axes(
+            resolved[d]))
 
 
 # Weight leaves of a linear by layout; each keeps K at dim -2, N at -1.
@@ -207,21 +361,31 @@ class LinearShard:
     def row(self) -> bool:
         return self.k_axis == "model"
 
+    @property
+    def local(self) -> bool:
+        """The rank's product differs from the other "model" ranks'."""
+        return "model" in (self.k_axis, self.n_axis)
+
     def weights(self, p: dict) -> dict:
         """``p`` with its "data"-split dims all-gathered."""
         out = dict(p)
         for key in _WEIGHT_KEYS:
             if key in out:
                 if self.k_axis == "data":
-                    out[key] = self.ctx.gather(out[key], -2, "data")
+                    out[key] = self.ctx.gather_weight(out[key], -2)
                 if self.n_axis == "data":
-                    out[key] = self.ctx.gather(out[key], -1, "data")
+                    out[key] = self.ctx.gather_weight(out[key], -1)
         return out
 
     def apply(self, route_fn, p: dict, x: torch.Tensor, lp, backend):
         """The linear of this shard: ``route_fn`` (the unsharded route) on
-        the local columns, or the row-parallel product."""
+        the local columns, or the row-parallel product; ``fake_quant``
+        under the whole tensors' scales (:meth:`fake_quant`)."""
         p = self.weights(p)
+        if self.local and not self.x_local:
+            x = self.ctx.copy_to(x)
+        if lp.route == planlib.FAKE_QUANT:
+            return self.fake_quant(p, x, lp)
         if not self.row:
             return route_fn(p, x, lp, backend)
         if x.ndim > 3:
@@ -235,10 +399,32 @@ class LinearShard:
             x = self.ctx.take(x, -1)
         return _ROW_ROUTES[lp.route](self, p, x, absmax, lp, backend)
 
+    def fake_quant(self, p: dict, x: torch.Tensor, lp) -> torch.Tensor:
+        """The ``fake_quant`` route (QAT) on this shard: x and the weight
+        fake-quantized under the whole tensors' absmax, as the unsharded
+        route takes them (MAX over "data", the rows, and over "model"
+        where x arrives K-sliced or the weight is split), then the float
+        product: the local columns, or the K-slice's partial product
+        summed over "model" in float32."""
+        ctx = self.ctx
+        xq, wq = fake_quant_operands(
+            p, x, lp,
+            ctx.max_over(("data", "model") if self.x_local else ("data",)),
+            ctx.max_over(("model",) if self.local else ()))
+        if not self.row:
+            return xq @ wq
+        if not self.x_local:
+            xq = ctx.take(xq, -1)
+        return self.sum((xq @ wq).to(torch.float32)).to(x.dtype)
+
     def sum(self, y: torch.Tensor) -> torch.Tensor:
         """The SUM over "model" of the ranks' partial products: the rank's
-        columns with ``scatter``, else the whole."""
+        columns with ``scatter``, else the whole. A float sum carries its
+        gradient (:func:`reduce_from` / :func:`scatter_from`)."""
         comm, group = self.ctx.comm, self.ctx.group("model")
+        if y.is_floating_point():
+            return self.ctx.scatter_from(y) if self.scatter \
+                else self.ctx.reduce_from(y)
         if self.scatter:
             return comm.reduce_scatter(y, group)
         return comm.all_reduce(y, "sum", group)
@@ -273,15 +459,9 @@ def _row_dense(ls, p, x, absmax, lp, be):
     return ls.sum((x @ p["w"].to(x.dtype)).to(torch.float32)).to(x.dtype)
 
 
-def _row_unsupported(ls, p, x, absmax, lp, be):
-    raise NotImplementedError(f"route {lp.route!r} has no sharded form "
-                              f"(training on a mesh is ROADMAP A.13b)")
-
-
-_ROW_ROUTES = collections.defaultdict(
-    lambda: _row_unsupported,
-    {planlib.PACKED: _row_packed, planlib.INT8: _row_int8,
-     planlib.DENSE: _row_dense})
+# The row-parallel routes (``fake_quant``: LinearShard.fake_quant).
+_ROW_ROUTES = {planlib.PACKED: _row_packed, planlib.INT8: _row_int8,
+               planlib.DENSE: _row_dense}
 
 
 def lin(shard: ShardCtx | None, in_axis, out_axis, x_local: bool = False,

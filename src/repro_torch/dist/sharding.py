@@ -156,6 +156,11 @@ def _axes(entry) -> tuple:
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
+def sharded_axes(spec, mesh) -> frozenset:
+    """The mesh axes that split some dim of a leaf placed by ``spec``."""
+    return frozenset(a for e in resolve(spec, mesh) for a in _axes(e))
+
+
 def placements(spec, mesh) -> tuple:
     """The resolved ``spec`` as ``torch.distributed.tensor`` placements,
     one per mesh dim: ``Shard(d)`` where the mesh axis splits tensor dim

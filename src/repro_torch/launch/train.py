@@ -24,8 +24,17 @@ under the :class:`~repro_torch.runtime.supervisor.Supervisor` (restart,
 spike guard, SIGTERM checkpoint). With ``--ckpt-dir`` it checkpoints
 every ``--ckpt-every`` steps through ``ckpt.CheckpointManager`` and
 resumes from the newest checkpoint there. ``--device`` defaults to
-``cuda``; without a card it raises unless ``--device cpu`` is given. Not
-ported yet: ``jit_train_step`` (the mesh) comes with ROADMAP A.13b.
+``cuda``; without a card it raises unless ``--device cpu`` is given.
+
+On a ("data", "model") mesh (:func:`repro_torch.launch.mesh.make_host_mesh`,
+one process per rank) :func:`make_train_state` gives each rank its shards
+of the seed's state and :func:`jit_train_step` the rank's SPMD step: the
+model's training forward on the rank's batch rows and shards
+(``model.loss_fn(..., shard=)``), the gradients of every leaf that
+"data" replicates SUM-reduced over "data" ("fsdp" leaves were
+reduce-scattered by their gathers' backward), then the unsharded step's
+compression, schedule, clip (by the global norm) and AdamW on the local
+shards. Every rank returns the global metrics.
 """
 from __future__ import annotations
 
@@ -36,10 +45,13 @@ import torch
 
 from repro_torch import configs, interop
 from repro_torch.api import plan as planlib
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import Spec
 from repro_torch.models import model as M
 from repro_torch.optim import (AdamWConfig, CompressionConfig, Schedule,
                                adamw_init, adamw_update, compress_state_init,
-                               compressed_gradient, make_schedule)
+                               compressed_gradient, make_schedule,
+                               opt_state_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,19 +70,60 @@ def _device(device) -> torch.device:
     return device
 
 
+def train_state_specs(cfg, tc: TrainConfig) -> dict:
+    """The train state's spec tree: ``{"params", "opt"}`` (and ``"err"``
+    with compression), the reference's ``make_train_state`` specs."""
+    specs = M.param_spec_tree(cfg)
+    out = {"params": specs, "opt": opt_state_specs(specs)}
+    if tc.compression.enabled:
+        out["err"] = specs
+    return out
+
+
 def make_train_state(cfg, tc: TrainConfig,
                      generator: torch.Generator | None = None,
-                     device="cuda") -> dict:
-    """Random params drawn with ``generator`` (a seed-0 generator on
-    ``device`` when None) and zero optimizer state, on ``device``."""
+                     device="cuda", mesh=None) -> tuple:
+    """(state, its spec tree): random params drawn with ``generator`` (a
+    seed-0 generator on ``device`` when None) and zero optimizer state, on
+    ``device``. On a ``mesh`` each rank draws the whole params from the
+    same seed and keeps its shards, so every mesh trains the slices of
+    the unsharded state."""
     device = _device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
+    specs = train_state_specs(cfg, tc)
     params = M.init_params(cfg, generator, device)
+    if mesh is not None:
+        params = sharding.shard_tree(params, specs["params"], mesh)
     state = {"params": params, "opt": adamw_init(params, tc.opt)}
     if tc.compression.enabled:
         state["err"] = compress_state_init(params)
+    return state, specs
+
+
+def train_state_like(cfg, tc: TrainConfig) -> dict:
+    """The unsharded train state's keys, shapes and dtypes as meta
+    tensors (the ``like`` of a restore), nothing drawn."""
+    params = M.param_skeleton(cfg)
+
+    def empty(dtype):
+        return lambda p: torch.empty(p.shape, dtype=dtype, device="meta")
+    state = {"params": params,
+             "opt": {"mu": interop.tree_map(empty(tc.opt._mdt), params),
+                     "nu": interop.tree_map(empty(tc.opt._mdt), params),
+                     "step": torch.empty((), dtype=torch.int32,
+                                         device="meta")}}
+    if tc.compression.enabled:
+        state["err"] = interop.tree_map(empty(torch.bfloat16), params)
     return state
+
+
+def batch_specs(cfg) -> dict:
+    """The batch's specs: rows over "dp" (the reference's launcher's)."""
+    specs = {"tokens": Spec("dp", None), "labels": Spec("dp", None)}
+    if cfg.n_img_tokens:
+        specs["img_embeds"] = Spec("dp", None, None)
+    return specs
 
 
 def batch_on(batch: dict, device) -> dict:
@@ -84,12 +137,16 @@ def batch_on(batch: dict, device) -> dict:
     return out
 
 
-def value_and_grad(params: dict, cfg, batch: dict, plan) -> tuple:
+def value_and_grad(params: dict, cfg, batch: dict, plan,
+                   shard=None) -> tuple:
     """(loss, {"nll", "aux"}, gradients like params) of one batch, all
-    detached; a leaf the loss does not reach gets zeros, as in JAX."""
+    detached; a leaf the loss does not reach gets zeros, as in JAX. On a
+    mesh (``shard``) the batch is this rank's rows and the params its
+    shards, and the gradients are this rank's before the "data"
+    reduction (:func:`mesh_value_and_grad`)."""
     leaves = interop.tree_map(lambda p: p.detach().requires_grad_(True),
                               params)
-    loss, parts = M.loss_fn(leaves, cfg, batch, plan)
+    loss, parts = M.loss_fn(leaves, cfg, batch, plan, shard)
     flat = interop.flatten_with_paths(leaves)
     grads = dict(zip(flat, torch.autograd.grad(
         loss, list(flat.values()), allow_unused=True,
@@ -98,15 +155,59 @@ def value_and_grad(params: dict, cfg, batch: dict, plan) -> tuple:
             interop.map_with_paths(lambda key, _: grads[key], leaves))
 
 
-def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig):
+def reduce_data_grads(grads: dict, specs: dict, shard) -> dict:
+    """Every gradient leaf that "data" does not split, SUM-reduced over
+    "data" (one all-reduce per dtype over the leaves laid end to end);
+    the "fsdp" leaves were reduce-scattered by their gathers' backward."""
+    if shard.size("data") == 1:
+        return grads
+    flat = interop.flatten_with_paths(grads)
+    spec_of = interop.flatten_with_paths(specs)
+    out = dict(flat)
+    by_dtype = {}
+    for k, g in flat.items():
+        if "data" not in sharding.sharded_axes(spec_of[k], shard.mesh):
+            by_dtype.setdefault(g.dtype, []).append(k)
+    for keys in by_dtype.values():
+        summed = shard.comm.all_reduce(
+            torch.cat([flat[k].reshape(-1) for k in keys]), "sum",
+            shard.group("data"))
+        for k, piece in zip(keys, summed.split([flat[k].numel()
+                                                for k in keys])):
+            out[k] = piece.reshape(flat[k].shape)
+    return interop.map_with_paths(lambda key, _: out[key], grads)
+
+
+def mesh_value_and_grad(params: dict, cfg, batch: dict, plan, shard,
+                        specs: dict) -> tuple:
+    """:func:`value_and_grad` on a mesh with the gradients reduced over
+    "data": (the global loss, its parts, this rank's shards of the
+    unsharded gradients); ``specs``: the params'."""
+    loss, parts, grads = value_and_grad(params, cfg, batch, plan, shard)
+    return loss, parts, reduce_data_grads(grads, specs, shard)
+
+
+def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig,
+                    shard=None, specs: dict | None = None,
+                    bspecs: dict | None = None):
     """The train step ``(state, batch) -> (new state, metrics)`` of
     ``cfg`` under ``plan`` (``dense`` or ``fake_quant``). ``batch``: the
     data pipeline's dict (numpy or tensors), put on the params' device.
     The input state is left unchanged. Metrics: ``loss``, ``grad_norm``
     and ``lr`` (and, without accumulation, ``nll`` and ``aux``), as 0-d
     tensors. A batch whose rows do not split into ``accum`` equal
-    microbatches raises ``ValueError``, as the reference's reshape does."""
+    microbatches raises ``ValueError``, as the reference's reshape does.
+    ``shard``, ``specs`` (the params') and ``bspecs``: the meshed step
+    (:func:`jit_train_step`); the step's ``shard`` attribute is the
+    ``ShardCtx`` (None unsharded), whose ``comm.calls`` counts the
+    collectives."""
     sched_fn = make_schedule(tc.sched)
+
+    def rows(mb: dict) -> dict:
+        if shard is None:
+            return mb
+        return {k: sharding.shard_leaf(v, bspecs[k], shard.mesh)
+                for k, v in mb.items()}
 
     def train_step(state: dict, batch: dict) -> tuple:
         params = state["params"]
@@ -114,7 +215,8 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig):
                       ).device
         batch = batch_on(batch, device)
         if tc.accum == 1:
-            loss, parts, grads = value_and_grad(params, cfg, batch, plan)
+            loss, parts, grads = value_and_grad(params, cfg, rows(batch),
+                                                plan, shard)
         else:
             if batch["tokens"].shape[0] % tc.accum:
                 raise ValueError(
@@ -126,7 +228,7 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig):
             loss = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(tc.accum):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l_, _, g = value_and_grad(params, cfg, mb, plan)
+                l_, _, g = value_and_grad(params, cfg, rows(mb), plan, shard)
                 grads = interop.tree_map(
                     lambda a, b: a + b.to(torch.float32), grads, g)
                 loss = loss + l_
@@ -134,15 +236,39 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig):
             loss, parts = loss / tc.accum, {}
 
         new_state = dict(state)
+        if shard is not None:
+            grads = reduce_data_grads(grads, specs, shard)
         if tc.compression.enabled:
+            reduce_max = None if shard is None else sharding.map_specs(
+                lambda _, spec: shard.max_over(
+                    sharding.sharded_axes(spec, shard.mesh)), grads, specs)
             grads, new_state["err"] = compressed_gradient(
-                grads, state["err"], tc.compression)
+                grads, state["err"], tc.compression, reduce_max)
         lr = sched_fn(state["opt"]["step"])
         new_state["params"], new_state["opt"], om = adamw_update(
-            params, grads, state["opt"], tc.opt, lr)
+            params, grads, state["opt"], tc.opt, lr, shard, specs)
         return new_state, {"loss": loss, **parts, **om}
 
+    train_step.shard = shard          # its Comm counts the collectives
     return train_step
+
+
+def jit_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig, mesh,
+                   state_specs: dict, batch_specs: dict):
+    """This rank's SPMD train step on ``mesh`` (the reference's
+    ``jit_train_step``; the port compiles nothing, the name stays).
+    ``state`` holds the rank's shards placed by ``state_specs``
+    (:func:`make_train_state` with ``mesh=``); ``batch`` is the GLOBAL
+    batch, of which each rank takes its rows of every microbatch by
+    ``batch_specs``, so every mesh trains on the unsharded step's data.
+    Accumulation, compression (each leaf's scale the whole leaf's), the
+    schedule, the clip and AdamW run as in :func:`make_train_step`, after
+    the "data" reduction; the metrics (``loss``, ``grad_norm``, ``lr``)
+    are the global values on every rank. The input state is left
+    unchanged (the reference donates it)."""
+    from repro_torch.dist.parallel import ShardCtx
+    return make_train_step(cfg, plan, tc, ShardCtx(mesh),
+                           state_specs["params"], batch_specs)
 
 
 def main(argv=None):
@@ -172,7 +298,7 @@ def main(argv=None):
                               mode=args.mode)
     tc = TrainConfig(accum=args.accum,
                      sched=Schedule(total_steps=args.steps, warmup_steps=5))
-    state = make_train_state(cfg, tc, device=device)
+    state, _ = make_train_state(cfg, tc, device=device)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                       global_batch=args.batch,
                       n_img_tokens=cfg.n_img_tokens, d_model=cfg.d_model)

@@ -33,7 +33,9 @@ On a mesh (``shard``, a :class:`~repro_torch.dist.parallel.ShardCtx`)
 attention is head-parallel: q column-parallel over "model", K and V
 row-parallel (their whole outputs summed exactly; each rank keeps its own
 KV heads), the output projection row-parallel, every layer running on its
-local heads (:func:`local_cfg`). The KV cache is placed by KV heads over
+local heads (:func:`local_cfg`); in training the ``qk_norm`` gains, used
+on the local heads only, have their gradients SUM-reduced over "model"
+(:func:`_head_local`). The KV cache is placed by KV heads over
 "model" (:func:`cache_shard_specs`), where the reference's
 :func:`cache_specs` split the sequence ("sp", flash-decoding): with the
 heads local a decode step needs no softmax combine across ranks and stays
@@ -128,6 +130,12 @@ def _o_proj(p, out, plan, shard):
                           lin(shard, *WO_AXES, x_local=True))
 
 
+def _head_local(gamma, shard):
+    """A replicated ``qk_norm`` gain applied to this rank's heads only:
+    its gradient is partial on each rank and SUM-reduced over "model"."""
+    return gamma if shard is None else shard.copy_to(gamma)
+
+
 def _project_qkv(p, cfg: AttnConfig, x, positions, plan, kv_x=None,
                  shard=None):
     """q from x, K and V from ``kv_x`` (a cross layer's image embeddings;
@@ -141,8 +149,8 @@ def _project_qkv(p, cfg: AttnConfig, x, positions, plan, kv_x=None,
     v = _kv_proj(p["wv"], kv_x, plan, "attn_v", shard)
     v = v.reshape(*kv_x.shape[:-1], cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
-        q = L.rms_norm(q, p["qnorm"]["g"])
-        k = L.rms_norm(k, p["knorm"]["g"])
+        q = L.rms_norm(q, _head_local(p["qnorm"]["g"], shard))
+        k = L.rms_norm(k, _head_local(p["knorm"]["g"], shard))
     if not cfg.cross:
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
@@ -590,8 +598,8 @@ def apply_decode(p, cfg: AttnConfig, x, pos, plan, cache, shard=None):
     v = _kv_proj(p["wv"], x, plan, "attn_v", shard)
     v = v.reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
-        q = L.rms_norm(q, p["qnorm"]["g"])
-        k = L.rms_norm(k, p["knorm"]["g"])
+        q = L.rms_norm(q, _head_local(p["qnorm"]["g"], shard))
+        k = L.rms_norm(k, _head_local(p["knorm"]["g"], shard))
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     cache = cache_update(cache, cfg, k, v, pos)

@@ -149,16 +149,17 @@ def embed_apply(p: dict, tokens: torch.Tensor, shard=None) -> torch.Tensor:
     """Rows of the table for ``tokens``. On a mesh the table is
     vocab-parallel: each rank looks up the tokens in its own rows (zeros
     elsewhere), its "fsdp" split of d gathered, and the pieces are summed
-    over "model" bit for bit (one nonzero term each)."""
+    over "model" bit for bit (one nonzero term each); in the backward each
+    rank's rows take the gradients of their own tokens."""
     if shard is None:
         return p["emb"][tokens]
-    emb = shard.gather(p["emb"], 1, "data")
+    emb = shard.gather_weight(p["emb"], 1)
     v = emb.shape[0]
     lo = shard.rank("model") * v
     local = (tokens >= lo) & (tokens < lo + v)
     rows = emb[torch.where(local, tokens - lo, 0)]
     rows = torch.where(local[..., None], rows, torch.zeros_like(rows))
-    return shard.comm.sum_one_hot(rows, shard.group("model"))
+    return shard.sum_one_hot(rows)
 
 
 def norm_init(d: int, dtype=torch.bfloat16, device="cpu") -> dict:
@@ -169,16 +170,19 @@ def _linear_dense(p, x, lp, be):
     return x @ p["w"].to(x.dtype)
 
 
-def _fake_quant_operands(p, x, lp):
+def fake_quant_operands(p, x, lp, x_max=None, w_max=None):
     """x fake-quantized at Pa and the weight at Pw (in float32, then cast
-    to x's dtype), as the reference's fake-quant routes take them."""
-    xq = q.fake_quant(x, lp.a_bits)
-    wq = q.fake_quant(p["w"].to(torch.float32), lp.w_bits).to(x.dtype)
+    to x's dtype), as the reference's fake-quant routes take them. On a
+    mesh ``x_max`` / ``w_max`` map a shard's absmax to the whole
+    tensor's (``core.quantize.fake_quant``'s ``reduce_max``)."""
+    xq = q.fake_quant(x, lp.a_bits, x_max)
+    wq = q.fake_quant(p["w"].to(torch.float32), lp.w_bits,
+                      w_max).to(x.dtype)
     return xq, wq
 
 
 def _linear_fake_quant(p, x, lp, be):
-    xq, wq = _fake_quant_operands(p, x, lp)
+    xq, wq = fake_quant_operands(p, x, lp)
     return xq @ wq
 
 
@@ -245,7 +249,7 @@ def _conv_dense(p, x, kernel, stride, lp, plan):
 
 
 def _conv_fake_quant(p, x, kernel, stride, lp, plan):
-    xq, wq = _fake_quant_operands(p, x, lp)
+    xq, wq = fake_quant_operands(p, x, lp)
     return _conv_dense({"w": wq}, xq, kernel, stride, lp, plan)
 
 

@@ -29,6 +29,9 @@ take this rank's batch rows and shards: the embedding vocab-parallel,
 every block as its specs place it, the head column-parallel with its
 logits all-gathered; the cache is placed by :func:`cache_shard_spec_tree`
 (KV heads over "model", not the reference's sequence split).
+:func:`forward_train` and :func:`loss_fn` take the same placements (the
+logits of the rank's rows, the whole vocab: B_local x S x V float32 a
+rank), and the loss is the global batch's mean.
 """
 from __future__ import annotations
 
@@ -45,6 +48,11 @@ from repro_torch.models import layers as L, transformer as T
 
 # Logical axes (in, out) of the LM head: column-parallel over the vocab.
 HEAD_AXES = ("fsdp", "tp")
+# The training forward's activation dtype: the reference's bf16. With
+# float32 params and this set to float32 the whole forward and backward
+# run in float32 (the sharded gradients' checks use it to see past bf16
+# rounding).
+TRAIN_DTYPE = torch.bfloat16
 
 
 def _stack_trees(trees: list) -> dict:
@@ -182,12 +190,14 @@ def _remat_policy(cfg: T.ModelConfig):
 
 
 def forward_train(params, cfg: T.ModelConfig, tokens, plan,
-                  img_embeds=None) -> tuple:
+                  img_embeds=None, shard=None) -> tuple:
     """tokens: int [B, S] -> (logits [B, S, V], the summed MoE auxiliary
     loss, a float32 scalar). A VLM's cross-attention layers attend to
-    ``img_embeds`` [B, n_img_tokens, d]."""
+    ``img_embeds`` [B, n_img_tokens, d]. On a mesh (``shard``) the rows,
+    params and logits are this rank's, placed as :func:`prefill` places
+    them: the whole vocab's logits of the rank's rows."""
     s = tokens.shape[1]
-    x = L.embed_apply(params["embed"], tokens).to(torch.bfloat16)
+    x = L.embed_apply(params["embed"], tokens, shard).to(TRAIN_DTYPE)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     groups = {k: _unbind_tree(v, cfg.n_groups)
               for k, v in params["blocks"].items()}
@@ -196,7 +206,7 @@ def forward_train(params, cfg: T.ModelConfig, tokens, plan,
         aux = 0.0
         for i, spec in enumerate(cfg.pattern):
             x, a = T.block_apply_train(group[f"p{i}"], cfg, spec, x,
-                                       positions, plan, img_embeds)
+                                       positions, plan, img_embeds, shard)
             aux = aux + a
         return x, aux
 
@@ -211,18 +221,26 @@ def forward_train(params, cfg: T.ModelConfig, tokens, plan,
                                    context_fn=context_fn)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"]["g"])
-    return L.linear_apply(params["head"], x, plan, "lm_head"), aux
+    return _head(params, x, plan, shard), aux
 
 
-def loss_fn(params, cfg: T.ModelConfig, batch: dict, plan) -> tuple:
+def loss_fn(params, cfg: T.ModelConfig, batch: dict, plan,
+            shard=None) -> tuple:
     """Next-token loss of ``batch`` (``tokens``, ``labels`` int [B, S],
     and a VLM's ``img_embeds``): the mean of float32 logsumexp minus the
-    gold logit, plus the auxiliary loss. Returns (loss, {"nll", "aux"})."""
+    gold logit, plus the auxiliary loss. Returns (loss, {"nll", "aux"}).
+    On a mesh (``shard``, the batch this rank's rows) the mean is the
+    global batch's: each rank's mean over its rows, averaged over "data"
+    (:meth:`~repro_torch.dist.parallel.ShardCtx.mean_over_data`: each
+    rank's backward carries its share, and the step SUM-reduces the
+    gradients over "data"); every rank returns the global loss."""
     logits, aux = forward_train(params, cfg, batch["tokens"], plan,
-                                batch.get("img_embeds"))
+                                batch.get("img_embeds"), shard)
     logits = logits.to(torch.float32)
     gold = torch.gather(logits, -1, batch["labels"][..., None].long())
     nll = torch.mean(torch.logsumexp(logits, dim=-1) - gold.squeeze(-1))
+    if shard is not None:
+        nll = shard.mean_over_data(nll)
     return nll + aux, {"nll": nll, "aux": aux}
 
 

@@ -30,7 +30,10 @@ placement): tokens are replicated within the "model" group, so the router
 and the capacity dispatch are the same on every rank; each rank computes
 its E/tp experts' slots and zeros elsewhere, and one exact sum over
 "model" (one nonzero term per slot) gives every rank the gathered
-outputs, combined over the k choices in the unsharded order.
+outputs, combined over the k choices in the unsharded order. It trains
+too: each rank's experts take gradients from their own slots, and the
+auxiliary loss is the global batch's (the router's statistics reduced
+over "data" before their product).
 """
 from __future__ import annotations
 
@@ -139,21 +142,25 @@ def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.cat(out).reshape(b, s, -1)
 
 
-def _route(logits: torch.Tensor, cfg: MoEConfig):
+def _route(logits: torch.Tensor, cfg: MoEConfig, shard=None):
     """Top-k gating, logits [B, S, E] -> (probs float32 [B, S, k], ids
     [B, S, k], aux): softmax in float32, the k largest gates in descending
     order (``torch.topk`` and ``lax.top_k`` both sort so; exact ties
     among float32 gates are not expected), renormalised to sum 1. ``aux``
     is the load-balancing loss ``router_aux_coef * E * sum(mean gate *
-    mean choice count)`` per expert, a float32 scalar."""
+    mean choice count)`` per expert, a float32 scalar. On a mesh
+    (``shard``, logits of this rank's rows) both means are taken over the
+    global batch, reduced over "data" before their product."""
     b, s, e = logits.shape
     gates = L.rowwise(lambda t: torch.softmax(t, dim=-1),
                       logits.to(torch.float32).reshape(b * s, e))
     probs, ids = torch.topk(gates.reshape(b, s, e), cfg.top_k, dim=-1)
     total = _sum_choices(probs[..., None])[..., 0]
     counts = torch.nn.functional.one_hot(ids, e).to(torch.float32).sum(2)
-    aux = cfg.router_aux_coef * e * torch.sum(
-        gates.mean(0) * counts.mean((0, 1)))
+    me, ce = gates.mean(0), counts.mean((0, 1))
+    if shard is not None:
+        me, ce = shard.mean_over_data(me), shard.mean_over_data(ce)
+    aux = cfg.router_aux_coef * e * torch.sum(me * ce)
     return probs / torch.clamp_min(total, 1e-9)[..., None], ids, aux
 
 
@@ -262,14 +269,15 @@ def _gathered_experts(w, axes: tuple, shard):
     out = dict(w)
     for d in (1, 2):
         if resolved[d] == "data":
-            out[key] = shard.gather(out[key], d + off, "data")
+            out[key] = shard.gather_weight(out[key], d + off)
     return out["w"] if key == "w" else out
 
 
 def apply_shardmap(p, cfg: MoEConfig, x: torch.Tensor, plan,
-                   shard=None) -> torch.Tensor:
+                   shard=None, global_aux: bool = False) -> tuple:
     """The MoE layer on a mesh, x [B, S, d] (this rank's rows, whole d) ->
-    y; without one, the unsharded :func:`apply` (the reference's fallback).
+    (y, aux); without one, the unsharded :func:`apply_train` (the
+    reference's fallback).
 
     Expert-parallel (``expert_parallel``, E/tp experts per rank): each
     rank fills only its experts' capacity slots, runs them (only their
@@ -278,17 +286,28 @@ def apply_shardmap(p, cfg: MoEConfig, x: torch.Tensor, plan,
     ``expert_parallel=False`` (mixtral) d_ff is split over "model" and the
     down products' float partial sums are all-reduced: exact on the
     gate/up columns, held by tolerance on the sum. Shared experts are Loom
-    linears, column- then row-parallel."""
+    linears, column- then row-parallel.
+
+    Training: the tokens enter the local slots through
+    :func:`~repro_torch.dist.parallel.copy_to`, so each rank's experts
+    take gradients from their own slots alone and the tokens' gradient
+    is summed over "model"; the down-sum and the one-hot sum pass their
+    gradient unchanged. ``fake_quant`` takes the whole tensors' scales
+    (the tokens' MAX over "data", the hidden activations' over both
+    axes). With ``global_aux`` (training) ``aux`` is the global batch's
+    (:func:`_route`); without it, this rank's rows', and serving, which
+    discards it, issues no collective for it."""
     if shard is None:
-        return apply(p, cfg, x, plan)
+        return apply_train(p, cfg, x, plan)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = max(1, int(s * k / e * cfg.capacity_factor))
     lp = plan.layer("moe_expert")
-    if lp.route == planlib.FAKE_QUANT:
-        raise NotImplementedError("fake_quant on a mesh is training "
-                                  "(ROADMAP A.13b)")
-    probs, ids, _ = _route(router_logits(x, p["router"]["w"]), cfg)
+    fake_quant = lp.route == planlib.FAKE_QUANT
+    xr = quant.fake_quant(x, lp.a_bits, shard.max_over(("data",))) \
+        if fake_quant else x
+    probs, ids, aux = _route(router_logits(x, p["router"]["w"]), cfg,
+                             shard if global_aux else None)
     slot, keep = dispatch(ids, cfg, cap)
     e_ax, d_ax, f_ax = _expert_axes(cfg)
     w = {"w_gate": _gathered_experts(p["w_gate"], (e_ax, d_ax, f_ax), shard),
@@ -301,22 +320,23 @@ def apply_shardmap(p, cfg: MoEConfig, x: torch.Tensor, plan,
     lslot = torch.where(ours, slot - lo * cap,
                         torch.full_like(slot, e_loc * cap))
 
-    tok = torch.repeat_interleave(x, k, dim=1)                 # [B, S*k, d]
+    tok = torch.repeat_interleave(shard.copy_to(xr), k, dim=1)  # [B, S*k, d]
     buf = torch.zeros((b, e_loc * cap + 1, d), dtype=x.dtype, device=x.device)
     rows = torch.arange(b, device=x.device)[:, None]
     buf[rows, lslot] = tok
     buf = buf[:, :e_loc * cap].reshape(b, e_loc, cap, d)
     h = L.activation_fn(cfg.activation)(_expert_mm(buf, w, "w_gate")) \
         * _expert_mm(buf, w, "w_up")
+    if fake_quant:
+        h = quant.fake_quant(h, lp.a_bits, shard.max_over(("data", "model")))
     out = _expert_mm(h, w, "w_down").reshape(b, e_loc * cap, d)
     if not ep:
-        out = shard.comm.all_reduce(out.to(torch.float32), "sum",
-                                    shard.group("model")).to(x.dtype)
+        out = shard.reduce_from(out.to(torch.float32)).to(x.dtype)
     out = torch.cat([out, torch.zeros((b, 1, d), dtype=out.dtype,
                                       device=out.device)], dim=1)
     gathered = torch.gather(out, 1, lslot[..., None].expand(-1, -1, d))
     if ep:
-        gathered = shard.comm.sum_one_hot(gathered, shard.group("model"))
+        gathered = shard.sum_one_hot(gathered)
     w_flat = torch.where(keep, probs.reshape(b, s * k), 0.0).to(x.dtype)
     comb = _sum_choices((gathered * w_flat[..., None]).reshape(b, s, k, d)
                         .to(torch.float32)).to(x.dtype)
@@ -329,4 +349,4 @@ def apply_shardmap(p, cfg: MoEConfig, x: torch.Tensor, plan,
         comb = comb + L.linear_apply(
             sh["w_down"], hh, plan, "moe_shared_down",
             lin(shard, *_SHARED_OUT_AXES, x_local=True)).to(comb.dtype)
-    return comb
+    return comb, aux

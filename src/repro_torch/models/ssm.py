@@ -21,8 +21,9 @@ On a mesh (``shard``) the heads are split over "model": ``in_x`` and
 ``in_z`` column-parallel, the conv's channels, ``A_log``, ``D``,
 ``dt_bias`` and the state local; ``in_B``, ``in_C`` and ``in_dt``
 row-parallel over the whole input (outputs whole, exact; the rank keeps
-its heads' ``dt``). The gated output is all-gathered for the RMSNorm over
-the whole inner dim, and ``out`` is row-parallel.
+its heads' ``dt``; in training their gradients, partial on each rank,
+are summed over "model"). The gated output is all-gathered for the
+RMSNorm over the whole inner dim, and ``out`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -109,7 +110,10 @@ def _project(p, x, plan, shard) -> tuple:
     Cv = L.linear_apply(p["in_C"], x, plan, "ssm_C", rep)
     dt = L.linear_apply(p["in_dt"], x, plan, "ssm_dt", rep)
     if shard is not None:
-        dt = shard.take(dt, -1).contiguous()
+        # Whole on every rank, used by its own heads: each rank's gradient
+        # is partial (copy_to sums it over "model").
+        Bv, Cv = shard.copy_to(Bv), shard.copy_to(Cv)
+        dt = shard.take(shard.copy_to(dt), -1).contiguous()
     return xi, z, Bv, Cv, dt
 
 
@@ -230,10 +234,12 @@ def _forward_full(p, cfg: SSMConfig, x: torch.Tensor, plan, shard=None):
     return _gated_out(p, y, z, plan, shard), conv_tail, final
 
 
-def apply_train(p, cfg: SSMConfig, x: torch.Tensor, plan) -> torch.Tensor:
+def apply_train(p, cfg: SSMConfig, x: torch.Tensor, plan,
+                shard=None) -> torch.Tensor:
     """The full-sequence forward, x [B, S, d] -> [B, S, d] (S a multiple
-    of the chunk), differentiable end to end."""
-    return _forward_full(p, cfg, x, plan)[0]
+    of the chunk), differentiable end to end; on a mesh (``shard``) over
+    this rank's rows and heads."""
+    return _forward_full(p, cfg, x, plan, shard)[0]
 
 
 def apply_prefill(p, cfg: SSMConfig, x: torch.Tensor, plan,

@@ -16,9 +16,10 @@ mamba conv history and state (``models/ssm.py``), the cross-attention
 K/V over the image embeddings.
 
 Each module's ``param_specs`` / ``cache_specs`` give the reference's
-logical specs of its trees (:mod:`repro_torch.dist.sharding`); the serving
-blocks take a ``shard`` (a :class:`~repro_torch.dist.parallel.ShardCtx`)
-on a mesh, and run each projection as the shard its spec names.
+logical specs of its trees (:mod:`repro_torch.dist.sharding`); every
+block, training and serving, takes a ``shard`` (a
+:class:`~repro_torch.dist.parallel.ShardCtx`) on a mesh, and runs each
+projection as the shard its spec names.
 """
 from __future__ import annotations
 
@@ -159,33 +160,36 @@ def block_specs(cfg: ModelConfig, spec: LayerSpec) -> dict:
 
 
 def _ffn(p, cfg: ModelConfig, spec: LayerSpec, x, plan,
-         shard=None) -> tuple:
+         shard=None, train: bool = False) -> tuple:
     """x plus the block's FFN, and the MoE's auxiliary loss (0.0 for any
-    other FFN)."""
+    other FFN); on a mesh the global batch's only in training (``train``),
+    which alone reads it."""
     if spec.ffn == "none":
         return x, 0.0
     h = L.rms_norm(x, p["ln2"]["g"])
     if spec.ffn == "moe":
         if shard is not None:
-            return x + moe_mod.apply_shardmap(p["ffn"], cfg.moe, h, plan,
-                                              shard), 0.0
-        f, aux = moe_mod.apply_train(p["ffn"], cfg.moe, h, plan)
+            f, aux = moe_mod.apply_shardmap(p["ffn"], cfg.moe, h, plan,
+                                            shard, global_aux=train)
+        else:
+            f, aux = moe_mod.apply_train(p["ffn"], cfg.moe, h, plan)
         return x + f, aux
     return x + ffn_apply(p["ffn"], h, cfg.activation, plan, shard), 0.0
 
 
 def block_apply_train(p, cfg: ModelConfig, spec: LayerSpec, x, positions,
-                      plan, img_embeds=None) -> tuple:
+                      plan, img_embeds=None, shard=None) -> tuple:
     """One block's differentiable forward over x [B, S, d] (positions
     [S]; a cross-attention block attends to ``img_embeds``). Returns (x,
-    the MoE auxiliary loss or 0.0)."""
+    the MoE auxiliary loss or 0.0). On a mesh (``shard``) x is this
+    rank's rows and every projection its shard, as in serving."""
     h = L.rms_norm(x, p["ln1"]["g"])
     if spec.kind == "mamba":
-        mix = ssm_mod.apply_train(p["mix"], cfg.ssm, h, plan)
+        mix = ssm_mod.apply_train(p["mix"], cfg.ssm, h, plan, shard)
     else:
         mix = attn.apply_train(p["mix"], cfg.attn_cfg(spec), h, positions,
-                               plan, kv_x=img_embeds)
-    return _ffn(p, cfg, spec, x + mix, plan)
+                               plan, kv_x=img_embeds, shard=shard)
+    return _ffn(p, cfg, spec, x + mix, plan, shard, train=True)
 
 
 def block_apply_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions,

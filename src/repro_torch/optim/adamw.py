@@ -6,16 +6,24 @@ params. ``moment_dtype="bfloat16"`` stores both moments in bf16, halving
 the optimizer's memory (the paper's storage-precision lever applied to
 training state); the update itself runs in float32 either way, in the
 reference's order of operations, so the two packages agree to float32
-rounding. The reference's ``opt_state_specs`` (moment sharding) comes with
-ROADMAP A.13b (training on a mesh).
+rounding.
+
+On a mesh the optimizer runs on each rank's shards: the moments shard
+like their parameters (:func:`opt_state_specs`, ZeRO-style), the update is
+elementwise, and the global norm of the clip reduces each leaf's sum of
+squares over exactly the axes that split it (a replicated leaf counts
+once), so every rank clips by the unsharded norm.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import collections
+
 import torch
 
 from repro_torch import interop
+from repro_torch.dist.sharding import Spec, sharded_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,18 +53,50 @@ def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def opt_state_specs(param_specs) -> dict:
+    """The optimizer state's spec tree: the moments shard like the
+    params, the step counter is replicated."""
+    return {"mu": param_specs, "nu": param_specs, "step": Spec()}
+
+
+def _reduce_over_axes(sums: list, axes: list, shard) -> list:
+    """Each leaf's local sum SUM-reduced over the mesh axes that split the
+    leaf (one all-reduce per set of axes)."""
+    by_axes = collections.defaultdict(list)
+    for i, a in enumerate(axes):
+        a = frozenset(x for x in a if shard.size(x) > 1)
+        if a:
+            by_axes[a].append(i)
+    sums = list(sums)
+    for a, idx in by_axes.items():     # the same order on every rank
+        v = shard.comm.all_reduce(torch.stack([sums[i] for i in idx]), "sum",
+                                  shard.group_over(a))
+        for j, i in enumerate(idx):
+            sums[i] = v[j]
+    return sums
+
+
+def global_norm(tree, shard=None, specs=None) -> torch.Tensor:
     """sqrt of the sum over leaves (path order) of each leaf's float32 sum
-    of squares."""
+    of squares. On a mesh (``shard``, the tree this rank's shards placed
+    by ``specs``) each leaf's sum is SUM-reduced over the axes that split
+    it first, so every rank gets the unsharded norm."""
+    flat = interop.flatten_with_paths(tree)
     sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for x in interop.flatten_with_paths(tree).values()]
+            for x in flat.values()]
+    if shard is not None:
+        spec_of = interop.flatten_with_paths(specs)
+        sums = _reduce_over_axes(
+            sums, [sharded_axes(spec_of[k], shard.mesh) for k in flat], shard)
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
-def clip_by_global_norm(tree, max_norm: float) -> tuple:
+def clip_by_global_norm(tree, max_norm: float, shard=None,
+                        specs=None) -> tuple:
     """Every leaf scaled by ``min(1, max_norm / max(norm, 1e-12))`` in
-    float32, kept in its dtype. Returns (tree, norm)."""
-    norm = global_norm(tree)
+    float32, kept in its dtype. Returns (tree, norm). ``shard`` /
+    ``specs``: see :func:`global_norm`."""
+    norm = global_norm(tree, shard, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return interop.tree_map(
         lambda g: (g.to(torch.float32) * scale).to(g.dtype), tree), norm
@@ -64,12 +104,15 @@ def clip_by_global_norm(tree, max_norm: float) -> tuple:
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict,
-                 cfg: AdamWConfig, lr: torch.Tensor) -> tuple:
+                 cfg: AdamWConfig, lr: torch.Tensor, shard=None,
+                 specs=None) -> tuple:
     """One AdamW step: gradients clipped to ``grad_clip`` by global norm,
     bias-corrected moments, decoupled weight decay on matrices (ndim >=
     2) only. Returns (new params, new opt state, {"grad_norm", "lr"});
-    the inputs are left unchanged."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    the inputs are left unchanged. On a mesh (``shard``) every tree holds
+    this rank's shards, placed by ``specs`` (the params'), and the
+    gradients are already reduced over "data"."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shard, specs)
     step = opt_state["step"] + 1
     c1 = 1.0 - cfg.b1 ** step.to(torch.float32)
     c2 = 1.0 - cfg.b2 ** step.to(torch.float32)

@@ -1,4 +1,6 @@
-"""Rank-side checks of the port's meshed serving, run on the CPU over gloo.
+"""Rank-side checks of the port's meshed serving, run on the CPU over gloo
+(the training checks are ``tests/_dist_train_ranks.py``'s, started here
+with ``module=``).
 
 :func:`start` starts one process per rank of a ("data", "model") mesh,
 which runs the named checks; every rank writes ``rank<r>.json``
@@ -11,6 +13,7 @@ session, which each rank computes for itself. Imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import socket
@@ -142,8 +145,33 @@ def check_qwen_dense(mesh, out_dir):
     return _serve("qwen3-1.7b", "dense", mesh, atol=DENSE_ATOL)[-1]
 
 
+def _all_reduce_groups(fn) -> list:
+    """The process groups of the all-reduces that ``fn()`` issues."""
+    seen, real = [], dist.all_reduce
+
+    def spy(*a, **k):
+        seen.append(k.get("group"))
+        return real(*a, **k)
+    dist.all_reduce = spy
+    try:
+        fn()
+    finally:
+        dist.all_reduce = real
+    return seen
+
+
 def check_deepseek_ep(mesh, out_dir):
-    _serve("deepseek-moe-16b", "serve_packed", mesh)
+    """Exact, and a serving step all-reduces nothing over "data" (its
+    only collectives there gather "fsdp" weights): the router's auxiliary
+    loss, which serving discards, is not reduced."""
+    _, _, sh, toks, _ = _serve("deepseek-moe-16b", "serve_packed", mesh)
+    cache = sh.init_cache(BATCH, 64)
+    used = _all_reduce_groups(lambda: sh.prefill(toks, cache))
+    used += _all_reduce_groups(lambda: sh.decode(
+        torch.zeros(BATCH, dtype=torch.long), PROMPT, cache))
+    assert used, "the expert-parallel step all-reduced nothing"
+    data = sh.shard.group("data")
+    assert data not in used, sum(g is data for g in used)
 
 
 def check_deepseek_int8(mesh, out_dir):
@@ -243,10 +271,10 @@ def _reference_run(name: str, mesh, out_dir: str) -> None:
     gaps = []
     route = moe._route
 
-    def spy(logits, mcfg):
+    def spy(logits, mcfg, shard=None):
         g = torch.softmax(logits.float(), -1).sort(-1, descending=True)[0]
         gaps.append((g[..., mcfg.top_k - 1] - g[..., mcfg.top_k]).amin(-1))
-        return route(logits, mcfg)
+        return route(logits, mcfg, shard)
 
     logits, cache = sess.prefill(toks)
     steps = [sess._whole_rows(logits[:, 0])]
@@ -271,8 +299,63 @@ def _reference_run(name: str, mesh, out_dir: str) -> None:
 GEN_LEN = 6
 
 
+def _reference_train(mesh, out_dir: str) -> None:
+    """The port's meshed training on the reference's seed-0 dense params
+    (``<out_dir>/qwen3-1.7b/train_ckpt``, restored with ``shardings=``)
+    and batch (``train_batch.npz``): the loss and gradients of
+    ``mesh_value_and_grad``, then one ``jit_train_step``. Rank 0 saves
+    them gathered (``port_train.npz``); every rank saves its
+    ``compressed_psum`` over the world of its row ``r`` of
+    ``compress_in.npz`` (``compress_port<r>.npz``)."""
+    from repro_torch import configs, interop
+    from repro_torch.api import plan as planlib
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.dist import sharding
+    from repro_torch.dist.parallel import ShardCtx
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim import Schedule, adamw_init, compressed_psum
+    cfg = configs.get("qwen3-1.7b", smoke=True)
+    d = os.path.join(out_dir, "qwen3-1.7b")
+    tc = T.TrainConfig(sched=Schedule(warmup_steps=1, total_steps=10))
+    specs = T.train_state_specs(cfg, tc)
+    pspecs = specs["params"]
+    params, _ = ck.restore_checkpoint(
+        os.path.join(d, "train_ckpt"), 0, M.param_skeleton(cfg),
+        device="cpu", shardings=sharding.named_tree(pspecs, mesh))
+    batch = dict(np.load(os.path.join(d, "train_batch.npz")))
+    plan = planlib.build_plan(cfg, _policy(), "dense")
+    bspecs = T.batch_specs(cfg)
+    rows = {k: sharding.shard_leaf(v, bspecs[k], mesh)
+            for k, v in T.batch_on(batch, "cpu").items()}
+    loss, _, grads = T.mesh_value_and_grad(params, cfg, rows, plan,
+                                           ShardCtx(mesh), pspecs)
+    grads = sharding.gather_tree(grads, pspecs, mesh)
+    state = {"params": params, "opt": adamw_init(params, tc.opt)}
+    state, metrics = T.jit_train_step(cfg, plan, tc, mesh, specs,
+                                      bspecs)(state, batch)
+    new = sharding.gather_tree(state["params"], pspecs, mesh)
+    r = dist.get_rank()
+    if r == 0:
+        def f32(tree):
+            return {k: v.float().numpy() for k, v in
+                    interop.flatten_with_paths(tree).items()}
+        np.savez(os.path.join(d, "port_train.npz"), loss=float(loss),
+                 **{k: float(metrics[k]) for k in ("grad_norm", "lr")},
+                 step_loss=float(metrics["loss"]),
+                 **{"grad:" + k: v for k, v in f32(grads).items()},
+                 **{"param:" + k: v for k, v in f32(new).items()})
+    tree = dict(np.load(os.path.join(out_dir, "compress_in.npz")))
+    summed = compressed_psum(
+        {"a": torch.from_numpy(tree["a"][r]),
+         "b": torch.from_numpy(tree["b"][r]).to(torch.bfloat16)}, None)
+    np.savez(os.path.join(out_dir, f"compress_port{r}.npz"),
+             **{k: v.float().numpy() for k, v in summed.items()})
+
+
 def check_reference_qwen(mesh, out_dir):
     _reference_run("qwen3-1.7b", mesh, out_dir)
+    _reference_train(mesh, out_dir)
 
 
 def check_reference_deepseek(mesh, out_dir):
@@ -286,16 +369,17 @@ CHECKS = {f.__name__[len("check_"):]: f for f in (
     check_reference_deepseek)}
 
 
-def _rank(rank, world, port, model, out_dir, checks):
+def _rank(rank, world, port, model, out_dir, checks, module):
     torch.set_num_threads(1)
     from repro_torch.dist import init_process
     from repro_torch.launch.mesh import make_host_mesh
     init_process(rank, world, port, device="cpu", timeout_s=120)
     mesh = make_host_mesh(world, model=model, device="cpu")
+    table = importlib.import_module(module).CHECKS
     results, errs = {}, {}
     for name in checks:
         try:
-            err = CHECKS[name](mesh, out_dir)
+            err = table[name](mesh, out_dir)
             results[name] = "ok"
             if err is not None:
                 errs[name] = err
@@ -307,12 +391,13 @@ def _rank(rank, world, port, model, out_dir, checks):
     dist.destroy_process_group()
 
 
-def start(shape: tuple, checks, out_dir: str):
-    """Start ``checks`` on a gloo mesh of ``shape`` (data, model) on the
-    CPU, one process per rank; :func:`collect` waits for them."""
+def start(shape: tuple, checks, out_dir: str, module: str = __name__):
+    """Start ``checks`` (names in ``module``'s ``CHECKS``) on a gloo mesh
+    of ``shape`` (data, model) on the CPU, one process per rank;
+    :func:`collect` waits for them."""
     world = shape[0] * shape[1]
     ctx = mp.start_processes(_rank, args=(world, free_port(), shape[1],
-                                          out_dir, list(checks)),
+                                          out_dir, list(checks), module),
                              nprocs=world, join=False, start_method="spawn")
     return ctx, world, out_dir
 
@@ -320,7 +405,8 @@ def start(shape: tuple, checks, out_dir: str):
 def collect(started) -> tuple[dict, dict]:
     """({check: [each rank's result]}, {check: (the largest difference,
     the largest logit) on any rank}) of a :func:`start`ed mesh; the second
-    holds the checks held by tolerance."""
+    holds the checks held by tolerance (a check that returns a dict of
+    readings gets each reading's largest over the ranks)."""
     ctx, world, out_dir = started
     while not ctx.join():
         pass
@@ -331,5 +417,11 @@ def collect(started) -> tuple[dict, dict]:
         for name, res in got["results"].items():
             out.setdefault(name, []).append(res)
         for name, err in got["max_abs_err"].items():
-            errs[name] = tuple(map(max, errs.get(name, (0.0, 0.0)), err))
+            if isinstance(err, dict):
+                old = errs.setdefault(name, {})
+                errs[name] = {k: max(v, old.get(k, v)) for k, v in
+                              err.items()}
+            else:
+                errs[name] = tuple(map(max, errs.get(name, (0.0, 0.0)),
+                                       err))
     return out, errs

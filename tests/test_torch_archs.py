@@ -14,6 +14,7 @@ where the margin is clear). The configs of all nine, and the param and
 cache trees, equal JAX's; the batching engine gives every batched row its
 solo run's bits on the MoE and the SSM.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

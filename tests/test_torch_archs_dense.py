@@ -11,6 +11,7 @@ Same params and inputs in both packages; a prefill of 2 x 16 tokens and
 ``model.decode_step`` (``_archs_parity.py``: logits within 0.2, tokens
 where the margin is clear), and the param and cache trees equal JAX's.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import pytest
 
 from _archs_parity import MODES, arch_case, check_prefill_and_decode, \

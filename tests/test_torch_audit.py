@@ -18,6 +18,7 @@ versions), and the auditor's oracle is ``torch_ref``:
   * the clean audit path is byte-identical and counted; rate 0 builds
     nothing; the sampler is a deterministic counter.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 import os

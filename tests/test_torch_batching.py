@@ -12,6 +12,7 @@ streams are held token for token wherever JAX's top-2 logit margin
 exceeds 2 x 0.2 (``tests/test_torch_lm.py``'s rule: the float32 attention
 sums run in another order than XLA's).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 import threading

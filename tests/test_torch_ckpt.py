@@ -12,6 +12,7 @@ leaf falls back, all-corrupt is loud, a crash before the rename never
 shadows, an async failure surfaces on ``wait``, the manifest's CRC and
 bf16 round trip; ``tests/test_audit.py``: ``verify=`` read-back).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import warnings

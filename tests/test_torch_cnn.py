@@ -14,6 +14,7 @@ holds while no activation lies on a rounding boundary of the grid; where
 one does, the one-ulp scale moves it by a whole quantization step, as
 :func:`test_jit_scale_can_flip_a_quantization_step` pins down.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

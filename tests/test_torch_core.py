@@ -1,5 +1,6 @@
 """PyTorch port, numerics core: quantize, bitpack, weightgroups and policy
 held exactly against the JAX package on the same numpy-seeded inputs."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax.numpy as jnp

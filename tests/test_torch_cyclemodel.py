@@ -10,6 +10,7 @@ checks of ``tests/test_cyclemodel.py`` are repeated on the port at their
 own tolerances (5% where the model has no free parameter, 16% on LM
 CVLs).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import itertools
 import math
 

@@ -18,7 +18,15 @@ round some float steps differently; the port's meshed logits are
 bit-equal to its unsharded ones, test_torch_dist_serve). How many tokens
 and decode steps each comparison covers is printed (``pytest -s``) and
 held to a floor.
+
+Training: the qwen3 subprocess also trains its seed-0 dense params on
+the Auto mesh (its jitted ``value_and_grad`` under the mesh and one
+``jit_train_step``), which the port's ranks repeat on the same params
+and batch through their own ``jit_train_step``; and it runs
+``compressed_psum`` under ``shard_map`` on four devices, against the
+port's over its four ranks.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import subprocess
 import sys
@@ -38,7 +46,7 @@ LOGIT_ATOL = 0.2
 
 _REFERENCE = """
 import sys
-import jax, numpy as np
+import jax, jax.numpy as jnp, numpy as np
 from repro import api as loom, configs
 from repro.ckpt import checkpoint as ck
 from repro.core.policy import uniform_policy
@@ -58,6 +66,12 @@ params = jax.jit(lambda k: M.convert_params_for_serving(
     jax.random.PRNGKey(0))
 specs = M.convert_specs_for_serving(structs, specs, "serve_packed")
 ck.save_checkpoint(f"{out}/{name}/ckpt", 0, jax.tree.map(np.asarray, params))
+train = name == "qwen3-1.7b"
+if train:
+    # The seed-0 dense params, for the port's meshed training.
+    dense = M.init_params(jax.random.PRNGKey(0), cfg)[0]
+    ck.save_checkpoint(f"{out}/{name}/train_ckpt", 0,
+                       jax.tree.map(np.asarray, dense))
 open(f"{out}/{name}/ready", "w").close()
 toks = np.load(f"{out}/{name}/tokens.npy")
 # Packed params pass through compile's conversion unchanged.
@@ -73,6 +87,53 @@ for i in range(gen_len - 1):
 steps = np.stack(steps, axis=1)                        # [B, gen_len, V]
 np.savez(f"{out}/{name}/reference.npz", steps=steps,
          tokens=np.argmax(steps, axis=-1).astype(np.int32))
+if train:
+    # The meshed loss and gradients (jitted under the mesh), then one step
+    # of jit_train_step, on the Auto mesh; and compressed_psum under
+    # shard_map over four devices.
+    from jax.sharding import PartitionSpec as PS
+    from repro.api import plan as jplan
+    from repro.dist.sharding import resolve_tree
+    from repro.launch import train as jtrain
+    from repro.optim import Schedule
+    from repro.optim.compression import compressed_psum
+    batch = {k: jnp.asarray(v) for k, v in
+             np.load(f"{out}/{name}/train_batch.npz").items()}
+    tc = jtrain.TrainConfig(sched=Schedule(warmup_steps=1, total_steps=10))
+    state, sspecs = jtrain.make_train_state(jax.random.PRNGKey(0), cfg, tc)
+    tplan = jplan.build_plan(cfg, mode="dense")
+    with jax.set_mesh(mesh):
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p: M.loss_fn(p, cfg, batch, tplan), has_aux=True),
+            in_shardings=(resolve_tree(sspecs["params"], mesh),))(
+                state["params"])
+        grads = jax.tree.map(lambda g: np.asarray(g, np.float32), grads)
+        step = jtrain.jit_train_step(cfg, tplan, tc, mesh, sspecs,
+                                     {"tokens": PS("dp", None),
+                                      "labels": PS("dp", None)})
+        state, metrics = step(state, batch)
+    flat = {"/".join(str(k.key) for k in path): v for path, v in
+            jax.tree_util.tree_flatten_with_path(grads)[0]}
+    new = {"/".join(str(k.key) for k in path): np.asarray(v, np.float32)
+           for path, v in jax.tree_util.tree_flatten_with_path(
+               state["params"])[0]}
+    np.savez(f"{out}/{name}/reference_train.npz", loss=np.asarray(loss),
+             step_loss=np.asarray(metrics["loss"]),
+             grad_norm=np.asarray(metrics["grad_norm"]),
+             lr=np.asarray(metrics["lr"]),
+             **{"grad:" + k: v for k, v in flat.items()},
+             **{"param:" + k: v for k, v in new.items()})
+    pod = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("pod",))
+    tree = {k: jnp.asarray(v) for k, v in
+            np.load(f"{out}/compress_in.npz").items()}
+    tree["b"] = tree["b"].astype(jnp.bfloat16)
+    summed = jax.shard_map(
+        lambda t: compressed_psum(jax.tree.map(lambda x: x[0], t), "pod"),
+        mesh=pod, in_specs=(PS("pod"),), out_specs=PS(),
+        check_vma=False)(tree)
+    np.savez(f"{out}/compress_ref.npz",
+             **{k: np.asarray(v.astype(jnp.float32))
+                for k, v in summed.items()})
 """
 
 
@@ -87,6 +148,12 @@ def runs(tmp_path_factory):
         (out / name).mkdir()
         np.save(out / name / "tokens.npy",
                 rng.integers(1, vocab, (BATCH, PROMPT)).astype(np.int32))
+    vocab = jconfigs.get("qwen3-1.7b", smoke=True).vocab
+    np.savez(out / "qwen3-1.7b" / "train_batch.npz",
+             **{k: rng.integers(0, vocab, (4, 32)).astype(np.int32)
+                for k in ("tokens", "labels")})
+    np.savez(out / "compress_in.npz", a=rng.normal(size=(4, 64)).astype(
+        np.float32), b=rng.normal(size=(4, 8, 16)).astype(np.float32))
     root = Path(__file__).resolve().parents[1]
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
@@ -203,3 +270,62 @@ def test_decode_logits_near_reference_mesh(runs, name):
         print(f"{name}: {compared} of {BATCH * (R.GEN_LEN - 1)} decode "
               f"steps compared")
         assert compared >= MIN_DECODE_STEPS[name], compared
+
+
+# Three times the differences measured (relative): the loss 4.20e-4,
+# the grad norm 2.69e-4.
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1.26e-3, 8.1e-4
+
+
+def _train_leaves(npz, kind: str) -> dict:
+    return {k[len(kind) + 1:]: npz[k] for k in npz.files
+            if k.startswith(kind + ":")}
+
+
+def test_meshed_training_near_reference_mesh(runs):
+    """qwen3-1.7b's smoke config, seed-0 dense params, trained on the
+    port's (2, 2) gloo mesh and on the reference's (2, 4) Auto mesh (its
+    jitted ``value_and_grad`` under the mesh, then its ``jit_train_step``):
+    the loss within TRAIN_LOSS_RTOL and the grad norm within
+    TRAIN_NORM_RTOL relative, every gathered gradient within 5% of the
+    leaf's max (``_train_parity``'s bound for the unsharded packages;
+    measured: 2.8% at worst), and the params after the step within two
+    learning rates plus one bf16 ulp (at most ``|w| * 2**-7``): Adam's
+    first step moves a weight by about the learning rate whatever its
+    gradient's size, so a gradient near 0 may take either sign, and each
+    package rounds the result to bf16."""
+    out, _ = runs
+    ref = np.load(out / "qwen3-1.7b" / "reference_train.npz")
+    port = np.load(out / "qwen3-1.7b" / "port_train.npz")
+    for k, rtol in (("loss", TRAIN_LOSS_RTOL), ("step_loss", TRAIN_LOSS_RTOL),
+                    ("grad_norm", TRAIN_NORM_RTOL)):
+        np.testing.assert_allclose(float(port[k]), float(ref[k]), rtol=rtol)
+    assert float(port["lr"]) == float(ref["lr"])
+    want, got = _train_leaves(ref, "grad"), _train_leaves(port, "grad")
+    assert sorted(want) == sorted(got) and len(want) > 10
+    gaps = {k: float(np.abs(got[k] - want[k]).max())
+            / max(float(np.abs(want[k]).max()), 1e-30) for k in want}
+    print(f"meshed gradients against the reference mesh: worst leaf "
+          f"{max(gaps.values())!r} of its max")
+    assert max(gaps.values()) <= 0.05, gaps
+    lr = float(ref["lr"])
+    want, got = _train_leaves(ref, "param"), _train_leaves(port, "param")
+    assert sorted(want) == sorted(got)
+    for k in want:
+        assert (np.abs(got[k] - want[k])
+                <= 2 * lr + np.abs(want[k]) * 2.0 ** -7).all(), k
+
+
+def test_compressed_psum_equals_reference_shard_map(runs):
+    """``optim.compressed_psum`` over the port's four gloo ranks against
+    the reference's under ``shard_map`` over four devices, each rank's
+    leaves a row of one numpy draw: equal (the same four dequantized
+    float32 terms summed in the same order; measured equal, so no
+    tolerance)."""
+    out, _ = runs
+    ref = np.load(out / "compress_ref.npz")
+    for r in range(4):
+        got = np.load(out / f"compress_port{r}.npz")
+        assert sorted(got.files) == sorted(ref.files) == ["a", "b"]
+        for k in ("a", "b"):
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)

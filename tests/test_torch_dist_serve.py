@@ -13,6 +13,7 @@ largest logit (``pytest -s``). Checkpoints: a restore with ``shardings=`` is
 the slices of the unsharded restore; a save from (2, 2) writes the
 unsharded save's bytes.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import pytest
 
 import _dist_ranks as R

@@ -3,6 +3,7 @@ reference's (``repro.models.*`` specs, ``repro.dist.sharding``), with no
 device and no process: the reference's resolution reads only a mesh's
 axis names, so a stand-in object serves, and its spec trees come from
 ``jax.eval_shape`` (nothing allocated)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import types
 

@@ -9,6 +9,7 @@ so the plane-skip semantics are checked, not only the identity case. The
 path as a whole (``uniform_policy(8, 8, dynamic_a=True)``) must give the
 logits of JAX's un-jitted ``cnn.forward`` and of the port's static path.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -12,6 +12,7 @@ bit for bit. JAX's ``plane_matmul`` is integer arithmetic alone, so it
 runs jitted here (one compile per case instead of one per primitive);
 the operands come from the port's ``quantize``, equal to JAX's eager one.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import itertools
 
 import jax

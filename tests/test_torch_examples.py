@@ -5,6 +5,7 @@ do not depend on the drawn weights equal the JAX package's (the modeled
 speedup, ``==``; the byte laws, ``==``). Without a card, ``device="cuda"``
 raises rather than running on the CPU.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import subprocess
 import sys
 from pathlib import Path

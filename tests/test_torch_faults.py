@@ -21,6 +21,7 @@ accumulator bound against the JAX package's, and bit-transparency:
 guarded serving (GuardedBackend + ServingSupervisor) is byte-identical to
 unguarded serving on the fault-free path, for the LM and the paper CNN.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 import warnings
 

@@ -21,6 +21,7 @@ NCCL equal to the unmeshed session.
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import pytest
 import torch
 

@@ -10,6 +10,7 @@ CPU's; the quickstart example on the card (K1 launched).
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu_paper.py``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np

@@ -12,6 +12,7 @@ order than XLA's). Inside the port ``serve_int8`` equals ``serve_packed``
 at Pw = 8 bit for bit: both quantize the weights to 8 bits per tensor and
 the activations on the same grid, and take an exact integer product.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ Pw) and the smoke qwen3 LM. A single ``flip_one_bit`` is caught and
 named; drifted or out-of-range plan counts raise ``WeightIntegrityError``
 (mirrors ``tests/test_audit.py``'s fingerprint tests).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import functools
 

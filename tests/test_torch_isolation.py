@@ -3,6 +3,7 @@
 ``chip_batch_variance.py``, imports ``jax``, the JAX package ``repro``, or
 ``ml_dtypes`` (the card's machine has none: bf16 and float8 leaves cross
 as raw integers)."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 from pathlib import Path
 

@@ -6,6 +6,7 @@ interpret mode as tests/test_kernels.py and tests/test_conv.py run them,
 and its ref.py oracles, bit for bit. On CPU tensors the kernel wrappers
 take the plain versions and count no launch.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -18,6 +18,7 @@ repeat route, written out here, bit for bit (the same products summed
 over the same contiguous dim), and every route gives a batched row the
 bits of the same row decoded alone.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

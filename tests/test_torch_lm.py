@@ -18,6 +18,7 @@ are compared where JAX's top-2 logit margin exceeds twice that. The
 jitted-scale caveat of ROADMAP queue C applies too: the session under
 ``jax.jit`` may divide by qmax as a multiply by its reciprocal.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

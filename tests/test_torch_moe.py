@@ -21,6 +21,7 @@ rounding moved by an ulp moves a product by a quantization step. (On
 this container's CPU the two packages gave equal bits for every input
 tried; the tolerance does not rest on that.)
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

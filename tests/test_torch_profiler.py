@@ -13,6 +13,7 @@ conv sums taken in another order move an activation across a 16-bit grid
 step now and then: measured up to 1.9e-6 over 18 one-layer policies);
 ``serve_packed`` activations bit for bit, ``dense`` ones within 1e-5.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -15,6 +15,7 @@ one ulp off the true division at some inputs.
 K7 is a float op: f32 within rtol = atol = 2e-5 and bf16 within 0.05, the
 JAX tests' own tolerances (``tests/test_kernels.py``).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

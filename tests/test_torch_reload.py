@@ -10,6 +10,7 @@ on the same arrays (through ``interop``) emits at that position. The
 paper CNN compiled from a checkpoint the JAX package wrote gives logits
 bit-identical to the un-jitted JAX ``cnn.forward``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import functools
 import warnings
 

@@ -3,6 +3,7 @@ called in-process with ``--device cpu`` at smoke size: the session and
 plan APIs agree, ``--guarded`` equals unguarded, ``--server N`` row j
 equals a solo run of request j's prompt, the CNN classifies, and the
 audit and integrity flags serve the same tokens and count their checks."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

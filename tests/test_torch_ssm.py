@@ -18,6 +18,7 @@ block's output and cache through the Loom linears (``BLOCK_ATOL`` = 0.02
 on values of magnitude about 1: a float32 difference that moves a bf16
 rounding moves a requantized product by a step).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -20,6 +20,7 @@ numpy inputs:
 (d) K1's route function: skinny at M <= SKINNY_MAX_M, tile above, and a
     K split that never leaves a split without a tile.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -26,6 +26,7 @@ on the same numpy inputs, exactly (int32):
 (d) K3's route (K1's, whatever the counts) and the conv kernel's
     shared-memory layout.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

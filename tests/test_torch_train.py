@@ -10,6 +10,7 @@ other nine LM architectures are in ``test_torch_train_archs.py`` and
 ``test_torch_train_archs_dense.py``; the optimizer, data, supervisor,
 checkpoints and the CLI in ``test_torch_train_optim.py``.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import collections
 import dataclasses
 

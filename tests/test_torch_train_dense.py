@@ -9,6 +9,7 @@ gradient held against the un-jitted JAX ``loss_fn`` (``_train_parity.py``:
 the loss within 1e-2 relative, each gradient within 5% of the leaf's
 max).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import pytest
 
 from _train_parity import check_loss_and_grads, lm_case

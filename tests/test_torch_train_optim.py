@@ -11,6 +11,7 @@ operations in the same order; measured: 1.7e-6 of one moment's value,
 4.7e-10 absolute, where its two terms nearly cancel); the data pipeline
 bit for bit.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import os
 import signal
 import subprocess
@@ -305,7 +306,7 @@ def test_reference_train_checkpoint_resumed_and_stepped(tmp_path):
     mgr.save_async(1, jstate)
     mgr.wait()
 
-    like = train.make_train_state(cfg, tc, device="cpu")
+    like, _ = train.make_train_state(cfg, tc, device="cpu")
     state, step = ckpt.restore_latest(str(tmp_path), like)
     assert step == 1
     carried = interop.train_state_from_numpy(
@@ -394,7 +395,7 @@ def test_cli_accumulation_equals_one_batch(tmp_path):
             train.main(["--device", "cpu", "--steps", "1", "--batch", "4",
                         "--seq", "32", "--accum", str(accum), "--ckpt-dir",
                         d, "--ckpt-every", "1"])
-            like = train.make_train_state(
+            like, _ = train.make_train_state(
                 configs.get("qwen3-1.7b", smoke=True), train.TrainConfig(),
                 device="cpu")
             states[accum], step = ckpt.restore_latest(d, like)

@@ -11,6 +11,7 @@ counts is value-preserving: path W (skewed weights, ``uniform_policy(8,
 8)``), and path W composed with ``dynamic_a``, give the logits of JAX's
 un-jitted ``cnn.forward`` and of the untrimmed static path.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
