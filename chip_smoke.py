@@ -152,7 +152,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               measured before the port dropped that route, 408.055 ms),
               host clock, device busy (torch.profiler), transient peak
               memory and pool bytes; a setting with ``gqa_decode`` held
-              equal to its twin without it (one float body in the port);
+              equal to its twin without it (one float body in the port;
+              its engine streams and rows held to the twin's solo runs);
               on ``attn_int8`` layer 0's two ``int8_dot`` products held
               equal to the exact product on the host.
    archs   -- the other nine LM architectures (ARCH_DEPTHS: published
@@ -169,8 +170,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               packed bytes, peak memory, prefill ms and decode ms/step
               (CUDA events). deepseek-moe-16b: a ``dynamic_a`` prefill
               (K3 on every linear) equal to the static one, one decode
-              step profiled (14 of its 28 layers: the dist
-              phase's training took the time). deepseek-moe-16b and
+              step profiled (4 of its 28 layers: the dist phase's
+              training and the launch phase took the time).
+              deepseek-moe-16b and
               mamba2-370m: the
               engine's traffic (ARCHS_ENGINE_PROMPTS), every stream and
               batched decode row equal to its solo run.
@@ -224,7 +226,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               prefill and decode ms (CUDA events), peak memory, launches,
               the collectives by kind. Then the same worlds train
               (DIST_TRAIN_*: ``jit_train_step``, qwen3-1.7b at published
-              size on (1, 2) ``dense`` and ``fake_quant`` and on (2, 2)
+              width and DIST_TRAIN_LAYERS layers on (1, 2) ``dense`` and
+              ``fake_quant`` and on (2, 2)
               ``dense``, the deepseek cut on (1, 4)): the first step's
               loss and grad norm within DIST_LOSS_RTOL and DIST_NORM_RTOL
               of the unsharded ones (this process's loss and gradients on
@@ -233,6 +236,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               kernel of the port launched; per rank step ms (CUDA
               events), peak memory and the collectives of a step by kind
               and bytes.
+   launch  -- launch analysis (LAUNCH_*): phase_lm's cuda session runs
+              one prefill (its prompts, int32) and one decode step (the
+              position the int ``generate`` passes) under
+              ``launch.opanalysis`` on the card: operations by type, HBM
+              bytes, the kernels counted by kind (K1 once per Loom linear,
+              equal to the launch counters), the tracked peak beside
+              ``torch.cuda.max_memory_allocated``, the steps' time between
+              CUDA events (median of LAUNCH_TIMED, the cache made before
+              the timed calls) and two fractions of it, both bounds on
+              the H100 datasheet constants: the eager bound (the
+              analyzer's count of the unfused program this step runs)
+              and the ideal bound (``dryrun.ideal_bounds`` at a world of
+              one: the model's products at the bf16 peak, or its weights
+              and cache read once). The same two steps traced by the dry run at a
+              world of one (fake tensors, ``torch_ref``, extrapolated from
+              one and two layer groups) must count the same operations,
+              bytes and kernels exactly. Then LAUNCH_CELLS traced on a
+              fake world of 256 ranks in a subprocess (started before
+              the dist phase, host work only), one line a cell.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -261,6 +283,7 @@ or one pass of the ops path) on each kernel's path; the last line is
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -307,6 +330,9 @@ from repro_torch.kernels.dynamic_quant import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.ops import conv_accum_fits_f32  # noqa: E402
+from repro_torch.kernels.work import (  # noqa: E402
+    BF16_FLOPS, HBM_BYTES_PER_S, work)
+from repro_torch.launch import dryrun, opanalysis, shapes  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import cnn, layers as L, model as M  # noqa: E402
 from repro_torch.models import moe, ssm  # noqa: E402
@@ -320,10 +346,6 @@ from repro_torch.runtime.supervisor import TransientWorkerError  # noqa: E402
 BATCH = 256
 REQUESTS = 8
 LATENCY_SAMPLES = 100
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
-BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
-F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 CSRC = "src/repro_torch/kernels/csrc"
 LM_BATCH, LM_PROMPT, LM_GEN = 2, 512, 32
 # The engine phase: ENGINE_REQUESTS requests into ENGINE_BATCH slots of a
@@ -1697,7 +1719,7 @@ def phase_engine(lm: dict, card: str, errs: dict) -> dict:
           f"{decode_only[-1] * 1e3:.3f}), median "
           f"{sorted(step_s)[len(step_s) // 2] * 1e3:.3f} ms over all "
           f"{len(step_s)}; peak device memory {peak / 2**20:.1f} MiB")
-    del rows, solos
+    del rows
 
     # The same traffic guarded and supervised, decoding on the watchdog's
     # thread.
@@ -1797,7 +1819,7 @@ def phase_engine(lm: dict, card: str, errs: dict) -> dict:
     phase_engine_cli(card)
     print(f"[engine] phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, dyn_launches=dlaunches, step_s=step_med,
-                prompts=prompts, tokens=tokens)
+                prompts=prompts, tokens=tokens, solos=solos)
 
 
 def phase_integrity(lm: dict, engine: dict, card: str, errs: dict) -> None:
@@ -2331,9 +2353,19 @@ def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
     sess, n_lin = lm["sess"], lm["n_lin"]
     prompts, bf16_tokens = engine["prompts"], engine["tokens"]
     all_launches = {}
+    # A setting with gqa_decode runs its twin's body (the port keeps one
+    # float route): its batched streams and rows are held to the twin's
+    # solo runs (the bf16 cache's are the engine phase's).
+    twin_solos = {(): engine.pop("solos")}
     for label, change in KV_ROUTES.items():
         rs = route_session(sess, change)
-        solos = [solo_run(rs, p_, ENGINE_GEN) for p_ in prompts]
+        twin = tuple(sorted((k, v) for k, v in change.items()
+                            if k != "gqa_decode"))
+        if "gqa_decode" in change:
+            solos = twin_solos[twin]
+        else:
+            solos = [solo_run(rs, p_, ENGINE_GEN) for p_ in prompts]
+            twin_solos[twin] = solos
         rows, ref = [], []
         eng = BatchingEngine(recording_session(rs, rows, ref),
                              max_batch=ENGINE_BATCH, max_seq=ENGINE_SEQ)
@@ -2371,6 +2403,7 @@ def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
               f"{ENGINE_REQUESTS * ENGINE_GEN}; median step "
               f"{sorted(step_s)[len(step_s) // 2] * 1e3:.3f} ms")
         del rows, solos, eng
+    del twin_solos
 
     # One decode step at the engine's defaults, per setting. A setting
     # with gqa_decode runs its twin's body (the port keeps one float
@@ -2454,10 +2487,11 @@ def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
 # The archs phase: the nine other LM architectures at published width,
 # depth cut where one card or the script's time limit forces it (None =
 # the published depth; PERF.md section 4 lists each cut). deepseek-moe-16b
-# keeps 14 of its 28 layers (its first 14 of the pattern: the dense
-# layer and 13 MoE): at 28 its per-call expert unpack took 170 s of the
-# phase, and the dist phase's training needed the time.
-ARCH_DEPTHS = {"deepseek-moe-16b": 14, "mamba2-370m": None,
+# keeps 4 of its 28 layers (its first 4 of the pattern: the dense layer
+# and 3 MoE): at 28 its per-call expert unpack took 170 s of the phase;
+# 14 left time for the dist phase's training, 8 for the launch phase, 4
+# for the script's time limit on a slower host.
+ARCH_DEPTHS = {"deepseek-moe-16b": 4, "mamba2-370m": None,
                "jamba-v0.1-52b": 8, "mixtral-8x7b": 2, "gemma3-12b": 6,
                "llama3-405b": 1, "nemotron-4-340b": 1, "musicgen-large": 1,
                "llama-3.2-vision-90b": 5}
@@ -3360,13 +3394,14 @@ def phase_paper(card: str, errs: dict) -> dict:
 # prefill (K3) equal to them too. (d): qwen3-1.7b's dense tree at
 # published width cut to DIST_CKPT_LAYERS layers (the whole depth's 4 GB
 # would take the phase's budget to write), restored with shardings=.
-DIST_STEPS = 8
+DIST_STEPS = 4
 DIST_MOE_LAYERS = 4
 DIST_CKPT_LAYERS = 2
 DIST_TIMEOUT_S = 240
 DIST_LABEL = "gloo on one H100, transport through the host"
 # Training on the mesh, in the same spawned worlds after
-# their serving: qwen3-1.7b at published width and depth (remat "none",
+# their serving: qwen3-1.7b at published width cut to DIST_TRAIN_LAYERS
+# of its 28 layers (remat "none",
 # float32 moments) on (1, 2) in dense and fake_quant (8, 8) and on (2, 2)
 # in dense ("fsdp" dims over "data"), deepseek-moe-16b's first
 # DIST_MOE_LAYERS layers on (1, 4) dense (16 experts a rank); a global
@@ -3377,7 +3412,8 @@ DIST_LABEL = "gloo on one H100, transport through the host"
 # on the card, without the optimizer, whose state the parent has no room
 # for beside the earlier phases'; a (1, 1) NCCL mesh's within them too),
 # every loss and grad norm finite, no kernel of the port launched.
-DIST_TRAIN_BATCH, DIST_TRAIN_SEQ, DIST_TRAIN_STEPS = 4, 256, 2
+DIST_TRAIN_BATCH, DIST_TRAIN_SEQ, DIST_TRAIN_STEPS = 4, 256, 1
+DIST_TRAIN_LAYERS = 14
 # Three times the largest relative difference measured on the card
 # (4.85e-4: (1, 2) fake_quant).
 DIST_LOSS_RTOL = 1.5e-3
@@ -3491,11 +3527,13 @@ def _dist_serve(mesh, cfg, tokens, expect: list, max_seq: int, errs: dict,
 
 
 def _train_cfgs(smoke: bool) -> dict:
-    """The dist phase's training configs: qwen3-1.7b and the deepseek
-    cut, remat "none"."""
-    return {"qwen": dataclasses.replace(configs.get("qwen3-1.7b",
-                                                    smoke=smoke),
-                                        remat="none"),
+    """The dist phase's training configs: qwen3-1.7b at DIST_TRAIN_LAYERS
+    layers and the deepseek cut, remat "none" (``smoke``: the smoke
+    configs)."""
+    qwen = configs.get("qwen3-1.7b", smoke=smoke)
+    if not smoke:
+        qwen = dataclasses.replace(qwen, n_layers=DIST_TRAIN_LAYERS)
+    return {"qwen": dataclasses.replace(qwen, remat="none"),
             "moe": dataclasses.replace(_moe_cut(smoke), remat="none")}
 
 
@@ -3874,17 +3912,6 @@ def phase_engine_cli(card: str) -> None:
           f"{time.perf_counter() - t0:.1f} s; {line[0] if line else ''}")
 
 
-def _packed_bytes(wp: torch.Tensor, counts, bn: int) -> int:
-    """Bytes of the packed operand that the counts need: column j reads
-    min(count, Pw) planes of K/8 bytes."""
-    pw, k8, n = wp.shape
-    if counts is None:
-        return wp.numel()
-    per_col = torch.repeat_interleave(counts.to(torch.int64).clamp(1, pw),
-                                      bn)[:n]
-    return int(per_col.sum().item()) * k8
-
-
 def _sdpa(q_, k_, v_, causal: bool, window):
     """F.scaled_dot_product_attention over the same function as K7 (a
     boolean mask for a window), or None when it has no such call."""
@@ -3950,50 +3977,6 @@ def _library(name: str, args: tuple, kw: dict, out):
     return conv
 
 
-def _attention_pairs(s_: int, causal: bool, window) -> int:
-    """(query, key) pairs that the mask keeps: row i sees keys
-    [max(0, i - w + 1), i] causal, [max(0, i - w + 1), S) otherwise."""
-    i = torch.arange(s_, dtype=torch.int64)
-    hi = i + 1 if causal else torch.full_like(i, s_)
-    lo = (i - window + 1).clamp(min=0) if window is not None else 0 * i
-    return int((hi - lo).sum())
-
-
-def _work(name: str, args: tuple, kw: dict, out) -> tuple:
-    """(bytes, operations, peak operations/s) of one call: each input read
-    once (packed planes only up to the counts), each output written once.
-    Integer kernels: one multiply-add (2 operations) per term at the int8
-    peak. K6: four float32 operations per value (abs, max, divide, round).
-    K7: two multiply-adds per (query, key) pair and dimension, counted
-    over the pairs the mask keeps, at the peak of the inputs' type."""
-    x = args[0]
-    if name == "dynamic_quant":
-        nbytes = x.numel() * 4 + sum(t.numel() * t.element_size()
-                                     for t in out)
-        return nbytes, 4 * x.numel(), F32_FLOPS
-    if name == "flash_attention":
-        b, h, s_, d = x.shape
-        nbytes = 4 * x.numel() * x.element_size()
-        pairs = _attention_pairs(s_, kw.get("causal", True), kw.get("window"))
-        peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
-        return nbytes, 4 * d * pairs * b * h, peak
-    if name.startswith("bitserial_matmul"):
-        counts = args[2] if name.endswith("dynamic") else None
-        nbytes = x.numel() + _packed_bytes(args[1], counts, kw.get("bn", 1))
-        depth = x.shape[1]
-    else:
-        depth = kw["kernel"] ** 2 * x.shape[3]
-        if name == "bitserial_conv_dynamic":
-            nbytes = x.numel() + args[1].numel()
-        else:
-            counts = args[2] if name == "bitserial_conv_wgroup" else None
-            nbytes = x.numel() + _packed_bytes(args[1], counts,
-                                               kw.get("w_group", 16))
-    if len(args) > 2:
-        nbytes += args[2].numel() * 4                  # the counts
-    return nbytes + out.numel() * 4, 2 * out.numel() * depth, INT8_OPS_PER_S
-
-
 def time_call(name: str, args: tuple, kw: dict, label: str, errs: dict,
               plain_iters: int = 10) -> dict:
     """Kernel, plain and library ms of one recorded call, its bound, and
@@ -4012,7 +3995,7 @@ def time_call(name: str, args: tuple, kw: dict, label: str, errs: dict,
         k7_hold(errs, out, k7_plain32(*args, **plain_kw), f"at {label}")
     else:
         _hold(errs, name, out, plain(), f"at {label}")
-    nbytes, ops_, peak = _work(name, args, kw, out)
+    nbytes, ops_, peak = work(name, args, kw, out)
     lib = _library(name, args, kw, out)
     t_kernel, t_plain = cuda_ms(kernel), cuda_ms(plain, iters=plain_iters)
     out_bytes = sum(t.numel() * t.element_size()
@@ -4137,7 +4120,7 @@ def phase_attention_timing(errs: dict) -> None:
     check(within(lib(), out, SDPA_TOL, SDPA_TOL),
           "scaled_dot_product_attention disagrees at S = 32768")
     t_lib = cuda_ms(lib, iters=3, warmup=1)
-    nbytes, ops_, peak = _work("flash_attention", (q_, k_, v_),
+    nbytes, ops_, peak = work("flash_attention", (q_, k_, v_),
                                dict(causal=True), out)
     print(f"[timing] long flash_attention (1, 16, 32768, 128) bf16 causal: "
           f"kernel {t_kernel:.3f} ms (before: {BEFORE_MS['long', 32768]} ms), "
@@ -4197,6 +4180,144 @@ def phase_profile(label: str, run, request_s: float, launches: int,
     return count.ops, busy_ms
 
 
+# The launch phase: the dry run's production cells traced on a fake world
+# of 256 ranks in a subprocess (arch, shape, weights); its time limit; and
+# the timed runs of the analyzed steps.
+LAUNCH_CELLS = [("musicgen_large", "decode_32k", "dense"),
+                ("qwen3-1.7b", "decode_32k", "serve_packed"),
+                ("mamba2_370m", "long_500k", "dense")]
+LAUNCH_TIMEOUT_S = 300
+LAUNCH_TIMED = 5
+_LAUNCH_CELLS_SCRIPT = """
+import sys, tempfile
+from repro_torch.launch import dryrun
+out = tempfile.mkdtemp()
+for arch, shape, weights in {cells!r}:
+    dryrun.run_cell(arch, shape, "single", weights, weights, out_dir=out)
+"""
+
+
+def start_launch_cells() -> tuple:
+    """Start LAUNCH_CELLS' dry run in a subprocess (host work only, run
+    beside the phases before the launch phase, killed at exit if still
+    running): (its start time, the process)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _LAUNCH_CELLS_SCRIPT.format(
+            cells=LAUNCH_CELLS)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH="src"))
+    atexit.register(proc.kill)
+    return time.perf_counter(), proc
+
+
+def _analyzed(fn, arguments) -> tuple:
+    """(its result, the Totals) of ``fn()`` under the op analyzer."""
+    with opanalysis.OpAnalysis(arguments=arguments) as a:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, a.totals()
+
+
+def phase_launch(lm: dict, card: str, cells: tuple) -> dict:
+    """The analyzer on the card's own prefill and decode step, held equal
+    to the dry run's trace of them; the production cells on a fake world
+    (module docstring; ``cells``: :func:`start_launch_cells`). Returns the
+    step's launches."""
+    t_phase = time.perf_counter()
+    sess, cfg = lm["sess"], lm["sess"].cfg
+    tokens = lm["tokens"].to(torch.int32)
+    batch, prompt = tokens.shape
+    pos = prompt                              # as ``generate`` passes it
+    n_lin = lm["n_lin"]
+    params = sess.params
+    cache = sess.init_cache(batch, lm["max_seq"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.inference_mode():
+        (logits, cache), pre = _analyzed(
+            lambda: sess._prefill(params, tokens, cache), (params, cache))
+        pre_launches = read_launches()
+        tok = torch.argmax(logits[:, 0], -1).to(torch.int32)
+        reset_launches()
+        _, dec = _analyzed(lambda: sess._decode(params, tok, pos, cache),
+                           (params, cache))
+        dec_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    for label, t, got in (("prefill", pre, pre_launches),
+                          ("decode", dec, dec_launches)):
+        lm_step_launches(f"launch {label}", got,
+                         {"bitserial_matmul": n_lin})
+        check(t.kernels == {"K1": got["bitserial_matmul"]},
+              f"launch {label}: the analyzer counted {t.kernels}, the "
+              f"launch counters {got}")
+
+    timed_cache = sess.init_cache(batch, lm["max_seq"])
+    with torch.inference_mode():
+        timed = {label: float(np.median([_event_ms(fn)[1]
+                                         for _ in range(LAUNCH_TIMED)]))
+                 for label, fn in (("prefill", lambda: sess._prefill(
+                                       params, tokens, timed_cache)),
+                                   ("decode", lambda: sess._decode(
+                                       params, tok, pos, cache)))}
+    del timed_cache
+    cache_bytes = float(opanalysis.storage_bytes(cache))
+    for label, t in (("prefill", pre), ("decode", dec)):
+        terms = opanalysis.roofline_terms(t)
+        cell = shapes.ShapeCell(
+            label, label, prompt if label == "prefill" else prompt + 1,
+            batch)
+        ideal_ms = dryrun.ideal_bounds(cfg, cell, 1, "serve_packed",
+                                       cache_bytes)["ideal_bound_s"] * 1e3
+        ms = timed[label]
+        print(f"[launch] {card}: {cfg.name} serve_packed {label} "
+              f"({batch} x {prompt if label == 'prefill' else 1}) under the "
+              f"analyzer: {t.flops:.6g} operations {t.flops_by_type}, "
+              f"{t.hbm_bytes:.6g} HBM bytes, {t.n_ops} aten ops, kernels "
+              f"{t.kernels} (launch counters {n_lin}); tracked peak "
+              f"{t.peak_bytes / 2**30:.3f} GiB, max_memory_allocated "
+              f"{peak / 2**30:.3f} GiB; measured {ms:.4f} ms (CUDA events, "
+              f"median of {LAUNCH_TIMED}); on the datasheet constants: "
+              f"eager bound {terms['bound_s'] * 1e3:.4f} ms "
+              f"({terms['dominant']}; the unfused program counted), "
+              f"eager-bound fraction {terms['bound_s'] * 1e3 / ms:.4f}; "
+              f"ideal bound {ideal_ms:.4f} ms (dryrun.ideal_bounds, world "
+              f"one), ideal-bound fraction {ideal_ms / ms:.4f}")
+    t0 = time.perf_counter()
+    dry = dryrun.serving_counts(cfg, "serve_packed", batch, prompt,
+                                lm["max_seq"])
+    for label, t in (("prefill", pre), ("decode", dec)):
+        check(dry[label].counts() == t.counts(),
+              f"launch {label}: the dry run counted {dry[label].counts()}, "
+              f"the card's step {t.counts()}")
+    print(f"[launch] world-one dry run (fake tensors, torch_ref, traced at "
+          f"1 and 2 layer groups and extrapolated to {cfg.n_groups}) in "
+          f"{time.perf_counter() - t0:.1f} s: operations, HBM bytes and "
+          f"kernels equal to the card's prefill and decode step's")
+    t0, proc = cells
+    t_wait = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    check(proc.returncode == 0, f"launch cells exited {proc.returncode}:\n"
+          f"{out[-2000:]}{err[-3000:]}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("[dryrun]")]
+    check(len(lines) == len(LAUNCH_CELLS) and all(" OK " in ln
+                                                  for ln in lines),
+          f"launch cells: {out[-2000:]}")
+    for ln in lines:
+        print(f"[launch] fake world of 256 ranks (modeled, datasheet "
+              f"constants): {ln}")
+    print(f"[launch] production cells in {time.perf_counter() - t0:.1f} s "
+          f"(one subprocess, started before the dist phase; waited "
+          f"{time.perf_counter() - t_wait:.1f} s here); phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launch": {k: pre_launches[k] + dec_launches[k]
+                       for k in KERNELS}}
+
+
 def main() -> None:
     # The fp32 yardsticks and plain versions run in full fp32, not TF32
     # (cuDNN's default for convolutions).
@@ -4217,7 +4338,9 @@ def main() -> None:
     arch_launches = phase_archs(card)
     phase_train(card)
     paper_launches = phase_paper(card, errs)
+    cells = start_launch_cells()
     dist_launches = phase_dist(lm, card, errs)
+    launch_launches = phase_launch(lm, card, cells)
     launches = dict(served["launches"])
     launches["CNN im2col"] = int8["im2col_launches"]
     launches["LM generate"] = lm["gen_launches"]
@@ -4227,6 +4350,7 @@ def main() -> None:
     launches.update(arch_launches)
     launches.update(paper_launches)
     launches.update(dist_launches)
+    launches.update(launch_launches)
     launches["ops"] = lm["ops_launches"]
     runs = {label: (lambda sess=sess, x=x: sess.classify(x))
             for label, (sess, x, _) in served["runs"].items()}

@@ -86,13 +86,13 @@ class ServingSession:
         without a mesh)."""
         if self.shard is None:
             return slice(0, batch)
-        n = self.shard.local(batch, "data")
-        return slice(self.shard.rank("data") * n,
-                     (self.shard.rank("data") + 1) * n)
+        n = self.shard.local(batch, "dp")
+        return slice(self.shard.rank("dp") * n,
+                     (self.shard.rank("dp") + 1) * n)
 
     def init_cache(self, batch: int, max_seq: int | None = None) -> dict:
-        """A cache for ``batch`` rows (on a mesh: this rank's rows and KV
-        heads of it, ``model.cache_shard_spec_tree``)."""
+        """A cache for ``batch`` rows (on a mesh: this rank's rows and its
+        KV heads or its slots of it, ``model.cache_shard_spec_tree``)."""
         from repro_torch.models import model as M
         self._need(lm=True)
         cache = M.init_cache(self.cfg, batch, max_seq or self.cfg.max_seq,
@@ -100,8 +100,10 @@ class ServingSession:
         if self.shard is None:
             return cache
         from repro_torch.dist import sharding
-        return sharding.shard_tree(cache, M.cache_shard_spec_tree(self.cfg),
-                                   self.shard.mesh)
+        return sharding.shard_tree(
+            cache, self.shard.place(M.cache_shard_spec_tree(self.cfg,
+                                                            self.shard)),
+            self.shard.mesh)
 
     def _local_rows(self, t):
         if self.shard is None or not isinstance(t, torch.Tensor) \
@@ -161,7 +163,7 @@ class ServingSession:
 
     def _whole_rows(self, t):
         """Every rank's rows of ``t`` (t itself without a mesh)."""
-        return t if self.shard is None else self.shard.gather(t, 0, "data")
+        return t if self.shard is None else self.shard.gather(t, 0, "dp")
 
     # -- CNN entry point ----------------------------------------------------
 

@@ -17,6 +17,7 @@ _ARCHS = {m.__name__.rsplit(".", 1)[1]: m for m in (
     nemotron_4_340b, mamba2_370m, musicgen_large, jamba_v0_1_52b,
     llama_3_2_vision_90b, paper_cnn)}
 ARCHS = tuple(_ARCHS)
+LM_ARCHS = tuple(a for a in ARCHS if a != "paper_cnn")
 
 _ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",

@@ -13,7 +13,8 @@ def config() -> ModelConfig:
         name="gemma3-12b", family="dense",
         n_layers=48, d_model=3840, vocab=262144,
         n_heads=16, n_kv_heads=8, d_head=256, d_ff=15360,
-        qk_norm=True, rope_theta=1e6, pattern=pattern, max_seq=524288)
+        qk_norm=True, rope_theta=1e6, pattern=pattern, sub_quadratic=True,
+        max_seq=524288)
 
 
 def smoke_config() -> ModelConfig:
@@ -22,5 +23,5 @@ def smoke_config() -> ModelConfig:
         name="gemma3-smoke", family="dense",
         n_layers=2, d_model=64, vocab=256,
         n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
-        qk_norm=True, pattern=pattern, max_seq=128,
+        qk_norm=True, pattern=pattern, sub_quadratic=True, max_seq=128,
         remat="none")

@@ -23,7 +23,7 @@ def config() -> ModelConfig:
         moe=MoEConfig(d_model=4096, d_ff=14336, n_experts=16, top_k=2),
         ssm=SSMConfig(d_model=4096, d_state=16, d_conv=4, expand=2,
                       head_dim=64),
-        max_seq=524288)
+        sub_quadratic=True, max_seq=524288)
 
 
 def smoke_config() -> ModelConfig:
@@ -37,4 +37,4 @@ def smoke_config() -> ModelConfig:
         moe=MoEConfig(d_model=64, d_ff=128, n_experts=4, top_k=2),
         ssm=SSMConfig(d_model=64, d_state=16, d_conv=4, expand=2,
                       head_dim=16, chunk=16),
-        max_seq=128, remat="none")
+        sub_quadratic=True, max_seq=128, remat="none")

@@ -13,7 +13,7 @@ def config() -> ModelConfig:
         pattern=(LayerSpec(kind="mamba", ffn="none"),),
         ssm=SSMConfig(d_model=1024, d_state=128, d_conv=4, expand=2,
                       head_dim=64),
-        max_seq=524288)
+        sub_quadratic=True, max_seq=524288)
 
 
 def smoke_config() -> ModelConfig:
@@ -23,4 +23,4 @@ def smoke_config() -> ModelConfig:
         pattern=(LayerSpec(kind="mamba", ffn="none"),),
         ssm=SSMConfig(d_model=64, d_state=16, d_conv=4, expand=2,
                       head_dim=16, chunk=16),
-        max_seq=128, remat="none")
+        sub_quadratic=True, max_seq=128, remat="none")

@@ -16,7 +16,7 @@ def config() -> ModelConfig:
         pattern=(LayerSpec(kind="attn", ffn="moe", window=WINDOW),),
         moe=MoEConfig(d_model=4096, d_ff=14336, n_experts=8, top_k=2,
                       expert_parallel=False),
-        max_seq=524288)
+        sub_quadratic=True, max_seq=524288)
 
 
 def smoke_config() -> ModelConfig:
@@ -27,4 +27,4 @@ def smoke_config() -> ModelConfig:
         pattern=(LayerSpec(kind="attn", ffn="moe", window=32),),
         moe=MoEConfig(d_model=64, d_ff=128, n_experts=4, top_k=2,
                       expert_parallel=False),
-        max_seq=128, remat="none")
+        sub_quadratic=True, max_seq=128, remat="none")

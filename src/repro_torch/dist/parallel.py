@@ -2,7 +2,9 @@
 construction on the integer routes.
 
 A :class:`ShardCtx` is what a meshed session passes down the model: the
-mesh, its "data" and "model" groups, this rank's place in them, and a
+mesh, the groups of its logical axes (by default "dp" and "fsdp" over
+"data", "tp" and "sp" over "model"; below, "model" is the "tp" group and
+"data" the "dp" or "fsdp" one), this rank's place in them, and a
 :class:`Comm` that runs every collective. :meth:`ShardCtx.lin` gives the
 :class:`LinearShard` of one projection from the logical axes of its dense
 weight, the same (in, out) pair its spec carries:
@@ -57,6 +59,7 @@ from repro_torch.api import plan as planlib
 from repro_torch.core import quantize as q
 from repro_torch.dist import sharding
 from repro_torch.kernels import ops
+from repro_torch.kernels.work import NODE_CARDS
 from repro_torch.models.layers import fake_quant_operands
 
 _OPS = {"sum": ReduceOp.SUM, "max": ReduceOp.MAX}
@@ -69,21 +72,35 @@ def _size(group) -> int:
 class Comm:
     """Collectives over a mesh's groups. ``calls``: how many of each kind
     (op, dtype, reduction) ran; ``bytes``: the bytes each kind's calls
-    handed in (this rank's tensors)."""
+    handed in (this rank's tensors); ``link_bytes``: the same bytes by
+    the link their group spans, ``"node"`` (ranks of one node of
+    ``NODE_CARDS``, numbered node by node) or ``"network"``."""
 
     def __init__(self):
         self.calls = collections.Counter()
         self.bytes = collections.Counter()
+        self.link_bytes = collections.Counter()
+        self._links = {}
 
-    def _count(self, kind: tuple, t: torch.Tensor) -> None:
+    def _link(self, group) -> str:
+        key = id(group)
+        if key not in self._links:
+            nodes = {r // NODE_CARDS
+                     for r in dist.get_process_group_ranks(group)}
+            self._links[key] = "node" if len(nodes) == 1 else "network"
+        return self._links[key]
+
+    def _count(self, kind: tuple, t: torch.Tensor, group) -> None:
+        n = t.numel() * t.element_size()
         self.calls[kind] += 1
-        self.bytes[kind] += t.numel() * t.element_size()
+        self.bytes[kind] += n
+        self.link_bytes[self._link(group)] += n
 
     def all_reduce(self, t: torch.Tensor, red: str, group) -> torch.Tensor:
         """``t`` reduced (``"sum"`` or ``"max"``) over ``group``."""
         if _size(group) == 1:
             return t
-        self._count(("all_reduce", t.dtype, red), t)
+        self._count(("all_reduce", t.dtype, red), t, group)
         t = t.contiguous()
         dist.all_reduce(t, op=_OPS[red], group=group)
         return t
@@ -98,7 +115,7 @@ class Comm:
         if t.shape[dim] % n:
             raise ValueError(f"{t.shape[dim]} columns do not split over {n} "
                              f"ranks")
-        self._count(("reduce_scatter", t.dtype, "sum"), t)
+        self._count(("reduce_scatter", t.dtype, "sum"), t, group)
         parts = [c.contiguous() for c in t.chunk(n, dim=dim)]
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, op=ReduceOp.SUM, group=group)
@@ -111,7 +128,7 @@ class Comm:
         if n == 1:
             return t
         b = t.contiguous().reshape(-1).view(torch.uint8)
-        self._count(("all_gather", torch.uint8, None), b)
+        self._count(("all_gather", torch.uint8, None), b, group)
         parts = [torch.empty_like(b) for _ in range(n)]
         dist.all_gather(parts, b, group=group)
         return torch.cat([p.view(t.dtype).reshape(t.shape) for p in parts],
@@ -202,123 +219,169 @@ class _SumOneHot(torch.autograd.Function):
 
 
 class ShardCtx:
-    """One rank's view of a ("data", "model") mesh for serving and
-    training: sizes,
-    ranks and groups of both axes, and its :class:`Comm`. Execution takes
-    the default rules (dp/fsdp on "data", tp/sp on "model"); overrides
-    that move them elsewhere are resolution-only and raise here."""
+    """One rank's view of a mesh for serving and training: the groups of
+    the logical axes, this rank's place in them, and its :class:`Comm`.
+
+    Each logical axis ("dp" the batch rows, "fsdp" the split weight dims,
+    "tp" the heads, columns and experts, "sp" the KV cache's sequence)
+    resolves through the mesh's rules and :func:`sharding.set_rule_overrides`
+    to a group: one mesh axis, the flattened product of several (in mesh
+    order, the first outermost), or none. The ("data", "model") mesh takes
+    dp/fsdp on "data" and tp/sp on "model"; the ("pod", "data", "model")
+    mesh dp/fsdp on ("pod", "data"). A mesh axis that "tp" or "sp" claims
+    does not split the rows ("dp"): the rows are whole within every group
+    that sums or combines them (``serve_2d_tp``'s tp = ("data", "model")
+    serves every row on every rank). Every method that takes an axis takes
+    a logical name or a mesh axis name."""
+
+    ROLES = ("dp", "fsdp", "tp", "sp")
 
     def __init__(self, mesh):
         names = sharding.axis_names(mesh)
-        if names != ("data", "model"):
-            raise NotImplementedError(
-                f"sharded serving runs on a ('data', 'model') mesh; got "
-                f"{names}")
-        for logical, phys in (("dp", "data"), ("fsdp", "data"),
-                              ("tp", "model"), ("sp", "model")):
-            got = sharding.resolve(sharding.Spec(logical), mesh)[0]
-            if got != phys:
-                raise NotImplementedError(
-                    f"rule override {logical!r} -> {got!r}: sharded "
-                    f"execution takes {logical!r} on {phys!r}")
         self.mesh = mesh
         self.comm = Comm()
-        self.device = torch.device(mesh.device_type,
-                                   torch.cuda.current_device()) \
-            if mesh.device_type == "cuda" else torch.device("cpu")
-        self._groups = {a: mesh.get_group(a) for a in names}
-        self._size = {a: mesh.size(i) for i, a in enumerate(names)}
-        self._rank = {a: mesh.get_local_rank(a) for a in names}
+        if mesh.device_type != "cuda":
+            self.device = torch.device("cpu")
+        elif torch.cuda.is_available():
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        else:                       # a fake world traced on the host
+            self.device = torch.device("cuda")
+        self._names = names
+        self._mesh_size = {a: mesh.size(i) for i, a in enumerate(names)}
+        self._mesh_rank = {a: mesh.get_local_rank(a) for a in names}
+        axes = {r: sharding._axes(sharding.resolve(sharding.Spec(r), mesh)[0])
+                for r in self.ROLES}
+        claimed = set(axes["tp"]) | set(axes["sp"])
+        axes["dp"] = tuple(a for a in axes["dp"] if a not in claimed)
+        if set(axes["fsdp"]) & set(axes["tp"]):
+            raise NotImplementedError(
+                f"'fsdp' on {axes['fsdp']} and 'tp' on {axes['tp']} share a "
+                f"mesh axis")
+        self._role_axes = axes
+        self._groups = {}
+        for r in self.ROLES:         # made in one order on every rank
+            self.group(r)
 
-    def rank(self, axis: str) -> int:
-        return self._rank[axis]
+    def axes(self, name) -> tuple:
+        """The mesh axes of a logical axis (after the rules, overrides and
+        the rows' rule above), or of a mesh axis name itself."""
+        if name in self._role_axes:
+            return self._role_axes[name]
+        if name not in self._mesh_size:
+            raise KeyError(f"{name!r} is neither a logical axis nor an axis "
+                           f"of the mesh {self._names}")
+        return (name,)
 
-    def size(self, axis: str) -> int:
-        return self._size[axis]
+    def _ordered(self, names) -> tuple:
+        want = {a for n in names for a in self.axes(n)}
+        return tuple(a for a in self._names if a in want)
 
-    def group(self, axis: str):
-        return self._groups[axis]
+    def rank(self, axis: str = "tp") -> int:
+        """This rank's index in ``axis``'s group (row-major over its mesh
+        axes)."""
+        idx = 0
+        for a in self.axes(axis):
+            idx = idx * self._mesh_size[a] + self._mesh_rank[a]
+        return idx
+
+    def size(self, axis: str = "tp") -> int:
+        n = 1
+        for a in self.axes(axis):
+            n *= self._mesh_size[a]
+        return n
+
+    def group(self, axis: str = "tp"):
+        """The group of ``axis``: None for no mesh axis."""
+        return self.group_over(self.axes(axis))
 
     def group_over(self, axes) -> object:
-        """The group of the ranks that differ only along ``axes`` (a set
-        of mesh axis names): None for none, the world for both."""
-        axes = set(axes)
-        if not axes:
+        """The group of the ranks that differ only along ``axes`` (names of
+        logical or mesh axes): None for none, the world for every mesh
+        axis, a flattened sub-mesh's group for several (made once, on
+        first use: every rank reaches it at the same point of the SPMD
+        program)."""
+        key = self._ordered(axes)
+        if not key:
             return None
-        if axes == {"data", "model"}:
-            return dist.group.WORLD
-        (a,) = axes
-        return self._groups[a]
+        if key not in self._groups:
+            if key == self._names:
+                self._groups[key] = dist.group.WORLD
+            elif len(key) == 1:
+                self._groups[key] = self.mesh.get_group(key[0])
+            else:
+                sub = self.mesh[key]._flatten("_".join(key))
+                self._groups[key] = sub.get_group()
+        return self._groups[key]
 
-    def local(self, n: int, axis: str = "model") -> int:
+    def local(self, n: int, axis: str = "tp") -> int:
         """n / the axis size; raises where it does not divide."""
-        size = self._size[axis]
+        size = self.size(axis)
         if n % size:
             raise ValueError(f"{n} does not split over {size} {axis!r} "
                              f"ranks")
         return n // size
 
     def take(self, t: torch.Tensor, dim: int,
-             axis: str = "model") -> torch.Tensor:
+             axis: str = "tp") -> torch.Tensor:
         """This rank's piece of a whole (replicated) ``t`` along ``dim``."""
         n = self.local(t.shape[dim], axis)
-        return t.narrow(dim, self._rank[axis] * n, n)
+        return t.narrow(dim, self.rank(axis) * n, n)
 
     # The collectives that carry a gradient (module docstring); each is
     # the identity over a group of one rank.
 
     def _apply(self, fn, t: torch.Tensor, axis: str, *args) -> torch.Tensor:
-        group = self._groups[axis]
+        group = self.group(axis)
         return t if _size(group) == 1 else fn.apply(t, *args, self.comm,
                                                     group)
 
     def gather(self, t: torch.Tensor, dim: int,
-               axis: str = "model") -> torch.Tensor:
+               axis: str = "tp") -> torch.Tensor:
         """Every rank's ``t`` of ``axis`` concatenated along ``dim``, for
         work that every rank then does alike; the gradient (the same on
         every rank) gives each rank its own slice."""
         return self._apply(_GatherActs, t, axis, dim)
 
     def gather_weight(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """An "fsdp" weight all-gathered over "data" along ``dim`` for one
-        use; its gradient, from each rank's own rows, is SUM-reduced and
-        each rank keeps its slice (reduce-scatter)."""
-        return self._apply(_GatherWeight, t, "data", dim)
+        """An "fsdp" weight all-gathered along ``dim`` for one use; its
+        gradient, from each rank's own rows, is SUM-reduced and each rank
+        keeps its slice (reduce-scatter)."""
+        return self._apply(_GatherWeight, t, "fsdp", dim)
 
     def copy_to(self, t: torch.Tensor) -> torch.Tensor:
-        """A tensor every "model" rank holds whole, entering work local to
+        """A tensor every "tp" rank holds whole, entering work local to
         each rank (e.g. qwen3's ``qk_norm`` gains on this rank's heads):
         the identity, its gradient, partial on each rank, SUM-reduced."""
-        return self._apply(_CopyTo, t, "model")
+        return self._apply(_CopyTo, t, "tp")
 
     def reduce_from(self, t: torch.Tensor,
-                    axis: str = "model") -> torch.Tensor:
+                    axis: str = "tp") -> torch.Tensor:
         """The SUM over ``axis`` of the ranks' partial ``t``; the gradient
         passes to each rank unchanged."""
         return self._apply(_ReduceFrom, t, axis)
 
     def scatter_from(self, t: torch.Tensor) -> torch.Tensor:
-        """:meth:`Comm.reduce_scatter` over "model" along the last dim;
+        """:meth:`Comm.reduce_scatter` over "tp" along the last dim;
         the gradient is all-gathered."""
-        return self._apply(_ScatterFrom, t, "model")
+        return self._apply(_ScatterFrom, t, "tp")
 
     def sum_one_hot(self, t: torch.Tensor) -> torch.Tensor:
-        """:meth:`Comm.sum_one_hot` over "model"; the gradient passes
+        """:meth:`Comm.sum_one_hot` over "tp"; the gradient passes
         unchanged."""
-        return self._apply(_SumOneHot, t, "model")
+        return self._apply(_SumOneHot, t, "tp")
 
     def mean_over_data(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean over "data" of a statistic of this rank's rows (equal
+        """The mean over "dp" of a statistic of this rank's rows (equal
         row counts): a SUM of ``t / size``, the gradient unchanged, so
         each rank's backward carries its 1/size share of the global
         mean's gradient."""
-        n = self._size["data"]
-        return t if n == 1 else self.reduce_from(t / n, "data")
+        n = self.size("dp")
+        return t if n == 1 else self.reduce_from(t / n, "dp")
 
     def max_over(self, axes):
         """MAX over the ranks that differ along ``axes`` (float32), or
         None where that is no rank but this one."""
-        axes = {a for a in axes if self._size[a] > 1}
+        axes = {a for a in self._ordered(axes) if self._mesh_size[a] > 1}
         if not axes:
             return None
         group = self.group_over(axes)
@@ -329,13 +392,38 @@ class ShardCtx:
             scatter: bool = False) -> "LinearShard":
         """The shard of a projection whose dense weight has the logical
         axes (``in_axis``, ``out_axis``). ``x_local``: a row-parallel
-        input arrives split over "model" already (else it is whole, and
-        the rank takes its K-slice). ``scatter``: a row-parallel output
-        is reduce-scattered, each rank getting its N/tp columns (else
+        input arrives split over "tp" already (else it is whole, and the
+        rank takes its K-slice). ``scatter``: a row-parallel output is
+        reduce-scattered, each rank getting its N/tp columns (else
         all-reduced whole)."""
         k_ax, n_ax = sharding.resolve(sharding.Spec(in_axis, out_axis),
                                       self.mesh)
-        return LinearShard(self, k_ax, n_ax, x_local, scatter)
+        return LinearShard(self, self.role_of(k_ax), self.role_of(n_ax),
+                           x_local, scatter)
+
+    def role_of(self, entry) -> str | None:
+        """The role of a resolved spec entry: "tp" (parallel), "fsdp"
+        (split, gathered at use) or None (replicated)."""
+        axes = sharding._axes(entry)
+        if not axes:
+            return None
+        for role in ("tp", "fsdp"):
+            if axes == self.axes(role):
+                return role
+        raise NotImplementedError(
+            f"a weight dim on {axes}: sharded execution takes 'tp' on "
+            f"{self.axes('tp')} and 'fsdp' on {self.axes('fsdp')}")
+
+    def place(self, specs):
+        """A spec tree with every "dp" entry replaced by the rows' mesh
+        axes of this context (see the class docstring), for
+        ``sharding.shard_tree``; other entries resolve as they are."""
+        if sharding.is_spec(specs):
+            dp = self.axes("dp")
+            return sharding.Spec(*((dp if len(dp) > 1 else (dp[0] if dp
+                                                             else None))
+                                   if e == "dp" else e for e in specs))
+        return {k: self.place(v) for k, v in specs.items()}
 
     def absmax_reducer(self, spec, dims):
         """MAX over the ranks holding pieces of the same block of a leaf
@@ -352,28 +440,28 @@ _WEIGHT_KEYS = ("w", "wq", "w_packed")
 @dataclasses.dataclass(frozen=True)
 class LinearShard:
     ctx: ShardCtx
-    k_axis: str | None       # mesh axis splitting K (in), or None
-    n_axis: str | None       # mesh axis splitting N (out), or None
+    k_axis: str | None       # role splitting K (in): "tp", "fsdp", None
+    n_axis: str | None       # role splitting N (out)
     x_local: bool = False
     scatter: bool = False
 
     @property
     def row(self) -> bool:
-        return self.k_axis == "model"
+        return self.k_axis == "tp"
 
     @property
     def local(self) -> bool:
-        """The rank's product differs from the other "model" ranks'."""
-        return "model" in (self.k_axis, self.n_axis)
+        """The rank's product differs from the other "tp" ranks'."""
+        return "tp" in (self.k_axis, self.n_axis)
 
     def weights(self, p: dict) -> dict:
-        """``p`` with its "data"-split dims all-gathered."""
+        """``p`` with its "fsdp"-split dims all-gathered."""
         out = dict(p)
         for key in _WEIGHT_KEYS:
             if key in out:
-                if self.k_axis == "data":
+                if self.k_axis == "fsdp":
                     out[key] = self.ctx.gather_weight(out[key], -2)
-                if self.n_axis == "data":
+                if self.n_axis == "fsdp":
                     out[key] = self.ctx.gather_weight(out[key], -1)
         return out
 
@@ -394,7 +482,7 @@ class LinearShard:
         absmax = x.abs().amax(-1, keepdim=True).to(torch.float32)
         if self.x_local:
             absmax = self.ctx.comm.all_reduce(absmax, "max",
-                                              self.ctx.group("model"))
+                                              self.ctx.group("tp"))
         else:
             x = self.ctx.take(x, -1)
         return _ROW_ROUTES[lp.route](self, p, x, absmax, lp, backend)
@@ -409,8 +497,8 @@ class LinearShard:
         ctx = self.ctx
         xq, wq = fake_quant_operands(
             p, x, lp,
-            ctx.max_over(("data", "model") if self.x_local else ("data",)),
-            ctx.max_over(("model",) if self.local else ()))
+            ctx.max_over(("dp", "tp") if self.x_local else ("dp",)),
+            ctx.max_over(("tp",) if self.local else ()))
         if not self.row:
             return xq @ wq
         if not self.x_local:
@@ -421,7 +509,7 @@ class LinearShard:
         """The SUM over "model" of the ranks' partial products: the rank's
         columns with ``scatter``, else the whole. A float sum carries its
         gradient (:func:`reduce_from` / :func:`scatter_from`)."""
-        comm, group = self.ctx.comm, self.ctx.group("model")
+        comm, group = self.ctx.comm, self.ctx.group("tp")
         if y.is_floating_point():
             return self.ctx.scatter_from(y) if self.scatter \
                 else self.ctx.reduce_from(y)

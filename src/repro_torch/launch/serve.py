@@ -66,13 +66,15 @@ def jit_serve_steps(cfg, plan, mesh, param_specs, cache_specs):
     PyTorch runs them eagerly. The steps take this rank's shards of
     the params and the cache; ``param_specs`` and ``cache_specs`` must be
     the trees they were placed by (``model.param_spec_tree``, converted
-    for the plan's mode, and ``model.cache_shard_spec_tree``: the cache's
-    KV heads over "model", not the reference's sequence split), else
-    ValueError. ``mesh=None`` gives the unsharded steps."""
+    for the plan's mode, and ``model.cache_shard_spec_tree(cfg, shard)``:
+    the cache's KV heads over "tp", or its sequence over "sp" where the
+    mesh's rules select that), else ValueError. ``mesh=None`` gives the
+    unsharded steps."""
     from repro_torch.api.session import entry_points
     if mesh is None:
         return make_serve_fns(cfg, plan)
     from repro_torch.dist.parallel import ShardCtx
+    shard = ShardCtx(mesh)
     want = M.param_spec_tree(cfg)
     if plan.mode in ("serve_int8", "serve_packed"):
         want = M.convert_specs_for_serving(M.param_skeleton(cfg), want,
@@ -80,10 +82,13 @@ def jit_serve_steps(cfg, plan, mesh, param_specs, cache_specs):
     if param_specs != want:
         raise ValueError("param_specs are not the model's spec tree for "
                          f"mode {plan.mode!r}")
-    if cache_specs != M.cache_shard_spec_tree(cfg):
+    if cache_specs != M.cache_shard_spec_tree(cfg, shard):
         raise ValueError("cache_specs must be model.cache_shard_spec_tree"
-                         "(cfg): the port places the KV cache by heads")
-    fns = entry_points(cfg, plan, ShardCtx(mesh))
+                         "(cfg, shard): the port places the KV cache by "
+                         "heads unless the mesh's rules split it")
+    fns = entry_points(cfg, plan, shard)
+    for fn in (fns["_prefill"], fns["_decode"]):
+        fn.shard = shard          # its Comm counts the collectives
     return fns["_prefill"], fns["_decode"]
 
 

@@ -156,22 +156,25 @@ def value_and_grad(params: dict, cfg, batch: dict, plan,
 
 
 def reduce_data_grads(grads: dict, specs: dict, shard) -> dict:
-    """Every gradient leaf that "data" does not split, SUM-reduced over
-    "data" (one all-reduce per dtype over the leaves laid end to end);
-    the "fsdp" leaves were reduce-scattered by their gathers' backward."""
-    if shard.size("data") == 1:
+    """Every gradient leaf SUM-reduced over the rows' ("dp") mesh axes
+    that do not split it (one all-reduce per dtype and set of axes over
+    the leaves laid end to end); the "fsdp" leaves were reduce-scattered
+    by their gathers' backward."""
+    if shard.size("dp") == 1:
         return grads
     flat = interop.flatten_with_paths(grads)
     spec_of = interop.flatten_with_paths(specs)
     out = dict(flat)
     by_dtype = {}
     for k, g in flat.items():
-        if "data" not in sharding.sharded_axes(spec_of[k], shard.mesh):
-            by_dtype.setdefault(g.dtype, []).append(k)
-    for keys in by_dtype.values():
+        axes = tuple(a for a in shard.axes("dp") if a not in
+                     sharding.sharded_axes(spec_of[k], shard.mesh))
+        if axes:
+            by_dtype.setdefault((g.dtype, axes), []).append(k)
+    for (_, axes), keys in by_dtype.items():
         summed = shard.comm.all_reduce(
             torch.cat([flat[k].reshape(-1) for k in keys]), "sum",
-            shard.group("data"))
+            shard.group_over(axes))
         for k, piece in zip(keys, summed.split([flat[k].numel()
                                                 for k in keys])):
             out[k] = piece.reshape(flat[k].shape)
@@ -206,7 +209,7 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig,
     def rows(mb: dict) -> dict:
         if shard is None:
             return mb
-        return {k: sharding.shard_leaf(v, bspecs[k], shard.mesh)
+        return {k: sharding.shard_leaf(v, shard.place(bspecs[k]), shard.mesh)
                 for k, v in mb.items()}
 
     def train_step(state: dict, batch: dict) -> tuple:

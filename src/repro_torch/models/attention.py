@@ -39,7 +39,17 @@ on the local heads only, have their gradients SUM-reduced over "model"
 "model" (:func:`cache_shard_specs`), where the reference's
 :func:`cache_specs` split the sequence ("sp", flash-decoding): with the
 heads local a decode step needs no softmax combine across ranks and stays
-bit-exact.
+bit-exact. Where the mesh's rules select the reference's split
+(:func:`seq_split`: ``decode_pin_seq``, an "sp" override, or heads that
+do not split over "tp"), every rank holds every KV head: its q heads
+pick theirs in prefill and training, and a decode step writes the new
+K/V on the rank owning the slot, attends every head (q gathered over
+"tp") over the rank's slots and merges the parts over "sp"
+(:func:`decode_attend_split`). q heads that do not split over "tp" are
+gathered whole, and every rank runs every head's attention
+(:func:`placement`). ``kv_col_parallel`` / ``kv_replicated``
+place the K/V projections as the reference's do (:func:`kv_axes`);
+``mask_cache_update`` writes the cache by an elementwise ``where``.
 
 Cross-attention (llama-3.2-vision's image layers): the prefill projects
 the image embeddings' K/V into the layer's cache
@@ -51,6 +61,7 @@ cache, which it leaves unchanged.
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import torch
 
@@ -75,11 +86,16 @@ class AttnConfig:
     qk_norm: bool = False
     window: int | None = None          # sliding-window size (None = full)
     flash_vjp: bool = False            # memory-efficient custom backward
+    kv_col_parallel: bool = False      # K/V projections column-parallel
+    decode_pin_seq: bool = False       # the cache split by sequence ("sp")
     gqa_decode: bool = False           # the reference's; no route here
+    mask_cache_update: bool = False    # where()-based cache write
+    kv_replicated: bool = False        # K/V projections replicated over tp
     attn_int8: bool = False            # integer QK/PV on the int8 cache
+    block: int = 512                   # training q/kv block size
+    causal: bool = True                # the reference's (self layers are)
     cross: bool = False                # cross-attention (K/V from images)
     kv_cache_bits: int = 16            # 16 = bf16 cache; 8 = int8 cache
-    block: int = 512                   # training q/kv block size
 
 
 def init(cfg: AttnConfig, generator: torch.Generator,
@@ -100,57 +116,133 @@ def init(cfg: AttnConfig, generator: torch.Generator,
 WQ_AXES, WKV_AXES, WO_AXES = ("fsdp", "tp"), ("tp", "fsdp"), ("tp", "fsdp")
 
 
+def kv_axes(cfg: AttnConfig) -> tuple:
+    """(in, out) axes of ``wk`` / ``wv``: row-parallel by default,
+    column-parallel with ``kv_col_parallel``, replicated over "tp" with
+    ``kv_replicated`` (the reference's choices)."""
+    if cfg.kv_replicated:
+        return "fsdp", None
+    return ("fsdp", "tp") if cfg.kv_col_parallel else WKV_AXES
+
+
 def param_specs(cfg: AttnConfig) -> dict:
     """Logical specs of :func:`init`'s tree."""
-    s = {"wq": L.linear_specs(*WQ_AXES), "wk": L.linear_specs(*WKV_AXES),
-         "wv": L.linear_specs(*WKV_AXES), "wo": L.linear_specs(*WO_AXES)}
+    kv = L.linear_specs(*kv_axes(cfg))
+    s = {"wq": L.linear_specs(*WQ_AXES), "wk": kv, "wv": dict(kv),
+         "wo": L.linear_specs(*WO_AXES)}
     if cfg.qk_norm:
         s["qnorm"], s["knorm"] = L.norm_specs(), L.norm_specs()
     return s
 
 
-def local_cfg(cfg: AttnConfig, shard) -> AttnConfig:
+def seq_split(cfg, shard) -> bool:
+    """Whether a mesh holds the KV cache split by sequence over "sp" (the
+    reference's flash-decoding layout) rather than by KV heads over "tp":
+    with ``decode_pin_seq``, where "sp" resolves elsewhere than "tp" (a
+    rule override, e.g. ``long_500k``'s), or where the KV heads or the q
+    heads do not split over "tp". ``cfg``: a model's or an attention
+    layer's."""
+    if shard is None:
+        return False
+    tp = shard.size("tp")
+    return bool(cfg.decode_pin_seq or shard.axes("sp") != shard.axes("tp")
+                or cfg.n_kv_heads % tp or cfg.n_heads % tp)
+
+
+class Place(typing.NamedTuple):
+    """Where a mesh puts an attention layer's heads: ``split``, every KV
+    head on each rank and the cache split by sequence
+    (:func:`seq_split`); ``whole``, every q head on each rank too (q heads
+    that do not split over "tp", e.g. ``serve_2d_tp``'s 256-way "tp": the
+    projections stay split, the attention runs whole on every rank)."""
+    split: bool = False
+    whole: bool = False
+
+
+def placement(cfg: AttnConfig, shard) -> Place:
+    if shard is None:
+        return Place()
+    return Place(seq_split(cfg, shard),
+                 bool(cfg.n_heads % shard.size("tp")))
+
+
+def local_cfg(cfg: AttnConfig, shard, place: Place) -> AttnConfig:
     """``cfg`` with this rank's q and KV heads (``cfg`` itself without a
-    mesh)."""
+    mesh): every KV head where ``place.split``, every q head where
+    ``place.whole``."""
     if shard is None:
         return cfg
-    return dataclasses.replace(cfg, n_heads=shard.local(cfg.n_heads),
-                               n_kv_heads=shard.local(cfg.n_kv_heads))
+    return dataclasses.replace(
+        cfg, n_heads=cfg.n_heads if place.whole else shard.local(cfg.n_heads),
+        n_kv_heads=cfg.n_kv_heads if place.split
+        else shard.local(cfg.n_kv_heads))
 
 
-def _kv_proj(p, x, plan, name, shard):
-    """K or V of ``x``: on a mesh the rank's KV heads' columns of the
-    row-parallel product, reduce-scattered over "model"."""
-    return L.linear_apply(p, x, plan, name, lin(shard, *WKV_AXES,
-                                                scatter=True))
+def _kv_proj(p, x, plan, name, cfg: AttnConfig, shard, place: Place):
+    """K or V of ``x``: on a mesh the rank's KV heads (a cache placed by
+    heads), or every KV head (``place.split``), from the projection as
+    :func:`kv_axes` places it: row-parallel partial products
+    reduce-scattered or all-reduced, column-parallel columns taken or
+    all-gathered, a replicated product sliced or kept. Every KV head held
+    whole and used by the rank's own q heads only has a partial gradient
+    (:meth:`~repro_torch.dist.parallel.ShardCtx.copy_to` sums it); with
+    every q head on every rank it is whole already."""
+    if shard is None:
+        return L.linear_apply(p, x, plan, name)
+    in_ax, out_ax = kv_axes(cfg)
+    split = place.split
+    row = in_ax == "tp"
+    y = L.linear_apply(p, x, plan, name, lin(shard, in_ax, out_ax,
+                                             scatter=row and not split))
+    if out_ax == "tp" and split:
+        y = shard.gather(y, -1)
+    if split:
+        return y if place.whole else shard.copy_to(y)
+    if row or out_ax == "tp":
+        return y
+    return shard.take(shard.copy_to(y), -1)
 
 
-def _o_proj(p, out, plan, shard):
+def _o_proj(p, out, plan, shard, whole: bool = False):
+    """The output projection of this rank's heads, or of every head
+    (``whole``: heads whole on every rank, or a decode over a
+    sequence-split cache)."""
     return L.linear_apply(p["wo"], out, plan, "attn_o",
-                          lin(shard, *WO_AXES, x_local=True))
+                          lin(shard, *WO_AXES, x_local=not whole))
 
 
-def _head_local(gamma, shard):
+def _head_local(gamma, shard, place: Place):
     """A replicated ``qk_norm`` gain applied to this rank's heads only:
-    its gradient is partial on each rank and SUM-reduced over "model"."""
-    return gamma if shard is None else shard.copy_to(gamma)
+    its gradient is partial on each rank and SUM-reduced over "tp"
+    (whole on every rank where the rank holds every q head)."""
+    if shard is None or place.whole:
+        return gamma
+    return shard.copy_to(gamma)
+
+
+def _q_proj(p, x, plan, cfg: AttnConfig, shard, place: Place):
+    """q of x [..., d] as [..., H, D] (the rank's heads): column-parallel,
+    its columns all-gathered where the rank holds every head."""
+    q = L.linear_apply(p["wq"], x, plan, "attn_q", lin(shard, *WQ_AXES))
+    if place.whole:
+        q = shard.gather(q, -1)
+    return q.reshape(*x.shape[:-1], cfg.n_heads, cfg.d_head)
 
 
 def _project_qkv(p, cfg: AttnConfig, x, positions, plan, kv_x=None,
-                 shard=None):
+                 shard=None, place: Place = Place()):
     """q from x, K and V from ``kv_x`` (a cross layer's image embeddings;
     x itself when None); RMSNorm'd with ``qk_norm``; roped unless
     cross. ``cfg`` carries the rank's heads on a mesh."""
     kv_x = x if kv_x is None else kv_x
-    q = L.linear_apply(p["wq"], x, plan, "attn_q", lin(shard, *WQ_AXES))
-    q = q.reshape(*x.shape[:-1], cfg.n_heads, cfg.d_head)
-    k = _kv_proj(p["wk"], kv_x, plan, "attn_k", shard)
+    q = _q_proj(p, x, plan, cfg, shard, place)
+    k = _kv_proj(p["wk"], kv_x, plan, "attn_k", cfg, shard, place)
     k = k.reshape(*kv_x.shape[:-1], cfg.n_kv_heads, cfg.d_head)
-    v = _kv_proj(p["wv"], kv_x, plan, "attn_v", shard)
+    v = _kv_proj(p["wv"], kv_x, plan, "attn_v", cfg, shard, place)
     v = v.reshape(*kv_x.shape[:-1], cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
-        q = L.rms_norm(q, _head_local(p["qnorm"]["g"], shard))
-        k = L.rms_norm(k, _head_local(p["knorm"]["g"], shard))
+        q = L.rms_norm(q, _head_local(p["qnorm"]["g"], shard, place))
+        k = L.rms_norm(k, _head_local(p["knorm"]["g"], shard, place))
     if not cfg.cross:
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
@@ -161,6 +253,20 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return k
     return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def _kv_for_q(k: torch.Tensor, cfg: AttnConfig, shard,
+              place: Place) -> torch.Tensor:
+    """K or V [..., H_kv, D] with one head per (local) q head: repeated
+    over each group; where the rank holds every KV head for its own q
+    heads only (``place.split`` without ``place.whole``), the KV heads of
+    those q heads picked out."""
+    if not place.split or place.whole:
+        return _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
+    n_rep = cfg.n_heads * shard.size("tp") // cfg.n_kv_heads
+    q_heads = shard.rank("tp") * cfg.n_heads + torch.arange(
+        cfg.n_heads, device=k.device)
+    return k.index_select(2, q_heads // n_rep)
 
 
 def _block_mask(q_pos, k_pos, causal, window) -> torch.Tensor:
@@ -353,9 +459,12 @@ def cache_specs(cfg: AttnConfig) -> dict:
     return s
 
 
-def cache_shard_specs(cfg: AttnConfig) -> dict:
+def cache_shard_specs(cfg: AttnConfig, split: bool = False) -> dict:
     """Where the port places the cache on a mesh: rows over "dp", KV heads
-    over "tp" (a port difference by design; module docstring)."""
+    over "tp" (a port difference by design; module docstring); with
+    ``split`` (:func:`seq_split`) the reference's :func:`cache_specs`."""
+    if split:
+        return cache_specs(cfg)
     s = {"k": Spec("dp", None, "tp", None), "v": Spec("dp", None, "tp", None),
          "slot_pos": Spec("dp", None)}
     if cfg.kv_cache_bits == 8:
@@ -383,25 +492,66 @@ def _cache_entries(cache: dict, cfg: AttnConfig, k_new, v_new) -> dict:
     return {"k": k_new.to(cache["k"].dtype), "v": v_new.to(cache["v"].dtype)}
 
 
-def cache_update(cache: dict, cfg: AttnConfig, k_new, v_new, pos) -> dict:
+def _bcast(mask: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """A [B|1, S] or [B|1] mask shaped to broadcast against ``val``."""
+    return mask.reshape(mask.shape + (1,) * (val.ndim - mask.ndim))
+
+
+def cache_update(cache: dict, cfg: AttnConfig, k_new, v_new, pos,
+                 shard=None) -> dict:
     """Write one token's K/V (k_new, v_new: [B, 1, H_kv, D]) at absolute
     position ``pos`` (slot ``pos % S_cache``), in place; an int8 cache
-    stores them quantized, with their scales. ``pos``: an int (the whole
-    batch at one position) or an int [B] tensor (each row at its own
-    position)."""
-    s_cache = cache["k"].shape[1]
+    stores them quantized, with their scales. ``pos``: an int or a 0-d
+    int tensor (the whole batch at one position; the tensor is never read
+    on the host) or an int [B] tensor (each row at its own position).
+
+    ``mask_cache_update``: the reference's elementwise write, a ``where``
+    over every slot against the slot index. ``shard`` is given for a
+    sequence-split cache only: the cache holds this rank's S_cache / sp
+    slots, and only the rank owning the slot writes it (a masked write of
+    one slot on the others)."""
+    s_loc = cache["k"].shape[1]
+    split = shard is not None
+    s_cache = s_loc * shard.size("sp") if split else s_loc
+    lo = shard.rank("sp") * s_loc if split else 0
     new = _cache_entries(cache, cfg, k_new[:, 0], v_new[:, 0])
-    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-        rows = torch.arange(pos.shape[0], device=pos.device)
-        slot = (pos % s_cache).long()
+    b = k_new.shape[0]
+    is_t = isinstance(pos, torch.Tensor)
+    new["slot_pos"] = (pos.to(torch.int32).expand(b) if is_t else
+                       torch.full((b,), pos, dtype=torch.int32,
+                                  device=k_new.device))
+    per_row = is_t and pos.ndim == 1
+    if cfg.mask_cache_update:
+        slot = pos % s_cache
+        slots = lo + torch.arange(s_loc, device=k_new.device)
+        hit = slots[None, :] == (slot[:, None] if per_row else slot)
         for key, val in new.items():
-            cache[key][rows, slot] = val
-        cache["slot_pos"][rows, slot] = pos.to(torch.int32)
+            cache[key].copy_(torch.where(_bcast(hit, cache[key]),
+                                         val[:, None], cache[key]))
         return cache
-    slot = pos % s_cache
-    for key, val in new.items():
-        cache[key][:, slot] = val
-    cache["slot_pos"][:, slot] = pos
+    if is_t:
+        local = (pos % s_cache).long().reshape(-1)       # [B] or [1]
+        if split:
+            local = local - lo
+            own = (local >= 0) & (local < s_loc)
+            local = local.clamp(0, s_loc - 1)
+        rows = torch.arange(b, device=pos.device)
+        for key, val in new.items():
+            if not per_row:
+                val = val[:, None]
+            if split:
+                old = cache[key][rows, local] if per_row \
+                    else cache[key].index_select(1, local)
+                val = torch.where(_bcast(own, val), val, old)
+            if per_row:
+                cache[key][rows, local] = val
+            else:
+                cache[key].index_copy_(1, local, val)
+        return cache
+    local = pos % s_cache - lo
+    if 0 <= local < s_loc:
+        for key, val in new.items():
+            cache[key][:, local] = val
     return cache
 
 
@@ -526,6 +676,114 @@ def _decode_attend_gqa_int8(q, cache, cfg: AttnConfig, pos):
 
 
 # ---------------------------------------------------------------------------
+# Decode over a sequence-split cache (flash-decoding): each rank attends
+# over its own slots, and one MAX and one SUM over "sp" merge the parts.
+# ---------------------------------------------------------------------------
+
+def _partial_float(q, cache: dict, cfg: AttnConfig, pos) -> tuple:
+    """(m, l, o) over this rank's slots, the float route: the largest
+    logit, the sum of exp(logit - m) and the unnormalised exp-weighted
+    sum of V, each [B, G, R, 1 | D]."""
+    kt, vt = _kv_float(cache, cfg)
+    b, _, hq, d = q.shape
+    g = cfg.n_kv_heads
+    qt = q.reshape(b, g, hq // g, d).to(torch.float32) * d ** -0.5
+    logits = (qt[:, :, :, None, :] * kt[:, :, None]).sum(-1)  # [B, G, R, S]
+    valid = _valid_slots(cache, cfg, pos)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p_ = torch.exp(logits - m)
+    o = (p_[:, :, :, None, :] * vt[:, :, None]).sum(-1)       # [B, G, R, D]
+    return m, p_.sum(-1, keepdim=True), o
+
+
+def _partial_int8(q, cache: dict, cfg: AttnConfig, pos) -> tuple:
+    """(m, l, o) over this rank's slots, the ``attn_int8`` route: exact
+    int32 QK and PV products on the stored int8 values, the local
+    ``exp(logit - m) * v_scale`` quantized under its own local max (a
+    shard's grid, so the merged result is held to the unsharded one by
+    tolerance)."""
+    b, _, hq, d = q.shape
+    g = cfg.n_kv_heads
+    r = hq // g
+    kq = cache["k"].permute(0, 2, 1, 3)
+    vq = cache["v"].permute(0, 2, 1, 3)
+    k_scale = cache["k_scale"].permute(0, 2, 1)
+    v_scale = cache["v_scale"].permute(0, 2, 1)
+    qf = q.reshape(b, g, r, d).to(torch.float32) * d ** -0.5
+    q_scale = torch.clamp_min(
+        true_div(torch.amax(qf.abs(), dim=-1, keepdim=True), 127.0), 1e-20)
+    qi = torch.clamp(torch.round(qf / q_scale), -127, 127).to(torch.int8)
+    logits = int8_dot(qi, kq.transpose(-1, -2)).to(torch.float32) \
+        * q_scale * k_scale[:, :, None, :]
+    valid = _valid_slots(cache, cfg, pos)
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p_ = torch.exp(logits - m)
+    pv = p_ * v_scale[:, :, None, :]
+    p_scale = torch.clamp_min(
+        true_div(torch.amax(pv, dim=-1, keepdim=True), 127.0), 1e-20)
+    pi = torch.clamp(torch.round(pv / p_scale), 0, 127).to(torch.int8)
+    o = int8_dot(pi, vq).to(torch.float32) * p_scale
+    return m, p_.sum(-1, keepdim=True), o
+
+
+def decode_attend_split(q, cache: dict, cfg: AttnConfig, pos,
+                        shard) -> torch.Tensor:
+    """q: every q head [B, 1, Hq, D] against this rank's slots of a
+    sequence-split cache; returns [B, 1, Hq, D], the attention over the
+    whole cache on every rank of "sp". Each rank takes its local max m,
+    exp-sum l and exp-weighted V sum o (float32; integer products with
+    ``attn_int8``), then M = MAX(m) and one SUM of [o e^(m - M), l
+    e^(m - M)] over "sp", and o / l. A rank whose slots are all masked
+    contributes e^(-1e30 - M) = 0. The sums run in another order than
+    :func:`decode_attend`'s, so the result is held to it by tolerance."""
+    if cfg.attn_int8 and cfg.kv_cache_bits == 8:
+        m, l, o = _partial_int8(q, cache, cfg, pos)
+    else:
+        m, l, o = _partial_float(q, cache, cfg, pos)
+    group = shard.group("sp")
+    mx = shard.comm.all_reduce(m.clone(), "max", group)   # reduced in place
+    a = torch.exp(m - mx)
+    nd = shard.comm.all_reduce(torch.cat([o * a, l * a], dim=-1), "sum",
+                               group)
+    b, _, hq, d = q.shape
+    out = nd[..., :d] / nd[..., d:]
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def _attend(q, cache: dict, cfg: AttnConfig, pos, shard,
+            place: Place) -> torch.Tensor:
+    """A decode step's attention of this rank's q heads: over its own
+    cache (unsharded, or placed by heads); over a sequence-split cache,
+    every q head (gathered over "tp" unless the rank holds them all)
+    against this rank's slots, merged over "sp", so the result holds
+    every head."""
+    if not place.split:
+        return decode_attend(q, cache, cfg, pos)
+    if not place.whole:
+        q = shard.gather(q, 2)
+    return decode_attend_split(q, cache, cfg, pos, shard)
+
+
+def _owned_runs(first: int, end: int, s_cache: int, lo: int, s_loc: int):
+    """(position, local slot, count) runs of the positions [first, end)
+    whose ring slot ``p % s_cache`` lies in this rank's [lo, lo + s_loc):
+    host arithmetic on the prompt's positions, no tensor read."""
+    runs = []
+    for p_ in range(first, end):
+        local = p_ % s_cache - lo
+        if not 0 <= local < s_loc:
+            continue
+        if runs and runs[-1][0] + runs[-1][2] == p_ \
+                and runs[-1][1] + runs[-1][2] == local:
+            runs[-1][2] += 1
+        else:
+            runs.append([p_, local, 1])
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # Layer-level entry points
 # ---------------------------------------------------------------------------
 
@@ -537,11 +795,12 @@ def apply_train(p, cfg: AttnConfig, x, positions, plan, kv_x=None,
     window covers the sequence (or that has none) takes
     :class:`FlashAttention`; a short window keeps autograd's backward,
     whose saved blocks are span-sized already, as the reference chooses."""
-    cfg = local_cfg(cfg, shard)
+    place = placement(cfg, shard)
+    cfg = local_cfg(cfg, shard, place)
     q, k, v = _project_qkv(p, cfg, x, positions, plan,
-                           kv_x=kv_x if cfg.cross else None, shard=shard)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+                           kv_x=kv_x if cfg.cross else None, shard=shard,
+                           place=place)
+    k, v = _kv_for_q(k, cfg, shard, place), _kv_for_q(v, cfg, shard, place)
     causal = not cfg.cross
     win = None if cfg.cross else cfg.window
     if cfg.flash_vjp and (win is None or win >= x.shape[1]):
@@ -550,62 +809,79 @@ def apply_train(p, cfg: AttnConfig, x, positions, plan, kv_x=None,
         out = chunked_attention(q, k, v, causal=causal, window=win,
                                 bq=cfg.block, bk=cfg.block)
     out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.d_head)
-    return _o_proj(p, out, plan, shard)
+    return _o_proj(p, out, plan, shard, whole=place.whole)
 
 
 def apply_prefill(p, cfg: AttnConfig, x, positions, plan, cache,
                   shard=None):
-    """Prefill: full forward over x [B, S, d] (positions [S]), and the
-    cache filled with the last S_cache tokens' K/V. Returns (out, cache)."""
-    cfg = local_cfg(cfg, shard)
-    q, k, v = _project_qkv(p, cfg, x, positions, plan, shard=shard)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                            causal=True, window=cfg.window)
+    """Prefill: full forward over x [B, S, d] (positions [S], the prompt's
+    0..S-1), and the cache filled with the last S_cache tokens' K/V (on a
+    sequence-split cache, those whose slots this rank holds). Returns
+    (out, cache)."""
+    place = placement(cfg, shard)
+    cfg = local_cfg(cfg, shard, place)
+    q, k, v = _project_qkv(p, cfg, x, positions, plan, shard=shard,
+                           place=place)
+    out = chunked_attention(q, _kv_for_q(k, cfg, shard, place),
+                            _kv_for_q(v, cfg, shard, place), causal=True,
+                            window=cfg.window)
     out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.d_head)
+    out = _o_proj(p, out, plan, shard, whole=place.whole)
     s = x.shape[1]
-    s_cache = cache["k"].shape[1]
-    take = min(s, s_cache)
+    s_loc = cache["k"].shape[1]
+    if place.split:
+        s_cache = s_loc * shard.size("sp")
+        take = min(s, s_cache)
+        entries = _cache_entries(cache, cfg, k[:, s - take:], v[:, s - take:])
+        for p0, l0, n in _owned_runs(s - take, s, s_cache,
+                                     shard.rank("sp") * s_loc, s_loc):
+            i0 = p0 - (s - take)
+            for key, val in entries.items():
+                cache[key][:, l0:l0 + n] = val[:, i0:i0 + n]
+            cache["slot_pos"][:, l0:l0 + n] = positions[p0:p0 + n]
+        return out, cache
+    take = min(s, s_loc)
     pos_tail = positions[s - take:]
-    slots = (pos_tail % s_cache).long()
+    slots = (pos_tail % s_loc).long()
     for key, val in _cache_entries(cache, cfg, k[:, s - take:],
                                    v[:, s - take:]).items():
         cache[key][:, slots] = val
     cache["slot_pos"][:, slots] = pos_tail.to(torch.int32)
-    return _o_proj(p, out, plan, shard), cache
+    return out, cache
 
 
 def apply_decode(p, cfg: AttnConfig, x, pos, plan, cache, shard=None):
-    """One-token decode. x: [B, 1, d]; ``pos`` an int or an int [B]
-    tensor. Returns (out [B, 1, d], cache)."""
-    cfg = local_cfg(cfg, shard)
-    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-        positions = pos[:, None]                       # [B, 1]
+    """One-token decode. x: [B, 1, d]; ``pos`` an int, a 0-d int tensor
+    (never read on the host) or an int [B] tensor. Returns (out [B, 1, d],
+    cache)."""
+    place = placement(cfg, shard)
+    cfg = local_cfg(cfg, shard, place)
+    whole = place.whole or place.split
+    if isinstance(pos, torch.Tensor):
+        positions = pos[:, None] if pos.ndim == 1 else pos.reshape(1)
     else:
         positions = torch.arange(int(pos), int(pos) + 1, device=x.device)
     b = x.shape[0]
-    q = L.linear_apply(p["wq"], x, plan, "attn_q", lin(shard, *WQ_AXES))
-    q = q.reshape(b, 1, cfg.n_heads, cfg.d_head)
+    q = _q_proj(p, x, plan, cfg, shard, place)
     if cfg.cross:
         # The image K/V were projected into the cache at prefill.
         if cfg.qk_norm:
             q = L.rms_norm(q, p["qnorm"]["g"])
-        out = decode_attend(q, cache, cfg, pos)
-        out = out.reshape(b, 1, cfg.n_heads * cfg.d_head)
-        return _o_proj(p, out, plan, shard), cache
-    k = _kv_proj(p["wk"], x, plan, "attn_k", shard)
+        out = _attend(q, cache, cfg, pos, shard, place).reshape(b, 1, -1)
+        return _o_proj(p, out, plan, shard, whole=whole), cache
+    k = _kv_proj(p["wk"], x, plan, "attn_k", cfg, shard, place)
     k = k.reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
-    v = _kv_proj(p["wv"], x, plan, "attn_v", shard)
+    v = _kv_proj(p["wv"], x, plan, "attn_v", cfg, shard, place)
     v = v.reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
-        q = L.rms_norm(q, _head_local(p["qnorm"]["g"], shard))
-        k = L.rms_norm(k, _head_local(p["knorm"]["g"], shard))
+        q = L.rms_norm(q, _head_local(p["qnorm"]["g"], shard, place))
+        k = L.rms_norm(k, _head_local(p["knorm"]["g"], shard, place))
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    cache = cache_update(cache, cfg, k, v, pos)
-    out = decode_attend(q, cache, cfg, pos)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.d_head)
-    return _o_proj(p, out, plan, shard), cache
+    cache = cache_update(cache, cfg, k, v, pos,
+                         shard if place.split else None)
+    out = _attend(q, cache, cfg, pos, shard, place).reshape(b, 1, -1)
+    return _o_proj(p, out, plan, shard, whole=whole), cache
 
 
 # ---------------------------------------------------------------------------
@@ -616,15 +892,19 @@ def init_cross_cache(p, cfg: AttnConfig, img_embeds, plan, cache,
                      shard=None) -> dict:
     """Project the image embeddings [B, N, d] into a cross layer's cache,
     in place: ``k`` and ``v`` [B, N, H_kv, D] bf16 (K RMSNorm'd with
-    ``qk_norm``), ``slot_pos`` zeros (every slot valid). Returns it."""
-    cfg = local_cfg(cfg, shard)
+    ``qk_norm``), ``slot_pos`` zeros (every slot valid); on a
+    sequence-split cache this rank's N / sp image tokens. Returns it."""
+    place = placement(cfg, shard)
+    cfg = local_cfg(cfg, shard, place)
     b, n, _ = img_embeds.shape
-    k = _kv_proj(p["wk"], img_embeds, plan, "attn_k", shard).reshape(
-        b, n, cfg.n_kv_heads, cfg.d_head)
-    v = _kv_proj(p["wv"], img_embeds, plan, "attn_v", shard).reshape(
-        b, n, cfg.n_kv_heads, cfg.d_head)
+    k = _kv_proj(p["wk"], img_embeds, plan, "attn_k", cfg, shard,
+                 place).reshape(b, n, cfg.n_kv_heads, cfg.d_head)
+    v = _kv_proj(p["wv"], img_embeds, plan, "attn_v", cfg, shard,
+                 place).reshape(b, n, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         k = L.rms_norm(k, p["knorm"]["g"])
+    if place.split:
+        k, v = shard.take(k, 1, "sp"), shard.take(v, 1, "sp")
     cache["k"].copy_(k.to(torch.bfloat16))
     cache["v"].copy_(v.to(torch.bfloat16))
     cache["slot_pos"].zero_()

@@ -20,10 +20,12 @@ baseline), ``serve_packed`` stores the bit-packed planes.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.api import plan as planlib
 from repro_torch.core import bitpack, quantize as q
@@ -84,10 +86,14 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+@functools.cache
 def _as_dtype(v: float, dtype: torch.dtype) -> float:
     """``v`` rounded to ``dtype``, as the reference's weakly typed
-    constants are, so a product with it rounds once, on any device."""
-    return torch.tensor(v, dtype=dtype).item()
+    constants are, so a product with it rounds once, on any device.
+    Rounded by a host tensor outside every dispatch mode (a fake-tensor
+    trace, the op analyzer), once per constant."""
+    with _disable_current_modes():
+        return torch.tensor(v, dtype=dtype).item()
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -155,7 +161,7 @@ def embed_apply(p: dict, tokens: torch.Tensor, shard=None) -> torch.Tensor:
         return p["emb"][tokens]
     emb = shard.gather_weight(p["emb"], 1)
     v = emb.shape[0]
-    lo = shard.rank("model") * v
+    lo = shard.rank("tp") * v
     local = (tokens >= lo) & (tokens < lo + v)
     rows = emb[torch.where(local, tokens - lo, 0)]
     rows = torch.where(local[..., None], rows, torch.zeros_like(rows))

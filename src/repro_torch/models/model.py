@@ -28,7 +28,8 @@ layouts'. On a mesh (``shard``) :func:`prefill` and :func:`decode_step`
 take this rank's batch rows and shards: the embedding vocab-parallel,
 every block as its specs place it, the head column-parallel with its
 logits all-gathered; the cache is placed by :func:`cache_shard_spec_tree`
-(KV heads over "model", not the reference's sequence split).
+(KV heads over "model", or the reference's sequence split where the
+mesh's rules select it).
 :func:`forward_train` and :func:`loss_fn` take the same placements (the
 logits of the rank's rows, the whole vocab: B_local x S x V float32 a
 rank), and the loss is the global batch's mean.
@@ -108,10 +109,16 @@ def cache_spec_tree(cfg: T.ModelConfig) -> dict:
             for i, spec in enumerate(cfg.pattern)}
 
 
-def cache_shard_spec_tree(cfg: T.ModelConfig) -> dict:
+def cache_shard_spec_tree(cfg: T.ModelConfig, shard=None) -> dict:
     """Where a meshed session places the cache: rows over "dp", KV heads
-    and SSM heads over "tp" (ROADMAP: port differences by design)."""
-    return {f"p{i}": _stack_specs(T.block_cache_shard_specs(cfg, spec))
+    and SSM heads over "tp" (ROADMAP: port differences by design); where
+    ``shard``'s mesh splits the attention caches by sequence
+    (``attention.seq_split``: ``decode_pin_seq``, an "sp" override, or KV
+    heads that do not split over "tp"), their sequence over "sp" as
+    :func:`cache_spec_tree` places it."""
+    split = T.attn.seq_split(cfg, shard)
+    return {f"p{i}": _stack_specs(T.block_cache_shard_specs(cfg, spec,
+                                                            split))
             for i, spec in enumerate(cfg.pattern)}
 
 
@@ -270,12 +277,11 @@ def prefill(params, cfg: T.ModelConfig, tokens, cache, plan,
 def decode_step(params, cfg: T.ModelConfig, token, pos, cache, plan,
                 shard=None):
     """One decode step. token: int [B]; pos: the absolute position, an int
-    (or 0-d tensor) for the whole batch or an int [B] tensor per row.
-    Returns (logits [B, V], cache). Row b of the result is written not to
-    depend on the other rows (``attention.decode_attend``: shown bit for
-    bit on an H100 at the sizes its docstring names)."""
-    if isinstance(pos, torch.Tensor) and pos.ndim == 0:
-        pos = int(pos)
+    or a 0-d int tensor (never read on the host) for the whole batch, or
+    an int [B] tensor per row. Returns (logits [B, V], cache). Row b of
+    the result is written not to depend on the other rows
+    (``attention.decode_attend``: shown bit for bit on an H100 at the
+    sizes its docstring names)."""
     x = L.embed_apply(params["embed"], token[:, None], shard).to(
         torch.bfloat16)
     for spec, p, c in _layers(params, cache, cfg):
@@ -410,6 +416,67 @@ def convert_tree(params: dict, policy, mode: str, root: tuple = (),
         return out
 
     return walk(params, tuple(root))
+
+
+def convert_structs_for_serving(params: dict, policy, mode: str) -> dict:
+    """The keys, shapes and dtypes of :func:`convert_params_for_serving`'s
+    tree, on fake tensors (the reference's ``convert_structs_for_serving``):
+    group 0 of each stacked block is converted, with one expert of each
+    expert tensor and a few columns of each linear, and stands for every
+    group, expert and column, so a deep or wide model's conversion costs
+    a few small conversions' operations."""
+    from repro_torch import interop
+    cols = 8
+
+    def resized(dim, n):
+        def fn(t):
+            shape = list(t.shape)
+            shape[dim] = n
+            return torch.empty(shape, dtype=t.dtype, device=t.device)
+        return fn
+
+    def narrow(p, path=()):
+        if not isinstance(p, dict):
+            return p
+        if _is_linear(p, path):
+            return dict(p, w=p["w"].narrow(-1, 0, min(cols, p["w"].shape[-1])))
+        return {k: v.narrow(0, 0, 1) if k in _EXPERT_KEYS and getattr(
+            v, "ndim", 0) == 3 else narrow(v, path + (k,))
+            for k, v in p.items()}
+
+    def widen(conv, dense, path=()):
+        if isinstance(dense, dict) and _is_linear(dense, path):
+            n = dense["w"].shape[-1]
+            return {k: resized(-1, n)(v) if k in ("wq", "w_packed") else v
+                    for k, v in conv.items()}
+        out = {}
+        for k, v in conv.items():
+            d = dense.get(k) if isinstance(dense, dict) else None
+            if k in _EXPERT_KEYS and getattr(d, "ndim", 0) == 3:
+                out[k] = interop.tree_map(resized(0, d.shape[0]), v)
+            elif isinstance(v, dict):
+                out[k] = widen(v, d, path + (k,))
+            else:
+                out[k] = v
+        return out
+
+    def convert(tree, root=()):
+        return widen(convert_tree(narrow(tree, root), policy, mode,
+                                  root=root), tree, root)
+
+    out = {}
+    for k, v in params.items():
+        if k != "blocks":
+            out[k] = convert(v, (k,))
+            continue
+        out[k] = {}
+        for pk, stacked in v.items():
+            n_groups = _leaves(stacked)[0].shape[0]
+            one = convert(_index_tree(stacked, 0))
+            out[k][pk] = interop.tree_map(
+                lambda t: torch.empty((n_groups,) + tuple(t.shape),
+                                      dtype=t.dtype, device=t.device), one)
+    return out
 
 
 def convert_params_for_serving(params: dict, policy, mode: str,

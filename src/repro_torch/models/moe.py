@@ -259,7 +259,7 @@ def apply_train(p, cfg: MoEConfig, x: torch.Tensor, plan) -> tuple:
 
 def _gathered_experts(w, axes: tuple, shard):
     """An expert leaf (raw [E, din, dout], or its ``wq`` / ``w_packed``
-    layout) with its "data"-split dims all-gathered."""
+    layout) with its "fsdp"-split dims all-gathered."""
     resolved = sharding.resolve(Spec(*axes), shard.mesh)
     if not isinstance(w, dict):
         w, key, off = {"w": w}, "w", 0
@@ -268,7 +268,7 @@ def _gathered_experts(w, axes: tuple, shard):
         off = 1 if key == "w_packed" else 0
     out = dict(w)
     for d in (1, 2):
-        if resolved[d] == "data":
+        if shard.role_of(resolved[d]) == "fsdp":
             out[key] = shard.gather_weight(out[key], d + off)
     return out["w"] if key == "w" else out
 
@@ -304,7 +304,7 @@ def apply_shardmap(p, cfg: MoEConfig, x: torch.Tensor, plan,
     cap = max(1, int(s * k / e * cfg.capacity_factor))
     lp = plan.layer("moe_expert")
     fake_quant = lp.route == planlib.FAKE_QUANT
-    xr = quant.fake_quant(x, lp.a_bits, shard.max_over(("data",))) \
+    xr = quant.fake_quant(x, lp.a_bits, shard.max_over(("dp",))) \
         if fake_quant else x
     probs, ids, aux = _route(router_logits(x, p["router"]["w"]), cfg,
                              shard if global_aux else None)
@@ -315,7 +315,7 @@ def apply_shardmap(p, cfg: MoEConfig, x: torch.Tensor, plan,
          "w_down": _gathered_experts(p["w_down"], (e_ax, f_ax, d_ax), shard)}
     ep = cfg.expert_parallel
     e_loc = shard.local(e) if ep else e
-    lo = shard.rank("model") * e_loc if ep else 0
+    lo = shard.rank("tp") * e_loc if ep else 0
     ours = keep & (slot >= lo * cap) & (slot < (lo + e_loc) * cap)
     lslot = torch.where(ours, slot - lo * cap,
                         torch.full_like(slot, e_loc * cap))
@@ -328,7 +328,7 @@ def apply_shardmap(p, cfg: MoEConfig, x: torch.Tensor, plan,
     h = L.activation_fn(cfg.activation)(_expert_mm(buf, w, "w_gate")) \
         * _expert_mm(buf, w, "w_up")
     if fake_quant:
-        h = quant.fake_quant(h, lp.a_bits, shard.max_over(("data", "model")))
+        h = quant.fake_quant(h, lp.a_bits, shard.max_over(("dp", "tp")))
     out = _expert_mm(h, w, "w_down").reshape(b, e_loc * cap, d)
     if not ep:
         out = shard.reduce_from(out.to(torch.float32)).to(x.dtype)

@@ -64,10 +64,15 @@ class ModelConfig:
     n_img_tokens: int = 0        # VLM: length of the image embeddings
     kv_cache_bits: int = 16
     flash_vjp: bool = False      # memory-efficient attention backward
+    kv_col_parallel: bool = False  # K/V projections column-parallel
+    decode_pin_seq: bool = False   # the KV cache split by sequence ("sp")
     gqa_decode: bool = False
+    mask_cache_update: bool = False  # cache writes as an elementwise where
+    kv_replicated: bool = False    # K/V projections replicated over "tp"
     attn_int8: bool = False
     attn_block: int = 512        # training attention q/kv block size
     remat: str = "full"          # "full" | "dots" | "none" (models/model.py)
+    sub_quadratic: bool = False  # eligible for the long_500k cell
     # families: dense | moe | ssm | hybrid | audio | vlm
     family: str = "dense"
 
@@ -89,7 +94,10 @@ class ModelConfig:
             rope_theta=self.rope_theta, qk_norm=self.qk_norm,
             window=spec.window, cross=(spec.kind == "cross"),
             kv_cache_bits=self.kv_cache_bits, flash_vjp=self.flash_vjp,
-            gqa_decode=self.gqa_decode, attn_int8=self.attn_int8,
+            kv_col_parallel=self.kv_col_parallel,
+            decode_pin_seq=self.decode_pin_seq, gqa_decode=self.gqa_decode,
+            mask_cache_update=self.mask_cache_update,
+            kv_replicated=self.kv_replicated, attn_int8=self.attn_int8,
             block=self.attn_block)
 
 
@@ -258,11 +266,16 @@ def block_cache_specs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     return attn.cache_specs(cfg.attn_cfg(spec))
 
 
-def block_cache_shard_specs(cfg: ModelConfig, spec: LayerSpec) -> dict:
+def block_cache_shard_specs(cfg: ModelConfig, spec: LayerSpec,
+                            split: bool = False) -> dict:
     """Where the port places a block's cache on a mesh: rows over "dp",
-    attention KV heads and the SSM's channels and heads over "tp"."""
+    attention KV heads and the SSM's channels and heads over "tp"; with
+    ``split`` (``attention.seq_split``) the attention caches' sequence
+    over "sp", the reference's :func:`block_cache_specs`."""
     if spec.kind == "mamba":
         return ssm_mod.cache_specs(cfg.ssm)
+    if split:
+        return block_cache_specs(cfg, spec)
     if spec.kind == "cross":
         return {"k": Spec("dp", None, "tp", None),
                 "v": Spec("dp", None, "tp", None),

@@ -34,6 +34,8 @@ Imports no JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -150,10 +152,11 @@ def _equal(name: str, mode: str, mesh) -> None:
     assert all(torch.equal(w[k], g[k]) for k in w)
 
 
-def _layer(kind: str, mode: str, mesh) -> float:
+def _layer(kind: str, mode: str, mesh, **cfg_kw) -> float:
     """One layer of ``kind`` in float32, meshed against unsharded: the
     largest relative gap of its output, its input's gradient and its
-    parameters' gradients."""
+    parameters' gradients. ``cfg_kw``: fields replaced in the smoke
+    config (e.g. the KV layout's)."""
     from repro_torch import configs, interop
     from repro_torch.api.plan import build_plan
     from repro_torch.core.policy import uniform_policy
@@ -163,7 +166,7 @@ def _layer(kind: str, mode: str, mesh) -> float:
     from repro_torch.models import attention as A, moe, ssm
     name = {"attn": "qwen3-1.7b", "ssm": "mamba2-370m",
             "moe_ep": "deepseek-moe-16b", "moe_dff": "mixtral-8x7b"}[kind]
-    cfg = configs.get(name, smoke=True)
+    cfg = dataclasses.replace(configs.get(name, smoke=True), **cfg_kw)
     gen = torch.Generator().manual_seed(24)
     if kind == "attn":
         acfg = cfg.attn_cfg(cfg.pattern[0])
@@ -190,8 +193,8 @@ def _layer(kind: str, mode: str, mesh) -> float:
     x = torch.randn((B, S, cfg.d_model), generator=gen)
     up = torch.randn((B, S, cfg.d_model), generator=gen)
     shard = ShardCtx(mesh)
-    rows = sharding.local_slices(x.shape, sharding.Spec("dp", None, None),
-                                 mesh)
+    rows = sharding.local_slices(
+        x.shape, shard.place(sharding.Spec("dp", None, None)), mesh)
 
     def run(p, x, up, sh):
         leaves = interop.tree_map(lambda t: t.detach().requires_grad_(True),
@@ -203,7 +206,7 @@ def _layer(kind: str, mode: str, mesh) -> float:
         # auxiliary loss, whose "data" share each rank carries.
         obj = (y * up).sum()
         if sh is not None:
-            obj = sh.reduce_from(obj, "data")
+            obj = sh.reduce_from(obj, "dp")
         got = torch.autograd.grad(obj + aux, [x] + list(flat.values()),
                                   allow_unused=True, materialize_grads=True)
         return y.detach(), aux.detach(), got[0], interop.map_with_paths(
