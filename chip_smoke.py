@@ -234,8 +234,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               the card; the (1, 1) NCCL mesh's within them too), every
               loss and grad norm finite, no
               kernel of the port launched; per rank step ms (CUDA
-              events), peak memory and the collectives of a step by kind
-              and bytes.
+              events), peak memory (beside the global batch's) and the collectives
+              of a step by kind and bytes; each rank is handed only its
+              rows of every batch. Then the train CLI (CLI_*) on the
+              2-rank world's (2, 1) mesh against the CLI at a world of
+              one, and resumed from its checkpoint.
    launch  -- launch analysis (LAUNCH_*): phase_lm's cuda session runs
               one prefill (its prompts, int32) and one decode step (the
               position the int ``generate`` passes) under
@@ -3427,6 +3430,26 @@ DIST_TRAIN_RUNS = {2: [("qwen", "dense", "(1, 2)"),
                        ("qwen", "fake_quant", "(1, 2)")],
                    4: [("qwen", "dense", "(2, 2)"),
                        ("moe", "dense", "(1, 4)")]}
+# Each rank's peak over the steps when every rank was handed the global
+# batch (this script's last run before the step took the rank's rows;
+# H100 80GB HBM3, 700 W; the largest over the ranks): printed beside
+# this run's.
+DIST_TRAIN_PEAK_BEFORE_GIB = {"(1, 2) qwen3-1.7b dense": 16.665,
+                              "(1, 2) qwen3-1.7b fake_quant": 16.665,
+                              "(2, 2) qwen3-1.7b dense": 8.218,
+                              "(1, 4) deepseek-moe-16b dense": 16.223}
+# The train CLI (``python -m repro_torch.launch.train``, its ``main``
+# called in-process) on the 2-rank world after the world's other runs: a
+# (2, 1) mesh of the one card over gloo, qwen3-1.7b's smoke config (the
+# CLI trains smoke configs, as the reference's does), CLI_STEPS steps
+# checkpointed every CLI_CKPT_EVERY, resumed from the first checkpoint to
+# CLI_RESUME_TO steps, and an uninterrupted CLI_RESUME_TO-step run. Every
+# loss of the first run within DIST_LOSS_RTOL of the same CLI's at a
+# world of one (this process, NCCL, before the spawn); the resumed run's
+# losses equal the uninterrupted run's; no kernel of the port launched.
+CLI_ARGS = ["--device", "cuda", "--arch", "qwen3-1.7b", "--batch", "4",
+            "--seq", "64"]
+CLI_STEPS, CLI_CKPT_EVERY, CLI_RESUME_TO = 6, 3, 8
 
 
 def _free_port() -> int:
@@ -3537,11 +3560,13 @@ def _train_cfgs(smoke: bool) -> dict:
             "moe": dataclasses.replace(_moe_cut(smoke), remat="none")}
 
 
-def _train_batches(cfg, n: int) -> list:
+def _train_batches(cfg, n: int, rows=None) -> list:
+    """The data pipeline's first ``n`` batches: ``rows`` of each (all of
+    them when None)."""
     from repro_torch.data import DataConfig, synthetic_batch
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=DIST_TRAIN_SEQ,
                       global_batch=DIST_TRAIN_BATCH)
-    return [synthetic_batch(dcfg, i) for i in range(n)]
+    return [synthetic_batch(dcfg, i, rows) for i in range(n)]
 
 
 def _train_tc():
@@ -3603,7 +3628,8 @@ def _dist_train(mesh, model: str, mode: str, label: str, expect: dict,
     state_bytes = _param_bytes(state)
     step = train_mod.jit_train_step(cfg, plan, tc, mesh, specs,
                                     train_mod.batch_specs(cfg))
-    batches = _train_batches(cfg, 1 + DIST_TRAIN_STEPS)
+    rows = train_mod.batch_rows(DIST_TRAIN_BATCH, tc, step.shard)
+    batches = _train_batches(cfg, 1 + DIST_TRAIN_STEPS, rows)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -3640,6 +3666,7 @@ def _dist_train(mesh, model: str, mode: str, label: str, expect: dict,
         op, dt, red = key
         return f"{op} {str(dt).replace('torch.', '')} {red or ''}".strip()
     return {"label": f"{label} {cfg.name} {mode}", "rank": dist_rank(),
+            "rows": len(rows),
             "layers": cfg.n_layers, "state_gib": state_bytes / 2**30,
             "first_ms": first_ms, "step_ms": float(np.median(step_ms)),
             "peak_gib": peak / 2**30, "losses": losses, "grad_norms": norms,
@@ -3655,12 +3682,15 @@ def _dist_train(mesh, model: str, mode: str, label: str, expect: dict,
 def _print_dist_train(r: dict, card: str) -> None:
     coll = ", ".join(f"{k} x{n:g} ({mib:.1f} MiB)"
                      for k, (n, mib) in r["collectives"].items())
+    before = DIST_TRAIN_PEAK_BEFORE_GIB.get(r["label"])
     print(f"[dist] train {r['label']} rank {r['rank']} ({card}; "
           f"{r['transport']}): {r['layers']} layers, state "
           f"{r['state_gib']:.3f} GiB a rank; {DIST_TRAIN_BATCH} x "
-          f"{DIST_TRAIN_SEQ} tokens a step: first step {r['first_ms']:.1f} "
+          f"{DIST_TRAIN_SEQ} tokens a step, {r['rows']} rows handed to "
+          f"this rank: first step {r['first_ms']:.1f} "
           f"ms, step {r['step_ms']:.1f} ms (median of {DIST_TRAIN_STEPS}, "
-          f"CUDA events), peak {r['peak_gib']:.3f} GiB; losses "
+          f"CUDA events), peak {r['peak_gib']:.3f} GiB (with the global "
+          f"batch on every rank: {before if before else 'n/a'} GiB); losses "
           f"{[round(x, 5) for x in r['losses']]}, grad norms "
           f"{[round(x, 4) for x in r['grad_norms']]}; first loss "
           f"{r['losses'][0]!r} against the unsharded step's "
@@ -3704,6 +3734,59 @@ def _dist_ckpt(mesh, tmp: str, smoke: bool) -> dict:
             "bytes": sum(t.numel() * t.element_size() for t in flat.values())}
 
 
+def _dist_cli(tmp: str) -> dict:
+    """The train CLI's three runs on the joined world (CLI_ARGS above),
+    the kernel counts reset just before and read just after: {"run",
+    "resumed", "whole": [[step, loss], ...], "seconds", "launches"}."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as train_mod
+    d = os.path.join(tmp, "cli_ckpt")
+    ckpt_args = ["--ckpt-dir", d, "--ckpt-every", str(CLI_CKPT_EVERY)]
+    t0 = time.perf_counter()
+    reset_launches()
+    run = train_mod.main(CLI_ARGS + ["--steps", str(CLI_STEPS)] + ckpt_args)
+    if dist.get_rank() == 0:         # the resume starts at the first one
+        for name in os.listdir(d):
+            if name != f"step_{CLI_CKPT_EVERY:08d}":
+                shutil.rmtree(os.path.join(d, name))
+    dist.barrier()
+    resumed = train_mod.main(CLI_ARGS + ["--steps", str(CLI_RESUME_TO)]
+                             + ckpt_args)
+    whole = train_mod.main(CLI_ARGS + ["--steps", str(CLI_RESUME_TO)])
+    launches = read_launches()
+    return {"run": sorted(run.items()), "resumed": sorted(resumed.items()),
+            "whole": sorted(whole.items()), "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def _check_cli(cli: dict, one: dict, card: str) -> dict:
+    """Holds the 2-rank CLI's runs (:func:`_dist_cli`, rank 0's) to the
+    world-one CLI's losses ``one`` and prints them; returns the launches."""
+    run, resumed, whole = (dict(cli[k]) for k in ("run", "resumed",
+                                                    "whole"))
+    check(sorted(run) == sorted(one) == list(range(CLI_STEPS))
+          and all(np.isfinite(list(run.values()))), f"dist train CLI (2, 1):"
+          f" losses {run}, at a world of one {one}")
+    err = max(abs(run[s] - one[s]) / abs(one[s]) for s in one)
+    check(err <= DIST_LOSS_RTOL, f"dist train CLI (2, 1): losses {run}, at "
+          f"a world of one {one} (limit {DIST_LOSS_RTOL} relative)")
+    tail = list(range(CLI_CKPT_EVERY, CLI_RESUME_TO))
+    check(sorted(resumed) == tail and all(resumed[s] == whole[s]
+                                          for s in tail),
+          f"dist train CLI (2, 1): the resumed run's losses {resumed} are "
+          f"not the uninterrupted run's {whole}")
+    check(not any(cli["launches"].values()), f"dist train CLI: the training "
+          f"path launched kernels of the port: {cli['launches']}")
+    print(f"[dist] train CLI (2, 1) qwen3-1.7b smoke ({card}; {DIST_LABEL}):"
+          f" {CLI_STEPS} steps, losses {run}; at a world of one {one} "
+          f"(largest relative difference {err:.3g}, limit {DIST_LOSS_RTOL});"
+          f" resumed at step {CLI_CKPT_EVERY} to {CLI_RESUME_TO}: losses "
+          f"{resumed} equal the uninterrupted run's; three runs in "
+          f"{cli['seconds']:.1f} s; kernels of the port launched 0 times",
+          flush=True)
+    return cli["launches"]
+
+
 def _dist_rank(rank: int, world: int, port: int, tmp: str,
                smoke: bool) -> None:
     """One spawned rank of the dist phase; writes ``rank<r>_<world>.json``."""
@@ -3737,6 +3820,8 @@ def _dist_rank(rank: int, world: int, port: int, tmp: str,
         mesh = make_host_mesh(world, model=meshes[label][1], device="cuda")
         train.append(_dist_train(mesh, model, mode, label, expect["train"],
                                  smoke))
+    if world == 2:
+        extra["cli"] = _dist_cli(tmp)
     with open(os.path.join(tmp, f"rank{rank}_{world}.json"), "w") as f:
         json.dump({"backend": backend, "runs": runs, "train": train,
                    "errs": errs, **extra}, f)
@@ -3765,6 +3850,7 @@ def phase_dist(lm: dict, card: str, errs: dict, smoke: bool = False) -> dict:
     import torch.multiprocessing as mp
 
     from repro_torch.dist import init_process
+    from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_host_mesh
     t_phase = time.perf_counter()
     sess, tokens = lm["sess"], lm["tokens"]
@@ -3794,6 +3880,13 @@ def phase_dist(lm: dict, card: str, errs: dict, smoke: bool = False) -> dict:
         torch.cuda.empty_cache()
         print(f"[dist] unsharded expectations and the checkpoint in "
               f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        reset_launches()
+        cli_one = train_mod.main(CLI_ARGS + ["--steps", str(CLI_STEPS)])
+        check(not any(read_launches().values()), "dist: the train CLI at a "
+              "world of one launched kernels of the port")
+        print(f"[dist] train CLI at a world of one (NCCL): {CLI_STEPS} steps "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
         launches = {}
         backend = init_process(0, 1, _free_port(), "cuda",
@@ -3850,6 +3943,9 @@ def phase_dist(lm: dict, card: str, errs: dict, smoke: bool = False) -> dict:
                     if rank == 0:
                         launches[f"dist train {r['label']} rank 0"] = \
                             r["launches"]
+                if "cli" in got and rank == 0:
+                    launches["dist train CLI (2, 1) rank 0"] = _check_cli(
+                        got["cli"], cli_one, card)
                 if "ckpt" in got:
                     c = got["ckpt"]
                     print(f"[dist] (1, 2) rank {rank}: checkpoint of "

@@ -1,5 +1,6 @@
 from repro_torch.data.pipeline import (DataConfig, host_shard_batch,
-                                       make_iterator, synthetic_batch)
+                                       make_iterator, rank_rows,
+                                       synthetic_batch)
 
-__all__ = ["DataConfig", "host_shard_batch", "make_iterator",
+__all__ = ["DataConfig", "host_shard_batch", "make_iterator", "rank_rows",
            "synthetic_batch"]

@@ -11,13 +11,17 @@ are numpy arrays; the train step puts them on its device.
   * **Document packing**: documents of zipf-like token ids with EOS (0)
     boundaries packed into fixed-length rows, plus next-token labels.
   * **Host sharding**: ``host_shard_batch`` gives a host its contiguous
-    block of the global batch's rows.
+    block of the global batch's rows; ``rank_rows`` gives a data-parallel
+    rank its rows of every accumulation microbatch (the rows a meshed
+    train step takes).
 
 A VLM's ``img_embeds`` are deterministic pseudo-embeddings keyed by the
 same addressing, from the stream of row ``global_batch`` (the first row
-index no token row uses). The reference keys them by row -1, which
-numpy 2's ``SeedSequence`` refuses (``ValueError``), so its image batches
-cannot be drawn to compare with; the token rows are its bit for bit.
+index no token row uses), whose rows in order are the global batch's: a
+draw of some rows takes those rows of it. The reference keys them by row
+-1, which numpy 2's ``SeedSequence`` refuses (``ValueError``), so its
+image batches cannot be drawn to compare with; the token rows are its
+bit for bit.
 """
 from __future__ import annotations
 
@@ -62,17 +66,35 @@ def _packed_row(cfg: DataConfig, step: int, row: int) -> np.ndarray:
 
 
 def synthetic_batch(cfg: DataConfig, step: int, rows=None) -> dict:
-    """Materialize rows (default: all of the global batch) for ``step``."""
-    if rows is None:
-        rows = range(cfg.global_batch)
+    """Materialize rows (default: all of the global batch) for ``step``,
+    in the order given: each row is that row of the global batch."""
+    rows = list(range(cfg.global_batch) if rows is None else rows)
     packed = np.stack([_packed_row(cfg, step, r) for r in rows])
     batch = {"tokens": packed[:, :-1], "labels": packed[:, 1:]}
     if cfg.n_img_tokens:
+        # The stream fills its rows in order, so a draw of the first
+        # max(rows) + 1 rows holds every row asked for.
         rng = _rng_for(cfg, step, cfg.global_batch)
-        batch["img_embeds"] = rng.standard_normal(
-            (len(list(rows)), cfg.n_img_tokens, cfg.d_model),
-            dtype=np.float32).astype(np.float32)
+        drawn = rng.standard_normal(
+            (max(rows) + 1, cfg.n_img_tokens, cfg.d_model), dtype=np.float32)
+        batch["img_embeds"] = drawn[rows]
     return batch
+
+
+def rank_rows(global_batch: int, accum: int = 1, n_ranks: int = 1,
+              rank: int = 0) -> list[int]:
+    """The global rows that data-parallel rank ``rank`` of ``n_ranks``
+    trains on: for each of the ``accum`` microbatches (contiguous blocks
+    of the global batch, in order) the rank's contiguous block of it. A
+    batch that does not split into ``n_ranks`` x ``accum`` equal parts
+    raises ``ValueError``."""
+    if global_batch % (n_ranks * accum):
+        raise ValueError(
+            f"a batch of {global_batch} rows does not split into "
+            f"{n_ranks} data rank(s) x {accum} equal microbatches")
+    mb, per = global_batch // accum, global_batch // (accum * n_ranks)
+    return [i * mb + rank * per + j for i in range(accum)
+            for j in range(per)]
 
 
 def host_shard_batch(cfg: DataConfig, step: int, host_id: int,

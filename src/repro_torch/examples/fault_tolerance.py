@@ -28,9 +28,9 @@ from repro_torch.data import DataConfig, synthetic_batch
 from repro_torch.dist import sharding
 from repro_torch.examples import join_world, resolve_device, run as cli
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.train import (TrainConfig, batch_specs,
-                                      jit_train_step, make_train_state,
-                                      train_state_like)
+from repro_torch.launch.train import (TrainConfig, batch_rows,
+                                      batch_specs, jit_train_step,
+                                      make_train_state, train_state_like)
 from repro_torch.models.transformer import LayerSpec, ModelConfig
 from repro_torch.optim import Schedule
 from repro_torch.runtime import Supervisor, TransientWorkerError
@@ -58,6 +58,7 @@ def run(steps: int, ckpt_dir: str, device, world: int,
     mgr = CheckpointManager(ckpt_dir, every=10, keep_n=3)
     step_fn = jit_train_step(cfg, build_plan(cfg, mode="dense"), tc, mesh,
                              sspecs, batch_specs(cfg))
+    rows = batch_rows(dcfg.global_batch, tc, step_fn.shard)   # this rank's
     like = train_state_like(cfg, tc)
     fired = {"done": False}
 
@@ -66,7 +67,7 @@ def run(steps: int, ckpt_dir: str, device, world: int,
                 and not fired["done"]:
             fired["done"] = True
             raise TransientWorkerError(f"injected node loss at {idx}")
-        st, m = step_fn(st, synthetic_batch(dcfg, idx))
+        st, m = step_fn(st, synthetic_batch(dcfg, idx, rows))
         return st, float(m["loss"])
 
     def save(step, st):

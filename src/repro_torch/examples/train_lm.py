@@ -26,9 +26,9 @@ from repro_torch.data import DataConfig, synthetic_batch
 from repro_torch.dist.sharding import named_tree
 from repro_torch.examples import join_world, resolve_device
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.train import (TrainConfig, batch_specs,
-                                      jit_train_step, make_train_state,
-                                      train_state_like)
+from repro_torch.launch.train import (TrainConfig, batch_rows,
+                                      batch_specs, jit_train_step,
+                                      make_train_state, train_state_like)
 from repro_torch.models.transformer import LayerSpec, ModelConfig
 from repro_torch.optim import AdamWConfig, Schedule
 from repro_torch.runtime import Supervisor
@@ -74,11 +74,12 @@ def main(device="cuda", steps: int = 300, batch: int = 8, seq: int = 256,
         mgr = CheckpointManager(ckpt_dir, every=100, keep_n=2)
         step_fn = jit_train_step(cfg, plan, tc, mesh, sspecs,
                                  batch_specs(cfg))
+        rows = batch_rows(batch, tc, step_fn.shard)     # this rank's
         like = train_state_like(cfg, tc)
         losses = []
 
         def one_step(st, idx):
-            st, metrics = step_fn(st, synthetic_batch(dcfg, idx))
+            st, metrics = step_fn(st, synthetic_batch(dcfg, idx, rows))
             loss = float(metrics["loss"])
             losses.append(loss)
             if idx % 20 == 0 and rank == 0:

@@ -246,8 +246,9 @@ def _local(tree, specs, shard):
 def build_step(cfg, cell, weights: str, exec_mode: str, shard=None,
                cache_len: int | None = None, decode_pos: int | None = None):
     """(fn, args, inference) of one cell's step for this rank: ``fn(*args)``
-    runs it; ``args`` are rank-local fake tensors (the global batch for a
-    train step, which takes its own rows); ``inference``: run under
+    runs it; ``args`` are rank-local fake tensors (a train step's batch:
+    the rank's "dp" rows, which ``launch.train.batch_rows`` gives it at
+    the cell's one microbatch); ``inference``: run under
     ``torch.inference_mode``. ``cache_len``: the cache's slots (the
     cell's sequence when None); ``decode_pos``: the decode's position as
     the int ``ServingSession.generate`` passes (a 0-d int32 tensor, the
@@ -257,6 +258,7 @@ def build_step(cfg, cell, weights: str, exec_mode: str, shard=None,
     plan = build_plan(cfg, policy, mode=exec_mode, backend="torch_ref")
     mesh = None if shard is None else shard.mesh
     batch, bspecs = shapes.batch_structs(cfg, cell)
+    batch = _local(batch, bspecs, shard)
     if cell.kind == "train":
         from repro_torch.launch.train import (TrainConfig, jit_train_step,
                                               make_train_step)
@@ -275,7 +277,6 @@ def build_step(cfg, cell, weights: str, exec_mode: str, shard=None,
     prefill, decode = jit_serve_steps(cfg, plan, mesh, pspecs, cspecs)
     params, cache = _local(params, pspecs, shard), _local(cache, cspecs,
                                                           shard)
-    batch = _local(batch, bspecs, shard)
     if cell.kind == "prefill":
         args = (params, batch["tokens"], cache)
         if cfg.n_img_tokens:

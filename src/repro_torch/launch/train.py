@@ -7,6 +7,8 @@ PyTorch-port counterpart of ``repro/launch/train.py``::
         --batch 8 --seq 128
     python -m repro_torch.launch.train --device cpu --arch qwen3-1.7b \\
         --steps 3 --batch 2 --seq 32 --ckpt-dir /tmp/run --ckpt-every 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
+        --steps 3 --batch 4 --seq 32
 
 :func:`make_train_step` builds the step, a pure ``(state, batch) ->
 (state, metrics)`` function: the loss and its gradients by autograd,
@@ -21,17 +23,23 @@ The CLI trains ``configs.get(arch, smoke=True)``, as the reference's
 does, from seed-0 weights on the data pipeline's synthetic batches, in
 ``--mode dense`` or ``fake_quant`` (QAT at ``--a-bits`` / ``--w-bits``),
 under the :class:`~repro_torch.runtime.supervisor.Supervisor` (restart,
-spike guard, SIGTERM checkpoint). With ``--ckpt-dir`` it checkpoints
-every ``--ckpt-every`` steps through ``ckpt.CheckpointManager`` and
-resumes from the newest checkpoint there. ``--device`` defaults to
-``cuda``; without a card it raises unless ``--device cpu`` is given.
+spike guard, SIGTERM checkpoint). It trains on the data-parallel
+``make_host_mesh`` of the world that ``torch.distributed``'s
+environment names (``RANK``, ``WORLD_SIZE``, ``MASTER_PORT``, as
+``torchrun`` sets them; a group of one without it, or the caller's
+initialized group), each rank drawing only its rows of every batch. With
+``--ckpt-dir`` it checkpoints every ``--ckpt-every`` steps through
+``ckpt.CheckpointManager`` (the shards gathered, rank 0 writing) and
+resumes every rank from the newest checkpoint there, whatever world
+saved it. Rank 0 prints. ``--device`` defaults to ``cuda``; without a
+card it raises unless ``--device cpu`` is given.
 
 On a ("data", "model") mesh (:func:`repro_torch.launch.mesh.make_host_mesh`,
 one process per rank) :func:`make_train_state` gives each rank its shards
 of the seed's state and :func:`jit_train_step` the rank's SPMD step: the
-model's training forward on the rank's batch rows and shards
-(``model.loss_fn(..., shard=)``), the gradients of every leaf that
-"data" replicates SUM-reduced over "data" ("fsdp" leaves were
+model's training forward on the rank's batch rows (:func:`batch_rows`)
+and shards (``model.loss_fn(..., shard=)``), the gradients of every leaf
+that "data" replicates SUM-reduced over "data" ("fsdp" leaves were
 reduce-scattered by their gathers' backward), then the unsharded step's
 compression, schedule, clip (by the global norm) and AdamW on the local
 shards. Every rank returns the global metrics.
@@ -42,9 +50,11 @@ import argparse
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, interop
 from repro_torch.api import plan as planlib
+from repro_torch.data import rank_rows
 from repro_torch.dist import sharding
 from repro_torch.dist.sharding import Spec
 from repro_torch.models import model as M
@@ -126,6 +136,18 @@ def batch_specs(cfg) -> dict:
     return specs
 
 
+def batch_rows(global_batch: int, tc: TrainConfig, shard=None) -> list[int]:
+    """The rows of a global batch of ``global_batch`` that this rank's
+    train step takes, in the order it takes them: each microbatch's
+    "dp" block (``data.rank_rows``; every row without a ``shard``). A
+    batch that does not split into "dp" ranks x ``tc.accum`` equal parts
+    raises ``ValueError``, as the reference's sharded argument does."""
+    if shard is None:
+        return rank_rows(global_batch, tc.accum)
+    return rank_rows(global_batch, tc.accum, shard.size("dp"),
+                     shard.rank("dp"))
+
+
 def batch_on(batch: dict, device) -> dict:
     """A data-pipeline batch (numpy or tensors) on ``device``: token ids
     as int64, ``img_embeds`` in their dtype."""
@@ -191,8 +213,7 @@ def mesh_value_and_grad(params: dict, cfg, batch: dict, plan, shard,
 
 
 def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig,
-                    shard=None, specs: dict | None = None,
-                    bspecs: dict | None = None):
+                    shard=None, specs: dict | None = None):
     """The train step ``(state, batch) -> (new state, metrics)`` of
     ``cfg`` under ``plan`` (``dense`` or ``fake_quant``). ``batch``: the
     data pipeline's dict (numpy or tensors), put on the params' device.
@@ -200,17 +221,12 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig,
     and ``lr`` (and, without accumulation, ``nll`` and ``aux``), as 0-d
     tensors. A batch whose rows do not split into ``accum`` equal
     microbatches raises ``ValueError``, as the reference's reshape does.
-    ``shard``, ``specs`` (the params') and ``bspecs``: the meshed step
-    (:func:`jit_train_step`); the step's ``shard`` attribute is the
+    ``shard`` and ``specs`` (the params'): the meshed step
+    (:func:`jit_train_step`), whose ``batch`` is this rank's rows
+    (:func:`batch_rows`); the step's ``shard`` attribute is the
     ``ShardCtx`` (None unsharded), whose ``comm.calls`` counts the
     collectives."""
     sched_fn = make_schedule(tc.sched)
-
-    def rows(mb: dict) -> dict:
-        if shard is None:
-            return mb
-        return {k: sharding.shard_leaf(v, shard.place(bspecs[k]), shard.mesh)
-                for k, v in mb.items()}
 
     def train_step(state: dict, batch: dict) -> tuple:
         params = state["params"]
@@ -218,8 +234,8 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig,
                       ).device
         batch = batch_on(batch, device)
         if tc.accum == 1:
-            loss, parts, grads = value_and_grad(params, cfg, rows(batch),
-                                                plan, shard)
+            loss, parts, grads = value_and_grad(params, cfg, batch, plan,
+                                                shard)
         else:
             if batch["tokens"].shape[0] % tc.accum:
                 raise ValueError(
@@ -231,7 +247,7 @@ def make_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig,
             loss = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(tc.accum):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l_, _, g = value_and_grad(params, cfg, rows(mb), plan, shard)
+                l_, _, g = value_and_grad(params, cfg, mb, plan, shard)
                 grads = interop.tree_map(
                     lambda a, b: a + b.to(torch.float32), grads, g)
                 loss = loss + l_
@@ -261,9 +277,11 @@ def jit_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig, mesh,
     """This rank's SPMD train step on ``mesh`` (the reference's
     ``jit_train_step``; the port compiles nothing, the name stays).
     ``state`` holds the rank's shards placed by ``state_specs``
-    (:func:`make_train_state` with ``mesh=``); ``batch`` is the GLOBAL
-    batch, of which each rank takes its rows of every microbatch by
-    ``batch_specs``, so every mesh trains on the unsharded step's data.
+    (:func:`make_train_state` with ``mesh=``); ``batch`` holds only the
+    rows this rank trains on, its "dp" block of every microbatch in order
+    (:func:`batch_rows` with the step's ``shard``: the rows that
+    ``batch_specs``, the reference's ``in_shardings`` of the batch, give
+    the rank), so every mesh trains on the unsharded step's data.
     Accumulation, compression (each leaf's scale the whole leaf's), the
     schedule, the clip and AdamW run as in :func:`make_train_step`, after
     the "data" reduction; the metrics (``loss``, ``grad_norm``, ``lr``)
@@ -271,10 +289,12 @@ def jit_train_step(cfg, plan: planlib.ExecutionPlan, tc: TrainConfig, mesh,
     unchanged (the reference donates it)."""
     from repro_torch.dist.parallel import ShardCtx
     return make_train_step(cfg, plan, tc, ShardCtx(mesh),
-                           state_specs["params"], batch_specs)
+                           state_specs["params"])
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
+    """The CLI (module docstring); returns ``{step: loss}`` of the steps
+    this call ran (the global loss, the same on every rank)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=20)
@@ -290,52 +310,87 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    from repro_torch.examples import join_world
+    device = _device(args.device)
+    rank, world, started = join_world(device)
+    try:
+        return _train_on_world(args, device, rank, world)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train_on_world(args, device, rank: int, world: int) -> dict:
+    """:func:`main` on the joined world's (world, 1) mesh."""
     from repro_torch.ckpt.checkpoint import CheckpointManager
     from repro_torch.core.policy import uniform_policy
     from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.runtime.supervisor import Supervisor
 
-    device = _device(args.device)
     cfg = configs.get(args.arch, smoke=True)
     plan = planlib.build_plan(cfg, uniform_policy(args.a_bits, args.w_bits),
                               mode=args.mode)
     tc = TrainConfig(accum=args.accum,
                      sched=Schedule(total_steps=args.steps, warmup_steps=5))
-    state, _ = make_train_state(cfg, tc, device=device)
+    # The (world, 1) mesh puts rank r at "data" index r. An uneven batch
+    # raises here on every rank alike, before any collective.
+    rows = rank_rows(args.batch, args.accum, world, rank)
+    mesh = make_host_mesh(world, model=1, device=device)
+    state, specs = make_train_state(cfg, tc, device=device, mesh=mesh)
+    shardings = sharding.named_tree(specs, mesh)
+    like = train_state_like(cfg, tc)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                       global_batch=args.batch,
                       n_img_tokens=cfg.n_img_tokens, d_model=cfg.d_model)
-    step_fn = make_train_step(cfg, plan, tc)
+    step_fn = jit_train_step(cfg, plan, tc, mesh, specs, batch_specs(cfg))
     mgr = (CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
            if args.ckpt_dir else None)
+    losses = {}
+
+    def say(text):
+        if rank == 0:
+            print(text, flush=True)
 
     def run_step(state, step):
-        state, metrics = step_fn(state, synthetic_batch(dcfg, step))
+        state, metrics = step_fn(state, synthetic_batch(dcfg, step, rows))
+        losses[step] = float(metrics["loss"])
         if step % 5 == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"lr {float(metrics['lr']):.2e}", flush=True)
+            say(f"step {step:5d} loss {losses[step]:.4f} "
+                f"gnorm {float(metrics['grad_norm']):.3f} "
+                f"lr {float(metrics['lr']):.2e}")
         return state, metrics["loss"]
 
     def restore():
         if mgr is None:
             return None, None
-        restored, step = mgr.restore_latest(state, device=device)
+        restored, step = mgr.restore_latest(like, device=device,
+                                            shardings=shardings)
         if restored is not None:
-            print(f"resumed at step {step} from {args.ckpt_dir}", flush=True)
+            say(f"resumed at step {step} from {args.ckpt_dir}")
         return restored, step
 
     def save(step, state):
         if mgr is not None:
-            mgr.save_async(step, state)
+            mgr.save_async(step, state, shardings=shardings)
+
+    def agree_stop(stop: bool) -> bool:
+        # A SIGTERM reaches one process: every rank stops where any does.
+        if world == 1:
+            return stop
+        flag = torch.tensor([int(stop)], dtype=torch.int32, device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     sup = Supervisor(step_fn=run_step, save_fn=save, restore_fn=restore,
-                     save_every=args.ckpt_every, handle_sigterm=True)
+                     save_every=args.ckpt_every, handle_sigterm=True,
+                     agree_stop=agree_stop)
     _, run = sup.train(state, args.steps)
     if mgr:
         mgr.wait()
-    print(f"done: step {run.step}, restarts {run.n_restarts}, skipped "
-          f"spikes {run.n_skipped_spikes}", flush=True)
+    say(f"done: step {run.step}, restarts {run.n_restarts}, skipped spikes "
+        f"{run.n_skipped_spikes}, {world} rank(s)")
+    return losses
 
 
 if __name__ == "__main__":

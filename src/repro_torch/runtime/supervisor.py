@@ -9,8 +9,11 @@ poison the run.
   * Checkpoint/restart: the supervisor calls the caller's ``save_fn`` and
     ``restore_fn`` (``launch/train.py`` hands it the port's
     ``ckpt.CheckpointManager``); a SIGTERM (preemption notice) makes it
-    checkpoint at the next step boundary and stop. The data pipeline is a
-    pure function of the step, so a resumed run redraws the same batches.
+    checkpoint at the next step boundary and stop. On a mesh every rank
+    must stop at the same boundary (the save gathers the shards
+    collectively), so ``agree_stop`` combines each rank's flag there. The
+    data pipeline is a pure function of the step, so a resumed run
+    redraws the same batches.
   * Straggler detection: :class:`StepMonitor` keeps a running mean and
     variance of step wall time and flags steps beyond ``k_sigma``; the
     ``on_straggler`` hook decides what to do.
@@ -75,13 +78,19 @@ class Supervisor:
     ``step_fn(state, step_idx) -> (state, loss)``; ``restore_fn() ->
     (state, step)`` or ``(None, None)``; ``save_fn(step, state)``, where
     ``step`` counts the steps applied. The supervisor owns the loop.
+    ``agree_stop(stop) -> stop``: called with this process's stop flag at
+    every step boundary, returns the flag every rank acts on (a MAX over
+    the world on a mesh); the flag as it is when None. The spike and
+    non-finite guards need no agreement where every rank sees the global
+    loss.
     """
 
     def __init__(self, *, step_fn: Callable, save_fn: Callable,
                  restore_fn: Callable, save_every: int = 50,
                  max_restarts: int = 3, spike_factor: float = 10.0,
                  on_straggler: Optional[Callable] = None,
-                 handle_sigterm: bool = False):
+                 handle_sigterm: bool = False,
+                 agree_stop: Optional[Callable[[bool], bool]] = None):
         self.step_fn = step_fn
         self.save_fn = save_fn
         self.restore_fn = restore_fn
@@ -89,11 +98,11 @@ class Supervisor:
         self.max_restarts = max_restarts
         self.spike_factor = spike_factor
         self.on_straggler = on_straggler or (lambda step, dt: None)
+        self.agree_stop = agree_stop or (lambda stop: stop)
+        self.handle_sigterm = handle_sigterm
         self.monitor = StepMonitor()
         self.run = RunState()
         self._stop = False
-        if handle_sigterm:
-            signal.signal(signal.SIGTERM, self._sigterm)
 
     def _sigterm(self, signum, frame):
         # Preemption notice: checkpoint at the next step boundary.
@@ -101,14 +110,29 @@ class Supervisor:
 
     def train(self, init_state, n_steps: int):
         """Run steps up to ``n_steps`` from the restored state (or
-        ``init_state`` at step 0). Returns (state, RunState)."""
+        ``init_state`` at step 0). Returns (state, RunState). With
+        ``handle_sigterm`` a SIGTERM during the call stops the run at the
+        next step boundary with a save; the previous handler is put back
+        on return."""
+        old = signal.signal(signal.SIGTERM, self._sigterm) \
+            if self.handle_sigterm else None
+        try:
+            return self._train(init_state, n_steps)
+        finally:
+            if old is not None:
+                signal.signal(signal.SIGTERM, old)
+
+    def _train(self, init_state, n_steps: int):
         state, start = self.restore_fn()
         if state is None:
             state, start = init_state, 0
         else:
             self.run.n_restarts += 1
         self.run.step = start
-        while self.run.step < n_steps and not self._stop:
+        while True:
+            stop = self.agree_stop(self._stop)    # the step boundary
+            if stop or self.run.step >= n_steps:
+                break
             t0 = time.monotonic()
             prev_state = state
             try:
@@ -149,8 +173,9 @@ class Supervisor:
             self.run.loss_ema = (loss if not np.isfinite(self.run.loss_ema)
                                  else 0.98 * self.run.loss_ema + 0.02 * loss)
             self.run.step += 1
-            if self.run.step % self.save_every == 0 or self._stop:
+            if self.run.step % self.save_every == 0:
                 self.save_fn(self.run.step, state)
-        if self._stop:
+        self._stop = stop
+        if stop:
             self.save_fn(self.run.step, state)
         return state, self.run

@@ -303,9 +303,9 @@ def _reference_train(mesh, out_dir: str) -> None:
     """The port's meshed training on the reference's seed-0 dense params
     (``<out_dir>/qwen3-1.7b/train_ckpt``, restored with ``shardings=``)
     and batch (``train_batch.npz``): the loss and gradients of
-    ``mesh_value_and_grad``, then one ``jit_train_step``. Rank 0 saves
-    them gathered (``port_train.npz``); every rank saves its
-    ``compressed_psum`` over the world of its row ``r`` of
+    ``mesh_value_and_grad``, then one ``jit_train_step`` on this rank's
+    rows. Rank 0 saves them gathered (``port_train.npz``); every rank
+    saves its ``compressed_psum`` over the world of its row ``r`` of
     ``compress_in.npz`` (``compress_port<r>.npz``)."""
     from repro_torch import configs, interop
     from repro_torch.api import plan as planlib
@@ -332,8 +332,9 @@ def _reference_train(mesh, out_dir: str) -> None:
                                            ShardCtx(mesh), pspecs)
     grads = sharding.gather_tree(grads, pspecs, mesh)
     state = {"params": params, "opt": adamw_init(params, tc.opt)}
-    state, metrics = T.jit_train_step(cfg, plan, tc, mesh, specs,
-                                      bspecs)(state, batch)
+    step = T.jit_train_step(cfg, plan, tc, mesh, specs, bspecs)
+    mine = T.batch_rows(len(batch["tokens"]), tc, step.shard)
+    state, metrics = step(state, {k: v[mine] for k, v in batch.items()})
     new = sharding.gather_tree(state["params"], pspecs, mesh)
     r = dist.get_rank()
     if r == 0:

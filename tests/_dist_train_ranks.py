@@ -3,7 +3,8 @@ gloo through ``_dist_ranks.start(..., module="_dist_train_ranks")``.
 
 Each check draws the seed-0 train state twice on every rank: whole (the
 unsharded port) and as this rank's shards (``make_train_state(...,
-mesh=)``), and feeds both the same global batches from a numpy seed. It
+mesh=)``), and feeds both the same global batches from a numpy seed (the
+meshed step this rank's rows of them, ``launch.train.batch_rows``). It
 returns its readings, the largest difference of each quantity from the
 unsharded port's (the parent holds them to the tolerances of
 ``tests/test_torch_dist_train.py``):
@@ -53,6 +54,14 @@ def _batches(cfg, n: int = 2) -> list:
                 size=(B, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
         out.append(b)
     return out
+
+
+def _rank_batch(batch: dict, tc, step) -> dict:
+    """This rank's rows of a global numpy ``batch`` for the meshed
+    ``step``."""
+    from repro_torch.launch.train import batch_rows
+    rows = batch_rows(len(batch["tokens"]), tc, step.shard)
+    return {k: v[rows] for k, v in batch.items()}
 
 
 def _setup(name: str, mode: str, mesh, accum: int = 1,
@@ -112,7 +121,7 @@ def _train(name: str, mode: str, mesh, accum: int = 1,
     out["step_loss"] = out["grad_norm"] = 0.0
     for b in batches:
         whole, wm = ref_step(whole, b)
-        local, gm = mesh_step(local, b)
+        local, gm = mesh_step(local, _rank_batch(b, tc, mesh_step))
         out["step_loss"] = max(out["step_loss"],
                                abs(float(gm["loss"]) - float(wm["loss"])))
         out["grad_norm"] = max(out["grad_norm"], abs(
@@ -145,7 +154,7 @@ def _equal(name: str, mode: str, mesh) -> None:
                                  T.batch_specs(cfg))
     for b in batches:
         whole, wm = ref_step(whole, b)
-        local, gm = mesh_step(local, b)
+        local, gm = mesh_step(local, _rank_batch(b, tc, mesh_step))
         assert all(torch.equal(wm[k], gm[k]) for k in wm), (wm, gm)
     w, g = (interop.flatten_with_paths(t) for t in (whole, local))
     assert sorted(w) == sorted(g)
