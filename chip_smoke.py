@@ -168,14 +168,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               and the tokens equal a ``torch_ref`` twin's on the same
               packed weights; compile seconds (draw, pack, fingerprint),
               packed bytes, peak memory, prefill ms and decode ms/step
-              (CUDA events). deepseek-moe-16b: a ``dynamic_a`` prefill
-              (K3 on every linear) equal to the static one, one decode
-              step profiled (4 of its 28 layers: the dist phase's
-              training and the launch phase took the time).
-              deepseek-moe-16b and
-              mamba2-370m: the
-              engine's traffic (ARCHS_ENGINE_PROMPTS), every stream and
-              batched decode row equal to its solo run.
+              (CUDA events). From the same draw, ``dense`` (the drawn
+              tree as it is) and ``serve_int8``: a warm-up, a prefill and
+              ARCHS_MODE_GEN - 1 decode steps each, no kernel of the port
+              launched, dense logits finite, ``serve_int8``'s equal to
+              ``serve_packed``'s at every step; their compile seconds,
+              tree bytes, peaks, prefill and decode ms beside
+              ``serve_packed``'s. ARCHS_ANALYZED (jamba, the VLM): the
+              ``serve_packed`` prefill and decode step under
+              ``launch.opanalysis`` (K1 equal to the launch counters)
+              counted exactly as the world-one dry run counts them (in a
+              subprocess beside the kernel checks). deepseek-moe-16b: a
+              ``dynamic_a`` prefill (K3 on every linear) equal to the
+              static one, one decode step profiled (4 of its 28 layers:
+              the dist phase's training and the launch phase took the
+              time). deepseek-moe-16b and mamba2-370m: the engine's
+              traffic (ARCHS_ENGINE_PROMPTS), every stream and batched
+              decode row equal to its solo run. Then each arch's smoke
+              config in ``dense`` on the card against the CPU port from
+              the same seed-0 params (ARCHS_SMOKE_*: logits within 0.2,
+              greedy tokens equal where the CPU's top-2 margin exceeds
+              0.4).
    train   -- the training path (no kernel of the port runs in it; the
               counts read 0): the flash VJP's dQ/dK/dV against autograd
               through ``chunked_attention`` (FLASH_CASES, float32 from
@@ -188,7 +201,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               losses below the first; step ms (CUDA events, the first
               apart), tokens/s, ``train_mfu``, peak memory, one profiled
               step each, then AdamW alone (OPT_CALLS calls of its own after
-              the steps, which run as the launcher runs them); mamba2-370m
+              the steps, which run as the launcher runs them); one more
+              step each under ``launch.opanalysis``, its operations, HBM
+              bytes and kernels (none) equal to ``dryrun.train_counts``
+              (float32 moments, as the step's), its operations three times
+              the forward's (the backward counted), its eager-bound
+              fraction beside ``train_mfu``; mamba2-370m
               (48 layers) and deepseek-moe-16b (4 of 28
               layers; its auxiliary loss positive) TRAIN_ARCH_STEPS steps.
    paper   -- the paper's evaluation (PAPER_*): the cycle model's Table 4
@@ -2493,12 +2511,17 @@ def phase_kvcache(lm: dict, engine: dict, card: str, errs: dict) -> dict:
 # keeps 4 of its 28 layers (its first 4 of the pattern: the dense layer
 # and 3 MoE): at 28 its per-call expert unpack took 170 s of the phase;
 # 14 left time for the dist phase's training, 8 for the launch phase, 4
-# for the script's time limit on a slower host.
+# for the script's time limit on a slower host. mixtral-8x7b keeps one of
+# its 32 like layers (memory at 32; one holds every kind of its blocks;
+# the script's time limit).
 ARCH_DEPTHS = {"deepseek-moe-16b": 4, "mamba2-370m": None,
-               "jamba-v0.1-52b": 8, "mixtral-8x7b": 2, "gemma3-12b": 6,
+               "jamba-v0.1-52b": 8, "mixtral-8x7b": 1, "gemma3-12b": 6,
                "llama3-405b": 1, "nemotron-4-340b": 1, "musicgen-large": 1,
                "llama-3.2-vision-90b": 5}
 ARCHS_BATCH, ARCHS_PROMPT, ARCHS_GEN = 2, 512, 8
+# ``dense`` and ``serve_int8`` from the same draw: a prefill and
+# ARCHS_MODE_GEN - 1 decode steps, held to serve_packed's first ones.
+ARCHS_MODE_GEN = 4
 # Engine traffic on deepseek-moe-16b (request j: 96 + 64 j
 # tokens) and mamba2-370m (256 (j + 1) tokens: the SSD's chunk divides a
 # prompt), ARCHS_ENGINE_REQUESTS requests of ARCHS_GEN tokens into
@@ -2647,21 +2670,58 @@ def arch_engine(sess, name: str, card: str) -> dict:
     return launches
 
 
-def phase_archs(card: str) -> dict:
-    """The other nine LM architectures, one at a time on the card:
-    ``serve_packed`` (8, 8) sessions of random seed-0 weights drawn on the
-    card, ARCHS_BATCH prompts of ARCHS_PROMPT tokens (numpy seed 1; the
-    VLM also image embeddings from numpy seed 3), ARCHS_GEN greedy
-    tokens. Per arch: K1 launched the config's Loom linear count per
-    prefill and per decode step and nothing else; ``cuda`` logits and
-    tokens equal a ``torch_ref`` twin's on the same packed weights; the
-    compile's seconds (draw, pack, fingerprint), packed bytes, peak
-    memory, prefill ms and decode ms/step (CUDA events). deepseek-moe-16b
-    also: a ``dynamic_a`` prefill (K3) equal to the static one, the
-    engine's traffic, a profiled decode step; mamba2-370m the engine's
-    traffic. Returns the launches by path."""
-    t_phase = time.perf_counter()
-    out = {}
+# The archs whose serve_packed prefill and decode step the op analyzer reads
+# on the card, held to the world-one dry run: the hybrid (mamba, attention
+# and MoE blocks) and the VLM (cross-attention over image embeddings).
+ARCHS_ANALYZED = ("jamba-v0.1-52b", "llama-3.2-vision-90b")
+# The card against the CPU port at the smoke configs in dense: prompts of
+# ARCHS_SMOKE_PROMPT tokens (one SSD chunk on the SSM archs),
+# ARCHS_SMOKE_STEPS decode steps, logits within ARCHS_SMOKE_ATOL
+# (tests/_archs_parity.py's LOGIT_ATOL, the CPU port against JAX).
+ARCHS_SMOKE_PROMPT, ARCHS_SMOKE_STEPS, ARCHS_SMOKE_ATOL = 16, 3, 0.2
+# The world-one dry runs of ARCHS_ANALYZED's steps (host work on fake
+# tensors), traced in a subprocess beside the kernel checks, which time
+# nothing: one JSON line of {"prefill", "decode": counts} per arch, in
+# order.
+_ARCHS_DRY_SCRIPT = """
+import dataclasses, json
+from repro_torch import configs
+from repro_torch.launch import dryrun
+for name, depth, batch, prompt, cache_len in {cases!r}:
+    full = configs.get(name)
+    cfg = dataclasses.replace(full, n_layers=depth,
+                              pattern=full.pattern[:depth])
+    dry = dryrun.serving_counts(cfg, "serve_packed", batch, prompt,
+                                cache_len)
+    print(json.dumps({{k: t.counts() for k, t in dry.items()}}),
+          flush=True)
+"""
+
+
+def start_archs_dry_runs() -> tuple:
+    """Start the dry runs of ARCHS_ANALYZED's prefill and decode step at
+    their ARCH_DEPTHS cut (:func:`start_dry_runs`)."""
+    cases = [(name, ARCH_DEPTHS[name], ARCHS_BATCH, ARCHS_PROMPT,
+              ARCHS_PROMPT + ARCHS_GEN) for name in ARCHS_ANALYZED]
+    return start_dry_runs(_ARCHS_DRY_SCRIPT.format(cases=cases))
+
+
+def archs_dry_counts(started: tuple) -> dict:
+    """{arch: {"prefill", "decode": counts}} of :func:`start_archs_dry_runs`'
+    subprocess, waited for here."""
+    lines, took, waited = finish_dry_runs(started, "the archs' dry runs")
+    check(len(lines) == len(ARCHS_ANALYZED),
+          f"the archs' dry runs printed {lines}")
+    print(f"[archs] world-one dry runs of {list(ARCHS_ANALYZED)}' prefill "
+          f"and decode step in {took:.1f} s (one subprocess beside the "
+          f"kernel checks; waited {waited:.1f} s here)", flush=True)
+    return {name: json.loads(ln) for name, ln in zip(ARCHS_ANALYZED, lines)}
+
+
+def arch_compile(cfg, mode: str, params) -> tuple:
+    """(session, compile s, fingerprint s) of ``cfg`` in ``mode`` on the
+    card from the drawn tree ``params`` (``dense`` serves it as it is; a
+    serving mode converts it and fingerprints the result on the host)."""
     fp_s = []
     fingerprint = integrity.fingerprint_session
 
@@ -2671,6 +2731,214 @@ def phase_archs(card: str) -> dict:
             return fingerprint(*args, **kwargs)
         finally:
             fp_s.append(time.perf_counter() - t0)
+    integrity.fingerprint_session = timed_fingerprint
+    t0 = time.perf_counter()
+    try:
+        sess = repro_torch.compile(cfg, uniform_policy(8, 8), mode=mode,
+                                   backend="cuda", params=params,
+                                   device="cuda")
+    finally:
+        integrity.fingerprint_session = fingerprint
+    torch.cuda.synchronize()
+    return sess, time.perf_counter() - t0, sum(fp_s)
+
+
+def arch_mode_run(sess, tokens, img, label: str) -> dict:
+    """:func:`arch_run` of a session that launches no kernel of the port
+    (``dense``, ``serve_int8``): a warm-up, then a prefill and
+    ARCHS_MODE_GEN - 1 decode steps, each call's counts held to none; with
+    the serving peak above what was held just before (``peak``,
+    ``held``)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    arch_run(sess, tokens, img, f"{label} warm-up", 0, 0, gen=2)
+    r = arch_run(sess, tokens, img, label, 0, 0, gen=ARCHS_MODE_GEN)
+    return dict(r, peak=torch.cuda.max_memory_allocated() - held, held=held)
+
+
+def analyze_served(sess, tokens, img, cache_len: int, n_lin: tuple,
+                   label: str) -> dict:
+    """One prefill of ``tokens`` (int32; ``img`` the VLM's image embeddings
+    or None) over ``cache_len`` cache slots and the decode step that
+    follows it (at the int position ``generate`` passes), each under the
+    op analyzer with the launch counts reset just before: K1 ``n_lin`` =
+    (per prefill, per decode step) times and nothing else, and the
+    analyzer's kernels equal to the launch counters. Returns
+    {"prefill", "decode": Totals, "launches", "cache", "tok"}."""
+    params = sess.params
+    prompt = tokens.shape[1]
+    extra = () if img is None else (img,)
+    cache = sess.init_cache(tokens.shape[0], cache_len)
+    with torch.inference_mode():
+        reset_launches()
+        (logits, cache), pre = _analyzed(
+            lambda: sess._prefill(params, tokens, cache, *extra),
+            (params, cache) + extra)
+        pre_launches = read_launches()
+        tok = torch.argmax(logits[:, 0], -1).to(torch.int32)
+        reset_launches()
+        _, dec = _analyzed(lambda: sess._decode(params, tok, prompt, cache),
+                           (params, cache))
+        dec_launches = read_launches()
+    for what, t, got, n in (("prefill", pre, pre_launches, n_lin[0]),
+                            ("decode", dec, dec_launches, n_lin[1])):
+        lm_step_launches(f"{label} {what}", got, {"bitserial_matmul": n})
+        check(t.kernels == {"K1": got["bitserial_matmul"]},
+              f"{label} {what}: the analyzer counted {t.kernels}, the "
+              f"launch counters {got}")
+    return {"prefill": pre, "decode": dec, "cache": cache, "tok": tok,
+            "launches": {k: pre_launches[k] + dec_launches[k]
+                         for k in KERNELS}}
+
+
+def hold_dry_run(dry: dict, got: dict, label: str) -> None:
+    """The world-one dry run's counts (``dryrun.serving_counts``: fake
+    tensors, ``torch_ref``; {"prefill", "decode": ``Totals.counts()``}) of
+    :func:`analyze_served`'s two steps must equal the card's: operations,
+    HBM bytes and kernels."""
+    for what in ("prefill", "decode"):
+        check(dry[what] == got[what].counts(),
+              f"{label} {what}: the dry run counted {dry[what]}, the "
+              f"card's step {got[what].counts()}")
+
+
+def arch_analysis(sess, tokens, img, n_lin: tuple, times: tuple,
+                  dry: dict, card: str) -> dict:
+    """The op analyzer on ``sess``'s (cut published config) prefill and
+    decode step on the card (:func:`analyze_served`), held to ``dry``, the
+    world-one dry run's counts at the same config
+    (:func:`archs_dry_counts`); each step's eager-bound fraction against
+    ``times`` (its ms from the timed run). Returns the launches."""
+    t0 = time.perf_counter()
+    cfg = sess.cfg
+    got = analyze_served(sess, tokens.to(torch.int32), img,
+                         ARCHS_PROMPT + ARCHS_GEN, n_lin,
+                         f"{cfg.name} analyzed")
+    del got["cache"]
+    analyzed_s = time.perf_counter() - t0
+    hold_dry_run(dry, got, f"{cfg.name} analyzed")
+    for what, ms in zip(("prefill", "decode"), times):
+        t = got[what]
+        bound = opanalysis.roofline_terms(t)
+        print(f"[archs] {card}: {cfg.name} serve_packed {what} under the "
+              f"analyzer: {t.flops:.6g} operations {t.flops_by_type}, "
+              f"{t.hbm_bytes:.6g} HBM bytes, {t.n_ops} aten ops, kernels "
+              f"{t.kernels} (== the launch counters); eager bound "
+              f"{bound['bound_s'] * 1e3:.4f} ms ({bound['dominant']}), "
+              f"eager-bound fraction {bound['bound_s'] * 1e3 / ms:.4f} of "
+              f"the timed run's {ms:.3f} ms", flush=True)
+    print(f"[archs] {card}: {cfg.name}: the world-one dry run (fake "
+          f"tensors, torch_ref) counts the card's prefill and decode step "
+          f"exactly (operations, HBM bytes, kernels); analyzed steps "
+          f"{analyzed_s:.1f} s", flush=True)
+    return got["launches"]
+
+
+def archs_smoke_dense(card: str) -> None:
+    """The card against the CPU port in ``dense`` at each arch's smoke
+    config (no published-width reference exists for ``dense`` on the
+    card; ``tests/_archs_parity.py`` holds the CPU port to JAX): seed-0
+    params drawn on the CPU and carried to the card, ARCHS_BATCH prompts
+    of ARCHS_SMOKE_PROMPT tokens (numpy seed 1; ``cfg.ssm.chunk`` on the
+    SSM archs; the VLM's image embeddings numpy seed 3), a prefill and
+    ARCHS_SMOKE_STEPS decode steps fed the CPU's greedy tokens on both.
+    The card's logits within ARCHS_SMOKE_ATOL of the CPU's at every step,
+    and its greedy tokens equal wherever the CPU's top-2 margin exceeds
+    twice that (``_archs_parity.py``'s rule)."""
+    t0 = time.perf_counter()
+    worst = {}
+    for name in ARCH_DEPTHS:
+        cfg = configs.get(name, smoke=True)
+        prompt = cfg.ssm.chunk if cfg.ssm is not None else \
+            ARCHS_SMOKE_PROMPT
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, size=(ARCHS_BATCH, prompt)))
+        img = None
+        if cfg.n_img_tokens:
+            img = torch.from_numpy(np.random.default_rng(3).normal(
+                size=(ARCHS_BATCH, cfg.n_img_tokens, cfg.d_model)).astype(
+                np.float32)).to(torch.bfloat16)
+        logits, caches, sessions = {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            sessions[dev] = repro_torch.compile(
+                cfg, uniform_policy(8, 8), mode="dense", backend="cuda",
+                params=interop.params_from_numpy(params, dev), device=dev)
+            y, caches[dev] = sessions[dev].prefill(
+                tokens.to(dev), sessions[dev].init_cache(
+                    ARCHS_BATCH, prompt + ARCHS_SMOKE_STEPS),
+                None if img is None else img.to(dev))
+            logits[dev] = y[:, 0]
+        worst[name] = 0.0
+        for step in range(ARCHS_SMOKE_STEPS + 1):
+            want, got = logits["cpu"].float(), logits["cuda"].float().cpu()
+            check(got.shape == want.shape and got.shape[-1] == cfg.vocab
+                  and bool(torch.isfinite(got).all()),
+                  f"{name} smoke dense step {step}: card logits "
+                  f"{tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+            err = float((got - want).abs().max())
+            worst[name] = max(worst[name], err)
+            check(err <= ARCHS_SMOKE_ATOL, f"{name} smoke dense step {step}: "
+                  f"the card's logits differ from the CPU's by {err:.4g} "
+                  f"(at {np.unravel_index(int((got - want).abs().argmax()), tuple(got.shape))})")
+            top2 = torch.topk(want, 2, dim=-1).values
+            clear = top2[:, 0] - top2[:, 1] > 2 * ARCHS_SMOKE_ATOL
+            check(torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear]),
+                  f"{name} smoke dense step {step}: greedy tokens "
+                  f"{got.argmax(-1).tolist()} on the card, "
+                  f"{want.argmax(-1).tolist()} on the CPU (clear margin "
+                  f"{clear.tolist()})")
+            if step == ARCHS_SMOKE_STEPS:
+                break
+            tok = want.argmax(-1)
+            for dev, s_ in sessions.items():
+                logits[dev], caches[dev] = s_.decode(tok.to(dev),
+                                                     prompt + step,
+                                                     caches[dev])
+        del sessions, caches, logits
+    print(f"[archs] {card}: smoke configs, dense, card against the CPU "
+          f"port (seed-0 params carried over, {ARCHS_BATCH} prompts of "
+          f"{ARCHS_SMOKE_PROMPT} tokens or one SSD chunk, "
+          f"{ARCHS_SMOKE_STEPS} decode steps on the CPU's tokens): "
+          f"logits within {ARCHS_SMOKE_ATOL} and tokens equal where the "
+          f"margin exceeds {2 * ARCHS_SMOKE_ATOL} on all nine; largest "
+          f"difference by arch "
+          f"{ {k: round(v, 5) for k, v in worst.items()} }; took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _gib(n) -> str:
+    return f"{n / 2**30:.3f} GiB"
+
+
+def phase_archs(card: str, dry: dict) -> dict:
+    """The other nine LM architectures, one at a time on the card, from
+    one seed-0 draw each (published width, ARCH_DEPTHS):
+    ``serve_packed`` (8, 8), ARCHS_BATCH prompts of ARCHS_PROMPT tokens
+    (numpy seed 1; the VLM also image embeddings from numpy seed 3),
+    ARCHS_GEN greedy tokens. Per arch: K1 launched the config's Loom
+    linear count per prefill and per decode step and nothing else;
+    ``cuda`` logits and tokens equal a ``torch_ref`` twin's on the same
+    packed weights; the compile's seconds (draw, pack, fingerprint),
+    packed bytes, peak memory, prefill ms and decode ms/step (CUDA
+    events). From the same draw, first ``dense`` (the drawn tree served as
+    it is) and ``serve_int8`` (converted before the draw is freed), each a
+    warm-up, a prefill and ARCHS_MODE_GEN - 1 decode steps launching no
+    kernel of the port: dense logits finite and of vocab width,
+    ``serve_int8``'s equal to ``serve_packed``'s at every step; their
+    compile seconds, tree bytes, peaks, prefill and decode ms beside
+    ``serve_packed``'s. At most the draw and two serving trees are held
+    at once. ARCHS_ANALYZED: the serve_packed prefill and decode step
+    under the op analyzer, held to the world-one dry run (``dry``:
+    :func:`archs_dry_counts`).
+    deepseek-moe-16b also: a ``dynamic_a`` prefill (K3) equal to the
+    static one, the engine's traffic, a profiled decode step; mamba2-370m
+    the engine's traffic. Then :func:`archs_smoke_dense`. Returns the
+    launches by path."""
+    t_phase = time.perf_counter()
+    out = {}
+    new_s = 0.0          # dense, serve_int8, the analyzer, smoke configs
     for name, depth in ARCH_DEPTHS.items():
         t_arch = time.perf_counter()
         full = configs.get(name)
@@ -2686,20 +2954,8 @@ def phase_archs(card: str) -> dict:
         draw_s = time.perf_counter() - t0
         n_params = sum(t.numel() for t in
                        interop.flatten_with_paths(params).values())
-        fp_s.clear()
-        integrity.fingerprint_session = timed_fingerprint
-        t0 = time.perf_counter()
-        try:
-            sess = repro_torch.compile(cfg, uniform_policy(8, 8),
-                                       mode="serve_packed", backend="cuda",
-                                       params=params, device="cuda")
-        finally:
-            integrity.fingerprint_session = fingerprint
-        del params
-        torch.cuda.synchronize()
-        compile_s = time.perf_counter() - t0
+        sess, compile_s, fp_s = arch_compile(cfg, "serve_packed", params)
         pack_peak = torch.cuda.max_memory_allocated() - base
-        ref = twin_session(sess, "torch_ref")
         n_pre, n_dec = (loom_linears(cfg, decode=False),
                         loom_linears(cfg, decode=True))
         tokens = torch.from_numpy(np.random.default_rng(1).integers(
@@ -2714,10 +2970,45 @@ def phase_archs(card: str) -> dict:
               f"{[(sp.kind, sp.ffn, sp.window) for sp in cfg.pattern]}, "
               f"vocab {cfg.vocab}; {n_params} weights drawn in {draw_s:.2f} "
               f"s, compile {compile_s:.2f} s (pack and count, fingerprint "
-              f"{sum(fp_s):.2f} s), packed tree {_param_bytes(sess.params)} "
+              f"{fp_s:.2f} s), packed tree {_param_bytes(sess.params)} "
               f"B; peak device memory over draw and compile "
               f"{pack_peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
               f"held before", flush=True)
+
+        # serve_int8 from the same draw, then dense on the draw itself.
+        t_new = time.perf_counter()
+        modes = {}
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        isess, i_s, i_fp = arch_compile(cfg, "serve_int8", params)
+        modes["serve_int8"] = dict(
+            compile=f"{i_s:.2f} s (conversion and count, fingerprint "
+                    f"{i_fp:.2f} s)",
+            bytes=_param_bytes(isess.params),
+            compile_peak=torch.cuda.max_memory_allocated() - held,
+            compile_held=held)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dsess, d_s, _ = arch_compile(cfg, "dense", params)
+        modes["dense"] = dict(
+            compile=f"{d_s:.2f} s (the drawn tree as it is)",
+            bytes=_param_bytes(dsess.params),
+            compile_peak=torch.cuda.max_memory_allocated() - held,
+            compile_held=held)
+        modes["dense"].update(arch_mode_run(dsess, tokens, img,
+                                            f"{name} dense"))
+        for i, a in enumerate(modes["dense"]["logits"]):
+            check(a.shape[-1] == cfg.vocab and bool(torch.isfinite(a).all()),
+                  f"{name} dense step {i}: logits {tuple(a.shape)}, finite "
+                  f"{bool(torch.isfinite(a).all())}")
+        del dsess, params
+        modes["serve_int8"].update(arch_mode_run(isess, tokens, img,
+                                                 f"{name} serve_int8"))
+        del isess
+        torch.cuda.empty_cache()
+        new_s += time.perf_counter() - t_new
+
+        ref = twin_session(sess, "torch_ref")
         torch.cuda.reset_peak_memory_stats()
         arch_run(sess, tokens, img, f"{name} warm-up", n_pre, n_dec, gen=2)
         got = arch_run(sess, tokens, img, name, n_pre, n_dec)
@@ -2730,6 +3021,12 @@ def phase_archs(card: str) -> dict:
                   f"from torch_ref")
         check(torch.equal(got["tokens"], want["tokens"]),
               f"{name}: cuda tokens differ from torch_ref's")
+        for i, a in enumerate(modes["serve_int8"]["logits"]):
+            b = got["logits"][i]
+            check(torch.equal(a, b), f"{name} step {i}: serve_int8 logits "
+                  f"differ from serve_packed's by "
+                  f"{max_err(a.float(), b.float()):.4g} (first at "
+                  f"{np.unravel_index(int((a != b).int().argmax()), tuple(a.shape))})")
         out[f"archs {name}"] = got["launches"]
         print(f"[archs] {card}: {name}: cuda == torch_ref (prefill and "
               f"{ARCHS_GEN - 1} decode steps' logits, tokens "
@@ -2739,7 +3036,32 @@ def phase_archs(card: str) -> dict:
               f"{got['dec_ms']:.3f} ms/step (median of {ARCHS_GEN - 1}; CUDA "
               f"events); peak device memory serving "
               f"{serve_peak / 2**30:.3f} GiB above the base", flush=True)
-        del ref, want
+        print(f"[archs] {card}: {name}: serve_int8 == serve_packed (prefill "
+              f"and {ARCHS_MODE_GEN - 1} decode steps' logits, torch.equal, "
+              f"from one draw); dense logits finite, vocab {cfg.vocab}; "
+              f"neither launched a kernel of the port", flush=True)
+        print(f"[archs] {card}: {name} serve_packed: compile "
+              f"{compile_s:.2f} s (pack and count, fingerprint {fp_s:.2f} s),"
+              f" tree {_param_bytes(sess.params)} B, peak over draw and "
+              f"compile {_gib(pack_peak)} above {_gib(base)}, serving peak "
+              f"{_gib(serve_peak)} above {_gib(base)}; prefill "
+              f"{got['pre_ms']:.3f} ms, decode {got['dec_ms']:.3f} ms/step "
+              f"(median of {ARCHS_GEN - 1})", flush=True)
+        for mode, m in modes.items():
+            print(f"[archs] {card}: {name} {mode}: compile {m['compile']}, "
+                  f"tree {m['bytes']} B, peak over compile "
+                  f"{_gib(m['compile_peak'])} above {_gib(m['compile_held'])}"
+                  f", serving peak {_gib(m['peak'])} above "
+                  f"{_gib(m['held'])}; prefill {m['pre_ms']:.3f} ms, decode "
+                  f"{m['dec_ms']:.3f} ms/step (median of "
+                  f"{ARCHS_MODE_GEN - 1}; CUDA events)", flush=True)
+        del ref, want, modes
+        if name in ARCHS_ANALYZED:
+            t_new = time.perf_counter()
+            out[f"archs {name} analyzed"] = arch_analysis(
+                sess, tokens, img, (n_pre, n_dec),
+                (got["pre_ms"], got["dec_ms"]), dry[name], card)
+            new_s += time.perf_counter() - t_new
         if name == "deepseek-moe-16b":
             dyn = twin_session(sess, "cuda", uniform_policy(8, 8,
                                                             dynamic_a=True))
@@ -2769,8 +3091,13 @@ def phase_archs(card: str) -> dict:
         del sess, got
         print(f"[archs] {name} took {time.perf_counter() - t_arch:.1f} s",
               flush=True)
+    t_new = time.perf_counter()
+    archs_smoke_dense(card)
+    new_s += time.perf_counter() - t_new
     torch.cuda.empty_cache()
-    print(f"[archs] phase took {time.perf_counter() - t_phase:.1f} s")
+    print(f"[archs] phase took {time.perf_counter() - t_phase:.1f} s, of "
+          f"which dense, serve_int8, the analyzed steps and the smoke "
+          f"configs {new_s:.1f} s")
     return out
 
 
@@ -2863,8 +3190,64 @@ def _train_flops(cfg, params) -> float:
     return 6 * n + 12 * n_attn * cfg.n_heads * cfg.d_head * TRAIN_SEQ
 
 
+def train_analysis(cfg, plan, state, step, median_ms: float,
+                   mfu: float, label: str, card: str) -> None:
+    """One more step of ``step`` on ``state`` under the op analyzer on the
+    card, its batch laid out as the dry run's (the pipeline's step-0
+    batch as int32 tokens and labels on the card), held to
+    ``dryrun.train_counts(cfg, plan.mode, TRAIN_BATCH, TRAIN_SEQ)``
+    (the step's moments, float32): operations, HBM bytes and kernels equal,
+    kernels none. The backward, which autograd runs on its CUDA device
+    thread, must be counted: the step's operations within 1% of three
+    times the forward's (the loss alone under ``no_grad``, analyzed too;
+    each product's backward is two products of its size). Prints the
+    counts and the eager-bound fraction (the analyzer's bound over the
+    median step) beside ``train_mfu``."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch import train as train_mod
+    t0 = time.perf_counter()
+    batch = {k: torch.as_tensor(v, dtype=torch.int32, device="cuda")
+             for k, v in synthetic_batch(DataConfig(
+                 vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                 global_batch=TRAIN_BATCH), 0).items()}
+    reset_launches()
+    _, t = _analyzed(lambda: step(state, batch), (state, batch))
+    launches = read_launches()
+    with torch.no_grad(), opanalysis.OpAnalysis(memory=False) as fwd:
+        M.loss_fn(state["params"], cfg, train_mod.batch_on(batch, "cuda"),
+                  plan)
+    torch.cuda.synchronize()
+    analyzed_s = time.perf_counter() - t0
+    ratio = t.flops / fwd.totals().flops
+    t0 = time.perf_counter()
+    dry = dryrun.train_counts(cfg, plan.mode, TRAIN_BATCH, TRAIN_SEQ)
+    dry_s = time.perf_counter() - t0
+    check(not any(launches.values()) and t.kernels == {},
+          f"{label} analyzed step: kernels {t.kernels}, launches {launches}")
+    check(abs(ratio / 3 - 1) <= 0.01, f"{label} analyzed step: "
+          f"{t.flops:.6g} operations, {ratio:.4f} times the forward's "
+          f"{fwd.totals().flops:.6g}: the backward is not counted whole")
+    check(dry.counts() == t.counts(), f"{label} analyzed step: the dry run "
+          f"counted {dry.counts()}, the card's step {t.counts()}")
+    terms = opanalysis.roofline_terms(t)
+    print(f"[train] {card}: {label} step under the analyzer: "
+          f"{t.flops:.6g} operations {t.flops_by_type} ({ratio:.4f} times "
+          f"the forward's {fwd.totals().flops:.6g}: the backward counted), "
+          f"{t.hbm_bytes:.6g} HBM bytes, {t.n_ops} aten ops, kernels "
+          f"{t.kernels}, tracked peak {t.peak_bytes / 2**30:.3f} GiB; the "
+          f"world-one dry run (dryrun.train_counts, fake tensors, "
+          f"{cfg.n_groups} layer groups) counts the "
+          f"same operations, HBM bytes and kernels; on the datasheet "
+          f"constants: eager bound {terms['bound_s'] * 1e3:.4f} ms "
+          f"({terms['dominant']}), eager-bound fraction "
+          f"{terms['bound_s'] * 1e3 / median_ms:.4f} of the median step's "
+          f"{median_ms:.3f} ms, beside train_mfu {mfu:.4f}; analyzed step "
+          f"and forward {analyzed_s:.1f} s, dry run {dry_s:.1f} s",
+          flush=True)
+
+
 def train_run(cfg, mode: str, steps: int, label: str, card: str,
-              profile: bool = False) -> dict:
+              profile: bool = False, analyze: bool = False) -> dict:
     """``steps`` train steps of ``cfg`` in ``mode`` ((8, 8) for
     fake_quant) from a seed-0 state drawn on the card, AdamW (float32
     moments) under ``Schedule(warmup_steps=2, total_steps=TRAIN_STEPS)``,
@@ -2875,7 +3258,8 @@ def train_run(cfg, mode: str, steps: int, label: str, card: str,
     tokens/s, train_mfu, peak memory and the optimizer's ms: the median of
     OPT_CALLS calls of ``adamw_update`` alone after the steps, on the
     final params with the params as their gradients (same leaves, shapes
-    and dtypes as the step's), so that no timed step holds a host sync."""
+    and dtypes as the step's), so that no timed step holds a host sync.
+    ``analyze``: then :func:`train_analysis`."""
     from repro_torch.api.plan import build_plan
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.launch import train as train_mod
@@ -2888,8 +3272,8 @@ def train_run(cfg, mode: str, steps: int, label: str, card: str,
         cfg, tc, torch.Generator(device="cuda").manual_seed(0), "cuda")
     state_bytes = _param_bytes(state)
     flops = _train_flops(cfg, state["params"])
-    step = train_mod.make_train_step(
-        cfg, build_plan(cfg, uniform_policy(8, 8), mode), tc)
+    plan = build_plan(cfg, uniform_policy(8, 8), mode)
+    step = train_mod.make_train_step(cfg, plan, tc)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH)
     batches = [synthetic_batch(dcfg, i) for i in range(steps)]
@@ -2929,6 +3313,8 @@ def train_run(cfg, mode: str, steps: int, label: str, card: str,
           f" FLOP/s bf16 dense peak); optimizer {opt:.3f} ms (median of {OPT_CALLS} calls of its own); peak "
           f"memory {peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
           f"held before; the port's kernels launched 0 times", flush=True)
+    if analyze:
+        train_analysis(cfg, plan, state, step, rest, mfu, label, card)
     busy = None
     if profile:
         _, busy = phase_profile(f"train {label} step ({card})",
@@ -2945,7 +3331,7 @@ def phase_train(card: str) -> None:
     (phase_flash_vjp); qwen3-1.7b at full width and depth (remat "none"),
     TRAIN_STEPS steps in ``dense`` and in ``fake_quant`` (8, 8), every loss
     finite and the mean of the last three below the first, one step of
-    each profiled; mamba2-370m (48 layers) and deepseek-moe-16b (its first
+    each analyzed (:func:`train_analysis`) and one profiled; mamba2-370m (48 layers) and deepseek-moe-16b (its first
     TRAIN_MOE_LAYERS layers) TRAIN_ARCH_STEPS dense steps each, finite
     losses, deepseek's auxiliary loss positive and finite."""
     t_phase = time.perf_counter()
@@ -2953,7 +3339,7 @@ def phase_train(card: str) -> None:
     qwen = dataclasses.replace(configs.get("qwen3-1.7b"), remat="none")
     for mode in ("dense", "fake_quant"):
         r = train_run(qwen, mode, TRAIN_STEPS, f"qwen3-1.7b {mode}", card,
-                      profile=True)
+                      profile=True, analyze=True)
         last = float(np.mean(r["losses"][-3:]))
         check(last < r["losses"][0], f"qwen3-1.7b {mode}: the last three "
               f"losses' mean {last} is not below the first "
@@ -4293,17 +4679,34 @@ for arch, shape, weights in {cells!r}:
 """
 
 
-def start_launch_cells() -> tuple:
-    """Start LAUNCH_CELLS' dry run in a subprocess (host work only, run
-    beside the phases before the launch phase, killed at exit if still
-    running): (its start time, the process)."""
+def start_dry_runs(script: str) -> tuple:
+    """Start ``script`` (dry runs: host work on fake tensors) in a
+    subprocess with the checkout's ``src`` on its path, killed at exit if
+    still running: (its start time, the process)."""
     proc = subprocess.Popen(
-        [sys.executable, "-c", _LAUNCH_CELLS_SCRIPT.format(
-            cells=LAUNCH_CELLS)], stdout=subprocess.PIPE,
+        [sys.executable, "-c", script], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, PYTHONPATH="src"))
+        env=dict(os.environ,
+                 PYTHONPATH=str(Path(__file__).resolve().parent / "src")))
     atexit.register(proc.kill)
     return time.perf_counter(), proc
+
+
+def finish_dry_runs(started: tuple, what: str) -> tuple:
+    """Wait for :func:`start_dry_runs`' subprocess (LAUNCH_TIMEOUT_S at
+    most), which must exit 0: (its output lines, its seconds, the seconds
+    waited here)."""
+    t0, proc = started
+    t_wait = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}:\n"
+          f"{out[-2000:]}{err[-3000:]}")
+    now = time.perf_counter()
+    return out.splitlines(), now - t0, now - t_wait
 
 
 def _analyzed(fn, arguments) -> tuple:
@@ -4317,7 +4720,7 @@ def _analyzed(fn, arguments) -> tuple:
 def phase_launch(lm: dict, card: str, cells: tuple) -> dict:
     """The analyzer on the card's own prefill and decode step, held equal
     to the dry run's trace of them; the production cells on a fake world
-    (module docstring; ``cells``: :func:`start_launch_cells`). Returns the
+    (module docstring; ``cells``: :func:`start_dry_runs`). Returns the
     step's launches."""
     t_phase = time.perf_counter()
     sess, cfg = lm["sess"], lm["sess"].cfg
@@ -4326,27 +4729,13 @@ def phase_launch(lm: dict, card: str, cells: tuple) -> dict:
     pos = prompt                              # as ``generate`` passes it
     n_lin = lm["n_lin"]
     params = sess.params
-    cache = sess.init_cache(batch, lm["max_seq"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    with torch.inference_mode():
-        (logits, cache), pre = _analyzed(
-            lambda: sess._prefill(params, tokens, cache), (params, cache))
-        pre_launches = read_launches()
-        tok = torch.argmax(logits[:, 0], -1).to(torch.int32)
-        reset_launches()
-        _, dec = _analyzed(lambda: sess._decode(params, tok, pos, cache),
-                           (params, cache))
-        dec_launches = read_launches()
+    got = analyze_served(sess, tokens, None, lm["max_seq"], (n_lin, n_lin),
+                         "launch")
+    pre, dec, cache, tok = (got[k] for k in ("prefill", "decode", "cache",
+                                             "tok"))
     peak = torch.cuda.max_memory_allocated()
-    for label, t, got in (("prefill", pre, pre_launches),
-                          ("decode", dec, dec_launches)):
-        lm_step_launches(f"launch {label}", got,
-                         {"bitserial_matmul": n_lin})
-        check(t.kernels == {"K1": got["bitserial_matmul"]},
-              f"launch {label}: the analyzer counted {t.kernels}, the "
-              f"launch counters {got}")
 
     timed_cache = sess.init_cache(batch, lm["max_seq"])
     with torch.inference_mode():
@@ -4382,36 +4771,24 @@ def phase_launch(lm: dict, card: str, cells: tuple) -> dict:
     t0 = time.perf_counter()
     dry = dryrun.serving_counts(cfg, "serve_packed", batch, prompt,
                                 lm["max_seq"])
-    for label, t in (("prefill", pre), ("decode", dec)):
-        check(dry[label].counts() == t.counts(),
-              f"launch {label}: the dry run counted {dry[label].counts()}, "
-              f"the card's step {t.counts()}")
+    hold_dry_run({k: t.counts() for k, t in dry.items()}, got, "launch")
     print(f"[launch] world-one dry run (fake tensors, torch_ref, traced at "
           f"1 and 2 layer groups and extrapolated to {cfg.n_groups}) in "
           f"{time.perf_counter() - t0:.1f} s: operations, HBM bytes and "
           f"kernels equal to the card's prefill and decode step's")
-    t0, proc = cells
-    t_wait = time.perf_counter()
-    try:
-        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        out, err = proc.communicate()
-    check(proc.returncode == 0, f"launch cells exited {proc.returncode}:\n"
-          f"{out[-2000:]}{err[-3000:]}")
-    lines = [ln for ln in out.splitlines() if ln.startswith("[dryrun]")]
+    out, took, waited = finish_dry_runs(cells, "launch cells")
+    lines = [ln for ln in out if ln.startswith("[dryrun]")]
     check(len(lines) == len(LAUNCH_CELLS) and all(" OK " in ln
                                                   for ln in lines),
-          f"launch cells: {out[-2000:]}")
+          f"launch cells: {out[-20:]}")
     for ln in lines:
         print(f"[launch] fake world of 256 ranks (modeled, datasheet "
               f"constants): {ln}")
-    print(f"[launch] production cells in {time.perf_counter() - t0:.1f} s "
-          f"(one subprocess, started before the dist phase; waited "
-          f"{time.perf_counter() - t_wait:.1f} s here); phase took "
+    print(f"[launch] production cells in {took:.1f} s (one subprocess, "
+          f"started before the dist phase; waited {waited:.1f} s here); "
+          f"phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return {"launch": {k: pre_launches[k] + dec_launches[k]
-                       for k in KERNELS}}
+    return {"launch": got["launches"]}
 
 
 def main() -> None:
@@ -4422,19 +4799,21 @@ def main() -> None:
     t_script = time.perf_counter()
     name, count, card = phase_device()
     phase_build()
+    archs_dry = start_archs_dry_runs()
     errs = {k: 0 for k in KERNELS}
     phase_kernels(errs)
     phase_k7(errs)
+    archs_dry = archs_dry_counts(archs_dry)
     served = phase_serve()
     lm = phase_lm(errs)
     int8 = phase_int8(lm, card, errs)
     engine = phase_engine(lm, card, errs)
     phase_integrity(lm, engine, card, errs)
     kv_launches = phase_kvcache(lm, engine, card, errs)
-    arch_launches = phase_archs(card)
+    arch_launches = phase_archs(card, archs_dry)
     phase_train(card)
     paper_launches = phase_paper(card, errs)
-    cells = start_launch_cells()
+    cells = start_dry_runs(_LAUNCH_CELLS_SCRIPT.format(cells=LAUNCH_CELLS))
     dist_launches = phase_dist(lm, card, errs)
     launch_launches = phase_launch(lm, card, cells)
     launches = dict(served["launches"])

@@ -12,7 +12,8 @@ of the silent fault model; the *compute* half is
     ``repro_torch.compile`` / ``BatchingEngine.reload``. Each leaf is
     hashed on the host, as the reference hashes it (a leaf on the card is
     copied over first), so the port's CRCs and :meth:`WeightFingerprint.
-    digest` equal the reference's for the same tree.
+    digest` equal the reference's for the same tree. Several leaves are
+    copied and hashed at once (:data:`HASH_THREADS`).
   * :func:`verify_params` / :func:`verify_plan_counts` -- re-hash and
     compare; any mismatch raises a typed
     :class:`~repro_torch.api.guards.WeightIntegrityError` naming the leaf.
@@ -30,7 +31,9 @@ rides the CRC-verified ``reload_checkpoint`` path.
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -38,10 +41,23 @@ from repro_torch import interop
 from repro_torch.api import guards
 
 
+# Leaves hashed at once: a leaf's copy from the card and zlib's CRC32
+# both release the GIL, so a tree of many leaves hashes on as many host
+# cores (one copy of each leaf in flight on the host).
+HASH_THREADS = min(8, os.cpu_count() or 1)
+
+
 def _leaf_crc(leaf) -> tuple[int, tuple, str]:
     arr = interop.host_array(interop.host_tensor(leaf))
     return (interop.crc32(arr), tuple(leaf.shape),
             interop.dtype_name(leaf.dtype))
+
+
+def _leaf_crcs(leaves: dict) -> dict:
+    """{path: (crc32, shape, dtype name)} of a flattened tree's leaves,
+    HASH_THREADS at a time."""
+    with ThreadPoolExecutor(max(1, min(HASH_THREADS, len(leaves)))) as pool:
+        return dict(zip(leaves, pool.map(_leaf_crc, leaves.values())))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,8 +94,7 @@ def _plan_counts(plan) -> dict:
 
 def fingerprint_session(params, plan) -> WeightFingerprint:
     """Fingerprint ``params`` + the plan's recorded weight-group counts."""
-    leaves = {key: _leaf_crc(leaf)
-              for key, leaf in interop.flatten_with_paths(params).items()}
+    leaves = _leaf_crcs(interop.flatten_with_paths(params))
     w_bits = max((lp.precision.w_bits for lp in plan.layers.values()),
                  default=8)
     return WeightFingerprint(leaves=leaves, group_counts=_plan_counts(plan),
@@ -96,8 +111,9 @@ def verify_params(params, fp: WeightFingerprint, where: str = "") -> int:
             f"{where or 'params'}: tree structure changed since "
             f"fingerprinting ({len(current)} leaves vs {len(fp.leaves)}) "
             f"-- serving weights are not the compiled weights")
+    crcs = _leaf_crcs(current)
     for key in sorted(current):
-        crc, shape, dtype = _leaf_crc(current[key])
+        crc, shape, dtype = crcs[key]
         want_crc, want_shape, want_dtype = fp.leaves[key]
         if (shape, dtype) != (want_shape, want_dtype):
             raise guards.WeightIntegrityError(

@@ -387,6 +387,19 @@ def serving_counts(cfg, weights: str, batch: int, prompt: int,
     return out
 
 
+def train_counts(cfg, exec_mode: str, batch: int, seq: int):
+    """The world-one dry run of one train step (:func:`serving_counts`'
+    counterpart): the Totals of :func:`build_step`'s train step in
+    ``exec_mode`` (``dense`` or ``fake_quant``; AdamW, float32 moments
+    below d_model 8192, accum 1) on a fake state and a fake batch of
+    ``batch`` x ``seq`` int32 tokens and labels, traced on ``torch_ref``
+    with its backward. What the card's step, run under ``OpAnalysis`` on
+    a batch laid out alike, must count alike (``chip_smoke.py``'s train
+    phase); a schedule changes its values, not its operations."""
+    cell = shapes.ShapeCell("train_step", "train", seq, batch)
+    return traced_totals(cfg, cell, "dense", exec_mode)[0]
+
+
 def _cache_bytes(cfg, cell) -> float:
     cache, _ = shapes.cache_structs(cfg, cell)
     return float(shapes.tree_bytes(cache))

@@ -57,6 +57,7 @@ import sys
 import weakref
 
 import torch
+from torch.distributed._tools.mem_tracker import MemTracker
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -229,15 +230,18 @@ class OpAnalysis:
 
     def __enter__(self):
         self._comm0 = self._comm_state()
+        # The analysis and its recorder refer to each other, so only the
+        # cyclic collector frees them: hold no argument past this call
+        # (a served step's weights would stay on the card until then).
+        arguments, self._arguments = self._arguments, []
         if self._memory:
-            from torch.distributed._tools.mem_tracker import MemTracker
             self._tracker = MemTracker()
             seen = {}
-            for t in self._arguments:
+            for t in arguments:
                 seen.setdefault(id(t), t)
             if seen:
                 self._tracker.track_external(*seen.values())
-            self.t.argument_bytes = float(storage_bytes(self._arguments))
+            self.t.argument_bytes = float(storage_bytes(arguments))
             self._tracker.__enter__()
         self._hooked = self._hook_backends()
         self._recorder.__enter__()
@@ -252,6 +256,7 @@ class OpAnalysis:
             snap = self._tracker.get_tracker_snapshot("peak")
             self.t.peak_bytes = float(max(
                 (v.get("Total", 0) for v in snap.values()), default=0))
+            self._tracker = None
         calls, nbytes, links = self._comm_state()
         c0, b0, l0 = self._comm0
         for kind in calls:

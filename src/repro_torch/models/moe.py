@@ -142,6 +142,16 @@ def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.cat(out).reshape(b, s, -1)
 
 
+def _one_hot(ids: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``one_hot(ids, n)`` in ``dtype`` as one comparison with ``arange(n)``
+    (ids in [0, n): the top-k's). ``F.one_hot`` picks its ops by device
+    and mode (on a CUDA tensor ``zeros`` and ``scatter_``, on a fake or
+    an inference tensor this comparison, elsewhere a range check and a
+    scatter), so the op analyzer would count another program on the card
+    than in the dry run."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
+
+
 def _route(logits: torch.Tensor, cfg: MoEConfig, shard=None):
     """Top-k gating, logits [B, S, E] -> (probs float32 [B, S, k], ids
     [B, S, k], aux): softmax in float32, the k largest gates in descending
@@ -156,7 +166,7 @@ def _route(logits: torch.Tensor, cfg: MoEConfig, shard=None):
                       logits.to(torch.float32).reshape(b * s, e))
     probs, ids = torch.topk(gates.reshape(b, s, e), cfg.top_k, dim=-1)
     total = _sum_choices(probs[..., None])[..., 0]
-    counts = torch.nn.functional.one_hot(ids, e).to(torch.float32).sum(2)
+    counts = _one_hot(ids, e, torch.float32).sum(2)
     me, ce = gates.mean(0), counts.mean((0, 1))
     if shard is not None:
         me, ce = shard.mean_over_data(me), shard.mean_over_data(ce)
@@ -173,7 +183,7 @@ def dispatch(ids: torch.Tensor, cfg: MoEConfig, cap: int):
     b = ids.shape[0]
     e = cfg.n_experts
     flat = ids.reshape(b, -1)                                  # [B, S*k]
-    onehot = torch.nn.functional.one_hot(flat, e).to(torch.int32)
+    onehot = _one_hot(flat, e, torch.int32)
     pos_in_e = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
     pos = torch.gather(pos_in_e, 2, flat[..., None])[..., 0]
     keep = pos < cap

@@ -102,3 +102,31 @@ def check_prefill_and_decode(case: dict, mode: str) -> None:
         jl, jc = JM.decode_step(jp, jcfg, tok, jnp.int32(PROMPT + step), jc,
                                 plan)
         tl, tc = sess.decode(np.array(tok), PROMPT + step, tc)
+
+
+def check_int8_equals_packed(case: dict) -> None:
+    """``serve_int8`` (one exact int8 product per linear; the MoE experts'
+    ``{"wq", "scale"}`` layout) and ``serve_packed`` at (8, 8), compiled
+    from the same params: at Pw = 8 the packed planes hold the int8
+    weights bit for bit, so a prefill of 2 x PROMPT tokens and STEPS
+    greedy decode steps give equal logits (``torch.equal``) at every step
+    (``chip_smoke.py``'s archs phase holds the same at published width on
+    the card)."""
+    cfg, img = case["cfg"], case["img"]
+    img = None if img is None else np.asarray(img)
+    got = {}
+    for mode in ("serve_int8", "serve_packed"):
+        sess = repro_torch.compile(cfg, uniform_policy(8, 8), mode=mode,
+                                   params=case["tparams"], device="cpu")
+        y, cache = sess.prefill(case["tokens"],
+                                sess.init_cache(2, PROMPT + STEPS), img)
+        got[mode] = [y[:, 0]]
+        for i in range(STEPS):
+            y, cache = sess.decode(torch.argmax(got[mode][-1], dim=-1),
+                                   PROMPT + i, cache)
+            got[mode].append(y)
+    for i, (a, b) in enumerate(zip(got["serve_int8"], got["serve_packed"])):
+        assert a.shape[-1] == cfg.vocab and bool(torch.isfinite(a).all())
+        assert torch.equal(a, b), (
+            f"{case['name']} step {i}: serve_int8 differs from serve_packed "
+            f"by {(a.float() - b.float()).abs().max().item()}")

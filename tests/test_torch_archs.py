@@ -11,8 +11,9 @@ and the same token ids. Each arch runs in the three modes (``dense``,
 greedy decode steps against the un-jitted JAX ``model.prefill`` /
 ``model.decode_step`` (``_archs_parity.py``: logits within 0.2, tokens
 where the margin is clear). The configs of all nine, and the param and
-cache trees, equal JAX's; the batching engine gives every batched row its
-solo run's bits on the MoE and the SSM.
+cache trees, equal JAX's; ``serve_int8`` equals ``serve_packed`` bit for
+bit; the batching engine gives every batched row its solo run's bits on
+the MoE and the SSM.
 """
 import _torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
@@ -31,8 +32,8 @@ from repro_torch.core.policy import uniform_policy
 from repro_torch.models import model as M
 from repro_torch.runtime.batching import BatchingEngine
 
-from _archs_parity import MODES, arch_case, check_prefill_and_decode, \
-    check_trees
+from _archs_parity import MODES, arch_case, check_int8_equals_packed, \
+    check_prefill_and_decode, check_trees
 
 ARCHS = ("deepseek-moe-16b", "mixtral-8x7b", "mamba2-370m",
          "jamba-v0.1-52b")
@@ -70,6 +71,10 @@ def test_param_and_cache_trees_match_jax(arch):
 @pytest.mark.parametrize("mode", MODES)
 def test_prefill_and_decode_match_jax(arch, mode):
     check_prefill_and_decode(arch, mode)
+
+
+def test_serve_int8_equals_serve_packed(arch):
+    check_int8_equals_packed(arch)
 
 
 @pytest.mark.parametrize("mode", ["serve_int8", "serve_packed"])

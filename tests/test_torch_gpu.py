@@ -15,8 +15,9 @@ route's row equal to the row attended alone; and the MoE's router,
 expert products and block, and the SSM's decode step, each row equal to
 the row run alone; training: the smoke LM's loss and gradients (dense
 and ``fake_quant``) on the card against the CPU, the flash VJP against
-autograd, and an AdamW step against the CPU's; a world-size-1 mesh on
-NCCL equal to the unmeshed session.
+autograd, and an AdamW step against the CPU's; a smoke train step under
+the op analyzer equal to its dry run, its backward counted; a
+world-size-1 mesh on NCCL equal to the unmeshed session.
 
 Marked ``gpu``; each test skips without a CUDA device. Run on the card with
 ``python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -766,6 +767,39 @@ def test_train_loss_and_grads_on_the_card_equal_the_cpu(cuda, mode):
         assert g[key].is_cuda
         diff = (g[key].cpu().float() - w[key].float()).abs().max()
         assert float(diff) <= 0.05 * float(w[key].float().abs().max()), key
+
+
+def test_train_step_on_the_card_counts_as_its_dry_run(cuda):
+    """One smoke train step (qwen3 at 4 layers, 2 x 32 int32 tokens and
+    labels, float32 moments) on the card under the op analyzer counts
+    what ``dryrun.train_counts`` counts, kernels none, and its backward,
+    which autograd runs on its CUDA device thread, is counted: the step's
+    operations are three times the forward's, within 1%."""
+    import dataclasses
+
+    from repro_torch.api.plan import build_plan
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch import dryrun, train as T
+    from repro_torch.launch.opanalysis import OpAnalysis
+    from repro_torch.models import model as M
+    from repro_torch.optim import Schedule
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b", smoke=True),
+                              n_layers=4, remat="none")
+    tc = T.TrainConfig(sched=Schedule(warmup_steps=2, total_steps=8))
+    state, _ = T.make_train_state(cfg, tc, device=cuda)
+    plan = build_plan(cfg, uniform_policy(8, 8), "dense")
+    batch = {k: torch.as_tensor(v, dtype=torch.int32, device=cuda)
+             for k, v in synthetic_batch(DataConfig(
+                 vocab=cfg.vocab, seq_len=32, global_batch=2), 0).items()}
+    with OpAnalysis(arguments=(state, batch)) as a:
+        T.make_train_step(cfg, plan, tc)(state, batch)
+    torch.cuda.synchronize()
+    with torch.no_grad(), OpAnalysis(memory=False) as fwd:
+        M.loss_fn(state["params"], cfg, T.batch_on(batch, cuda), plan)
+    assert a.totals().counts() == \
+        dryrun.train_counts(cfg, "dense", 2, 32).counts()
+    assert a.totals().kernels == {}
+    assert a.totals().flops / fwd.totals().flops == pytest.approx(3, rel=0.01)
 
 
 @pytest.mark.parametrize("window", [None, 80])

@@ -7,7 +7,8 @@ cache slot write, an embedding lookup, a row-parallel Loom linear's one int32 SU
 world of 8 ranks; each Loom backend op counted as its kernel, by its
 formula, on ``torch_ref`` and on ``cuda`` (plain versions on CPU
 tensors) alike; a served step run for real equal, count for count, to
-the dry run's fake trace; the dense smoke prefill's operations against
+the dry run's fake trace (qwen3, the hybrid jamba and the VLM), and a
+train step, its backward counted, to ``dryrun.train_counts``; the dense smoke prefill's operations against
 the reference's ``analyze_hlo`` of its jitted prefill; and the bound
 column of ``PERF.md``'s kernel table from the shared formula at the
 table's shapes.
@@ -63,6 +64,28 @@ def test_views_count_nothing_and_a_broadcast_counts_once():
     with OpAnalysis(memory=False) as b:
         y = x + row.expand(16, 32)
     assert b.totals().hbm_bytes == _bytes(x, row, y)
+
+
+@pytest.mark.parametrize("memory", [True, False])
+def test_the_analysis_lets_its_arguments_go(memory):
+    """No tensor handed to ``OpAnalysis(arguments=)`` outlives the block
+    once its caller drops it, without the cyclic collector: the analysis
+    and its recorder refer to each other, and on the card a served
+    step's weights kept that way (jamba's 13.5 GB packed tree) left the
+    train phase that followed out of memory."""
+    import gc
+    import weakref
+    x = torch.randn(64, 32)
+    alive = weakref.ref(x)
+    gc.disable()
+    try:
+        with OpAnalysis(memory=memory, arguments=(x, {"w": x})) as a:
+            x * 2
+        assert a.totals().argument_bytes == (_bytes(x) if memory else 0)
+        del x
+        assert alive() is None
+    finally:
+        gc.enable()
 
 
 def test_a_cache_slot_write_counts_the_slot_only():
@@ -182,6 +205,114 @@ def test_a_served_step_counts_as_its_dry_run():
     assert dec.totals().counts() == dry["decode"].counts()
     assert pre.totals().kernels == {"K1": 2 * 7 + 1}
     assert dry["decode"].peak_bytes > 0
+
+
+# (arch, K1 per prefill, K1 per decode step) at the smoke configs: jamba's
+# mamba block (6) with a gated FFN (3) and attention block (4) with a MoE
+# of no shared experts (0), and the head: 14; the VLM's attention block
+# (4 + 3), its cross-attention block (6 in prefill, the image K/V
+# projected for its cache and its attention; 2 in decode; + 3) and the
+# head: 17 and 13.
+SERVED_ARCHS = [("jamba-v0.1-52b", 14, 14), ("llama-3.2-vision-90b", 17, 13)]
+
+
+@pytest.mark.parametrize("name,k1_pre,k1_dec", SERVED_ARCHS,
+                         ids=["jamba", "vision"])
+def test_served_steps_count_as_their_dry_run(name, k1_pre, k1_dec):
+    """The hybrid (mamba, attention and MoE blocks) and the VLM (cross-
+    attention over image embeddings, which its prefill takes): a
+    ``serve_packed`` prefill (2 x 16) and one decode step run for real
+    under the analyzer count what ``dryrun.serving_counts`` counts
+    (``chip_smoke.py``'s archs phase holds the same on the card at the
+    cut published configs)."""
+    cfg = configs.get(name, smoke=True)
+    sess = repro_torch.compile(cfg, uniform_policy(8, 8),
+                               mode="serve_packed", device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 16))).to(torch.int32)
+    img = ()
+    if cfg.n_img_tokens:
+        img = (torch.from_numpy(np.random.default_rng(3).normal(
+            size=(2, cfg.n_img_tokens, cfg.d_model)).astype(
+            np.float32)).to(torch.bfloat16),)
+    cache = sess.init_cache(2, 24)
+    with torch.inference_mode():
+        with OpAnalysis(arguments=(sess.params, cache) + img) as pre:
+            logits, cache = sess._prefill(sess.params, tokens, cache, *img)
+        tok = torch.argmax(logits[:, 0], -1).to(torch.int32)
+        with OpAnalysis(arguments=(sess.params, cache)) as dec:
+            sess._decode(sess.params, tok, 16, cache)
+    dry = dryrun.serving_counts(cfg, "serve_packed", 2, 16, 24)
+    assert pre.totals().counts() == dry["prefill"].counts()
+    assert dec.totals().counts() == dry["decode"].counts()
+    assert pre.totals().kernels == {"K1": k1_pre}
+    assert dec.totals().kernels == {"K1": k1_dec}
+
+
+@pytest.mark.parametrize("inference", [False, True])
+def test_moe_routing_counts_alike_on_real_and_fake_tensors(inference):
+    """The MoE's top-k routing and capacity dispatch count the same
+    operations, bytes and aten ops on real tensors as on the dry run's
+    fake ones, with and without ``inference_mode``. ``F.one_hot`` chose
+    its ops by device and mode (a range check and a scatter on real CPU
+    tensors with autograd on, ``zeros`` and ``scatter_`` on CUDA ones, a
+    comparison on fake ones): on the card jamba's analyzed prefill counted
+    395264 HBM bytes fewer than its dry run. ``moe._one_hot`` is one
+    comparison everywhere."""
+    from repro_torch.models import moe
+    cfg = configs.get("jamba-v0.1-52b", smoke=True).moe
+
+    def route(x, w):
+        probs, ids, aux = moe._route(moe.router_logits(x, w), cfg)
+        return moe.dispatch(ids, cfg, 5)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, cfg.d_model, generator=g).to(torch.bfloat16)
+    w = torch.randn(cfg.d_model, cfg.n_experts, generator=g)
+    with torch.inference_mode(inference), OpAnalysis(memory=False) as real:
+        route(x, w)
+    with shapes.fake_mode():
+        fx, fw = torch.empty_like(x), torch.empty_like(w)
+        with torch.inference_mode(inference), \
+                OpAnalysis(memory=False) as fake:
+            route(fx, fw)
+    assert real.totals().counts() == fake.totals().counts()
+    assert real.totals().n_ops == fake.totals().n_ops
+
+
+@pytest.mark.parametrize("mode", ["dense", "fake_quant"])
+def test_a_train_step_counts_as_its_dry_run(mode):
+    """One real train step (AdamW, float32 moments, a schedule; 2 x 32
+    int32 tokens and labels, as the dry run lays out its batch) of the
+    smoke qwen3 at 4 layers under the analyzer, against
+    ``dryrun.train_counts`` (the same moments; the schedule changes
+    values, not operations), traced at one and two layers and
+    extrapolated, as on the card at 28: operations, bytes and kernels
+    (none) equal. The backward is counted:
+    the step's operations are three times the forward's (a product's two
+    gradient products each), within 1%."""
+    from repro_torch.api.plan import build_plan
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    from repro_torch.optim import Schedule
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b", smoke=True),
+                              n_layers=4, remat="none")
+    tc = T.TrainConfig(sched=Schedule(warmup_steps=2, total_steps=8))
+    state, _ = T.make_train_state(cfg, tc, torch.Generator().manual_seed(0),
+                                  "cpu")
+    plan = build_plan(cfg, uniform_policy(8, 8), mode)
+    step = T.make_train_step(cfg, plan, tc)
+    batch = {k: torch.as_tensor(v, dtype=torch.int32) for k, v in
+             synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                        global_batch=2), 0).items()}
+    with OpAnalysis(arguments=(state, batch)) as a:
+        step(state, batch)
+    with torch.no_grad(), OpAnalysis(memory=False) as fwd:
+        M.loss_fn(state["params"], cfg, T.batch_on(batch, "cpu"), plan)
+    dry = dryrun.train_counts(cfg, mode, 2, 32)
+    assert a.totals().counts() == dry.counts()
+    assert a.totals().kernels == {}
+    assert a.totals().flops / fwd.totals().flops == pytest.approx(3, rel=0.01)
 
 
 def test_the_dry_run_extrapolates_a_deep_model_exactly():
