@@ -178,17 +178,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               ``serve_packed`` prefill and decode step under
               ``launch.opanalysis`` (K1 equal to the launch counters)
               counted exactly as the world-one dry run counts them (in a
-              subprocess beside the kernel checks). deepseek-moe-16b: a
-              ``dynamic_a`` prefill (K3 on every linear) equal to the
-              static one, one decode step profiled (4 of its 28 layers:
-              the dist phase's training and the launch phase took the
-              time). deepseek-moe-16b and mamba2-370m: the engine's
-              traffic (ARCHS_ENGINE_PROMPTS), every stream and batched
-              decode row equal to its solo run. Then each arch's smoke
-              config in ``dense`` on the card against the CPU port from
-              the same seed-0 params (ARCHS_SMOKE_*: logits within 0.2,
-              greedy tokens equal where the CPU's top-2 margin exceeds
-              0.4).
+              subprocess beside the build and the kernel checks).
+              deepseek-moe-16b: a ``dynamic_a`` prefill (K3 on every
+              linear) equal to the static one, one decode step profiled
+              (4 of its 28 layers: the dist phase's training and the
+              launch phase took the time). deepseek-moe-16b and
+              mamba2-370m: the engine's traffic (ARCHS_ENGINE_PROMPTS),
+              every stream and batched decode row equal to its solo
+              run. Then each arch's smoke config in ``dense`` on the
+              card against the CPU port from the same seed-0 params
+              (ARCHS_SMOKE_*: logits within 0.2, greedy tokens equal
+              where the CPU's top-2 margin exceeds 0.4).
    train   -- the training path (no kernel of the port runs in it; the
               counts read 0): the flash VJP's dQ/dK/dV against autograd
               through ``chunked_attention`` (FLASH_CASES, float32 from
@@ -276,6 +276,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
               bytes and kernels exactly. Then LAUNCH_CELLS traced on a
               fake world of 256 ranks in a subprocess (started before
               the dist phase, host work only), one line a cell.
+   reports -- the paper's reports as the port's entry points
+              (``repro_torch.reports``): Table 1's method (profiles at
+              tolerance 0.02, then the dynamic statistics at group 256;
+              float64 forwards) on the card and on the CPU from the same
+              torch-drawn params: the two profiles equal layer by layer,
+              the dynamic means and plane fractions equal as the report
+              prints them; both devices' metrics at every deciding width
+              beside their floors; the card's seconds. Tables 2 and 4
+              and Figures 4 and 5 printed once (MODELED; Figure 5's
+              assertion holds). The roofline report over the launch
+              cells' records: each row's terms equal its record's as
+              ``fmt_ms`` formats them, one row per record.
 5. timing  -- each kernel at the operands its path gave it (CUDA events,
               launched from Python and, for the device's time alone,
               replayed from a CUDA graph), beside its plain version, one
@@ -307,6 +319,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -357,6 +370,8 @@ from repro_torch.launch import dryrun, opanalysis, shapes  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import cnn, layers as L, model as M  # noqa: E402
 from repro_torch.models import moe, ssm  # noqa: E402
+from repro_torch.reports import (  # noqa: E402
+    fig4, fig5, roofline, table1, table2, table4)
 from repro_torch.runtime import faults  # noqa: E402
 from repro_torch.runtime.audit import replay_bundle  # noqa: E402
 from repro_torch.runtime.batching import BatchingEngine, KVPool  # noqa: E402
@@ -2680,9 +2695,9 @@ ARCHS_ANALYZED = ("jamba-v0.1-52b", "llama-3.2-vision-90b")
 # (tests/_archs_parity.py's LOGIT_ATOL, the CPU port against JAX).
 ARCHS_SMOKE_PROMPT, ARCHS_SMOKE_STEPS, ARCHS_SMOKE_ATOL = 16, 3, 0.2
 # The world-one dry runs of ARCHS_ANALYZED's steps (host work on fake
-# tensors), traced in a subprocess beside the kernel checks, which time
-# nothing: one JSON line of {"prefill", "decode": counts} per arch, in
-# order.
+# tensors), traced in a subprocess beside the build and the kernel
+# checks, which time nothing: one JSON line of {"prefill", "decode":
+# counts} per arch, in order.
 _ARCHS_DRY_SCRIPT = """
 import dataclasses, json
 from repro_torch import configs
@@ -2714,7 +2729,8 @@ def archs_dry_counts(started: tuple) -> dict:
           f"the archs' dry runs printed {lines}")
     print(f"[archs] world-one dry runs of {list(ARCHS_ANALYZED)}' prefill "
           f"and decode step in {took:.1f} s (one subprocess beside the "
-          f"kernel checks; waited {waited:.1f} s here)", flush=True)
+          f"build and the kernel checks; waited {waited:.1f} s here)",
+          flush=True)
     return {name: json.loads(ln) for name, ln in zip(ARCHS_ANALYZED, lines)}
 
 
@@ -4676,6 +4692,7 @@ from repro_torch.launch import dryrun
 out = tempfile.mkdtemp()
 for arch, shape, weights in {cells!r}:
     dryrun.run_cell(arch, shape, "single", weights, weights, out_dir=out)
+print("[records]", out)
 """
 
 
@@ -4717,11 +4734,11 @@ def _analyzed(fn, arguments) -> tuple:
     return out, a.totals()
 
 
-def phase_launch(lm: dict, card: str, cells: tuple) -> dict:
+def phase_launch(lm: dict, card: str, cells: tuple) -> tuple:
     """The analyzer on the card's own prefill and decode step, held equal
     to the dry run's trace of them; the production cells on a fake world
     (module docstring; ``cells``: :func:`start_dry_runs`). Returns the
-    step's launches."""
+    step's launches and the directory of the cells' records."""
     t_phase = time.perf_counter()
     sess, cfg = lm["sess"], lm["sess"].cfg
     tokens = lm["tokens"].to(torch.int32)
@@ -4784,11 +4801,143 @@ def phase_launch(lm: dict, card: str, cells: tuple) -> dict:
     for ln in lines:
         print(f"[launch] fake world of 256 ranks (modeled, datasheet "
               f"constants): {ln}")
+    records = [ln.split(" ", 1)[1] for ln in out
+               if ln.startswith("[records] ")]
+    check(len(records) == 1, f"launch cells: no records directory: "
+          f"{out[-5:]}")
     print(f"[launch] production cells in {took:.1f} s (one subprocess, "
           f"started before the dist phase; waited {waited:.1f} s here); "
           f"phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return {"launch": got["launches"]}
+    return {"launch": got["launches"]}, records[0]
+
+
+def printed(fn, *args, **kwargs) -> tuple:
+    """(``fn``'s result, the lines it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue().splitlines()
+
+
+def table1_deciders(params: dict, device: str) -> tuple:
+    """Table 1's metric on ``device`` (``table1.metric`` from ``params``
+    and the report's images) and the search's floor."""
+    eval_fn = table1.metric(*table1.operands(params, None, device))
+    base = eval_fn(uniform_policy(16, 16))
+    tol = table1.TOLERANCE
+    return eval_fn, base * (1.0 - tol) if base >= 0 else base * (1.0 + tol)
+
+
+@torch.inference_mode()
+def hold_table1(got: dict, want: dict, params: dict) -> None:
+    """The card's Table 1 rows ``got`` equal the CPU's ``want``: each
+    layer's profiled widths, and its dynamic line as the report prints
+    it. Prints, for each layer and width kind, both devices' metrics
+    beside their floors at the deciding widths: the larger profiled width
+    less one (where the search stopped, or where one device went on and
+    the other stopped) and the smaller profiled width below 16 (the last
+    one kept); any difference fails."""
+    (card_fn, card_floor), (cpu_fn, cpu_floor) = (
+        table1_deciders(params, d) for d in ("cuda", "cpu"))
+    diffs = []
+    for what in ("a_bits", "w_bits"):
+        for name in got["layers"]:
+            a, b = got[what][name], want[what][name]
+            for width in sorted({max(a, b) - 1, min(a, b)}):
+                if not table1.MIN_BITS <= width < 16:
+                    continue
+                lp = LayerPrecision(a_bits=width if what == "a_bits" else 16,
+                                    w_bits=width if what == "w_bits" else 16)
+                pol = PrecisionPolicy(default=LayerPrecision(16, 16),
+                                      per_layer={name: lp})
+                mc, mh = card_fn(pol), cpu_fn(pol)
+                print(f"[reports] Table 1 decision: {name} {what} card {a}, "
+                      f"CPU {b}; at {width} bits the card's metric {mc!r} "
+                      f"(floor {card_floor!r}, margin {mc - card_floor:.3g}),"
+                      f" the CPU's {mh!r} (floor {cpu_floor!r}, margin "
+                      f"{mh - cpu_floor:.3g})")
+            if a != b:
+                diffs.append(f"{name} {what}: card {a}, CPU {b}")
+    for name in got["layers"]:
+        lines = [table1.dynamic_line(name, r["dynamic"][name])
+                 if name in r["dynamic"] else None for r in (got, want)]
+        if lines[0] != lines[1]:
+            diffs.append(f"{name} dynamic: card {lines[0]!r}, CPU "
+                         f"{lines[1]!r}")
+    for d in diffs:
+        print(f"[reports] Table 1 differs: {d}")
+    check(not diffs, f"Table 1 on the card differs from the CPU's in "
+          f"{len(diffs)} place(s)")
+
+
+def hold_roofline(lines: list, recs: list, weights: str) -> int:
+    """The roofline table's rows in ``lines`` are those of ``recs``' single
+    -mesh, untagged ``weights`` records, one each, with every term as
+    ``fmt_ms`` formats it. Returns the rows held."""
+    rows = [ln for ln in lines if ln.startswith("| ") and
+            not ln.startswith("| arch |")]
+    want = [r for r in recs if not r.get("skipped") and r["mesh"] == "single"
+            and r["weights"] == weights and not r.get("tag")]
+    check(len(rows) == len(want), f"roofline ({weights}): {len(rows)} rows "
+          f"for {len(want)} records:\n" + "\n".join(lines))
+    for r in want:
+        match = [ln for ln in rows
+                 if ln.startswith(f"| {r['arch']} | {r['shape']} |")]
+        check(len(match) == 1, f"roofline ({weights}): {len(match)} rows "
+              f"for {r['arch']} x {r['shape']}")
+        cells = [c.strip() for c in match[0].strip("|").split("|")]
+        terms = [roofline.fmt_ms(r["t_compute_s"]),
+                 roofline.fmt_ms(r["t_memory_s"]),
+                 roofline.fmt_ms(r["t_collective_s"]), r["dominant"],
+                 roofline.fmt_ms(r["ideal_bound_s"]),
+                 f"{r['roofline_fraction']:.3f}"]
+        check(cells[2:8] == terms, f"roofline row {cells} against the "
+              f"record's terms {terms}")
+    return len(want)
+
+
+def phase_reports(card: str, records: str) -> None:
+    """The paper's reports as the port's entry points (module docstring);
+    ``records``: the launch cells' dry-run records, removed after."""
+    t_phase = time.perf_counter()
+    cfg = configs.get("paper_cnn", smoke=True)
+    params = cnn.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = table1.rows(params, device="cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = table1.rows(params, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    for line in table1.lines(got):
+        print(f"[reports] {card}: {line}")
+    hold_table1(got, want, params)
+    print(f"[reports] Table 1 on the card in {t_card:.3f} s (host clock to "
+          f"synchronize), equal to the CPU's ({t_cpu:.3f} s) layer by layer")
+    for report in (table2, table4, fig4, fig5):
+        _, lines = printed(report.main)
+        check(lines[0].startswith("(MODELED"), f"{report.__name__}: "
+              f"{lines[0]}")
+        for line in lines:
+            print(f"[reports] {line}")
+    with tempfile.TemporaryDirectory() as no_opt:
+        recs, lines = printed(roofline.main, results_dir=records,
+                              opt_dir=no_opt)
+    # The report's table shows the dense records; the serve_packed cell's
+    # table is printed beside it.
+    served = roofline.table(recs, weights="serve_packed").splitlines()
+    for line in lines + served:
+        print(f"[reports] {line}")
+    held = (hold_roofline(lines, recs, "dense")
+            + hold_roofline(served, recs, "serve_packed"))
+    check(held == len(LAUNCH_CELLS), f"roofline: {held} rows held for "
+          f"{len(LAUNCH_CELLS)} launch cells")
+    shutil.rmtree(records)
+    print(f"[reports] roofline rows equal to the {held} launch cells' "
+          f"records; phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def main() -> None:
@@ -4798,8 +4947,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_script = time.perf_counter()
     name, count, card = phase_device()
-    phase_build()
     archs_dry = start_archs_dry_runs()
+    phase_build()
     errs = {k: 0 for k in KERNELS}
     phase_kernels(errs)
     phase_k7(errs)
@@ -4815,7 +4964,8 @@ def main() -> None:
     paper_launches = phase_paper(card, errs)
     cells = start_dry_runs(_LAUNCH_CELLS_SCRIPT.format(cells=LAUNCH_CELLS))
     dist_launches = phase_dist(lm, card, errs)
-    launch_launches = phase_launch(lm, card, cells)
+    launch_launches, records = phase_launch(lm, card, cells)
+    phase_reports(card, records)
     launches = dict(served["launches"])
     launches["CNN im2col"] = int8["im2col_launches"]
     launches["LM generate"] = lm["gen_launches"]
