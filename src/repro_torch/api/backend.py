@@ -44,6 +44,7 @@ from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
                                                   bitserial_matmul_dynamic)
 from repro_torch.kernels.dynamic_quant import dynamic_quant
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.runtime import tracing
 
 
 def _trims(w_counts, w_bits: int) -> bool:
@@ -63,11 +64,12 @@ def dense_weights(w_packed, w_bits: int, w_counts=None, w_group: int = 16):
     int32 [K8, N] and, where a pack-time count lies below Pw, truncated per
     filter group at its count (value-preserving for OR-tree counts; full
     counts truncate nothing)."""
-    wq = bitpack.unpack_weights(w_packed, w_bits)
-    if _trims(w_counts, w_bits):
-        wq = truncate_columns_grouped(
-            wq, _counts_tensor(tuple(w_counts), wq.device), w_group)
-    return wq
+    with tracing.span("trim.dense_weights"):
+        wq = bitpack.unpack_weights(w_packed, w_bits)
+        if _trims(w_counts, w_bits):
+            wq = truncate_columns_grouped(
+                wq, _counts_tensor(tuple(w_counts), wq.device), w_group)
+        return wq
 
 
 def sum_int8_subplanes(wq, w_bits: int, run):

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.api.plan import ExecutionPlan, build_plan, counted_weights
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.runtime import tracing
 
 _SERVING_MODES = ("serve_int8", "serve_packed")
 
@@ -118,30 +119,32 @@ class ServingSession:
         ``img_embeds`` [B, n_img_tokens, d] (a tensor or numpy array, bf16
         included)."""
         self._need(lm=True)
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        if cache is None:
-            cache = self.init_cache(tokens.shape[0])
-        tokens = self._local_rows(tokens)
-        with torch.inference_mode():
-            if img_embeds is None:
-                return self._prefill(self.params, tokens, cache)
-            from repro_torch import interop
-            img_embeds = self._local_rows(
-                interop.params_from_numpy(img_embeds, self.device))
-            return self._prefill(self.params, tokens, cache, img_embeds)
+        with tracing.span("session.prefill"):
+            tokens = torch.as_tensor(tokens, device=self.device).long()
+            if cache is None:
+                cache = self.init_cache(tokens.shape[0])
+            tokens = self._local_rows(tokens)
+            with torch.inference_mode():
+                if img_embeds is None:
+                    return self._prefill(self.params, tokens, cache)
+                from repro_torch import interop
+                img_embeds = self._local_rows(
+                    interop.params_from_numpy(img_embeds, self.device))
+                return self._prefill(self.params, tokens, cache, img_embeds)
 
     def decode(self, token, pos, cache):
         """One decode step. token: int [B]; pos: the absolute position, an
         int for the whole batch or an int [B] tensor per row. Returns
         (logits [B, V], cache)."""
         self._need(lm=True)
-        token = self._local_rows(
-            torch.as_tensor(token, device=self.device).long())
-        if not isinstance(pos, int):
-            pos = self._local_rows(
-                torch.as_tensor(pos, dtype=torch.int32, device=self.device))
-        with torch.inference_mode():
-            return self._decode(self.params, token, pos, cache)
+        with tracing.span("session.decode"):
+            token = self._local_rows(
+                torch.as_tensor(token, device=self.device).long())
+            if not isinstance(pos, int):
+                pos = self._local_rows(torch.as_tensor(
+                    pos, dtype=torch.int32, device=self.device))
+            with torch.inference_mode():
+                return self._decode(self.params, token, pos, cache)
 
     def generate(self, tokens, gen_len: int, max_seq: int | None = None):
         """Greedy generation: prefill + gen_len - 1 decode steps over a
@@ -171,9 +174,10 @@ class ServingSession:
         """x: [B, H, W, C] float (tensor or array) -> logits [B, n_classes]
         on the session's device."""
         self._need(lm=False)
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        with torch.inference_mode():
-            return self._classify(self.params, x)
+        with tracing.span("session.classify"):
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            with torch.inference_mode():
+                return self._classify(self.params, x)
 
     # -- Integrity ----------------------------------------------------------
 
@@ -326,7 +330,8 @@ def compile(cfg, policy: Optional[PrecisionPolicy] = None,
     sess = ServingSession(cfg=cfg, plan=plan, params=params, device=device,
                           shard=shard, **entry_points(cfg, plan, shard))
     if mode in _SERVING_MODES:
-        sess.refingerprint()
+        with tracing.span("compile.fingerprint"):
+            sess.refingerprint()
     return sess
 
 

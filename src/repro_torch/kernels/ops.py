@@ -19,6 +19,7 @@ from repro_torch.api.backend import (dense_weights, resolve_backend,
                                      sum_int8_subplanes)
 from repro_torch.core import bitpack, dynamic, quantize as q
 from repro_torch.kernels import ref
+from repro_torch.runtime import tracing
 
 
 def loom_linear_serve(x: torch.Tensor, w_packed: torch.Tensor,
@@ -44,12 +45,16 @@ def loom_linear_serve(x: torch.Tensor, w_packed: torch.Tensor,
     if k8 != k:  # pack_weights zero-pads K%8 rows; mirror on activations
         x2 = F.pad(x2, (0, k8 - k))
     a_bits = min(a_bits, 8)  # int8 kernel ABI
-    xq, x_scale = q.quantize(x2, a_bits, scale=x_scale, axis=a_axis)
-    y = be.matmul_planes(xq.to(torch.int8), w_packed, w_bits=w_bits,
-                         w_counts=w_counts, w_group=w_group)
+    with tracing.span("ops.quantize"):
+        xq, x_scale = q.quantize(x2, a_bits, scale=x_scale, axis=a_axis)
+        xq8 = xq.to(torch.int8)
+    y = be.matmul_planes(xq8, w_packed, w_bits=w_bits, w_counts=w_counts,
+                         w_group=w_group)
+    del xq8                    # held only through the kernel's call
     if int_sum is not None:
         y = int_sum(y)
-    out = (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
+    with tracing.span("ops.dequantize"):
+        out = (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
     return out if x.ndim == 2 else out.reshape(*lead, -1)
 
 
@@ -90,26 +95,41 @@ def loom_linear_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
     if k8 != k:
         x2 = F.pad(x2, (0, k8 - k))
     a_bits = min(a_bits, 8)
-    xq, x_scale = q.quantize(x2, a_bits, scale=x_scale, axis=a_axis)
+    with tracing.span("ops.quantize"):
+        xq, x_scale = q.quantize(x2, a_bits, scale=x_scale, axis=a_axis)
     m = xq.shape[0]
     # A group is group_size rows; a small batch is one 8-row-aligned group.
     g = min(group_size, _round_up(m, 8))
     mp = _round_up(m, g)
     if mp != m:
         xq = F.pad(xq, (0, 0, 0, mp - m))     # zero rows: the 1-bit floor
-    counts = dynamic.serve_group_counts(xq, g, a_bits)          # [mp / g]
-    x_packed = bitpack.pack_weights(xq.T, a_bits)               # [Pa, K8/8, mp]
+    with tracing.span("trim.counts"):
+        counts = dynamic.serve_group_counts(xq, g, a_bits)      # [mp / g]
+    with tracing.span("trim.pack_activations"):
+        x_packed = bitpack.pack_weights(xq.T, a_bits)           # [Pa, K8/8, mp]
+
+    def run(plane):
+        _count_planes(counts, a_bits)
+        return be.matmul_planes_dynamic(plane.T.contiguous(), x_packed,
+                                        counts, w_bits=a_bits, bn=g)
+
     yt = sum_int8_subplanes(
-        dense_weights(w_packed, w_bits, w_counts, w_group), w_bits,
-        lambda plane: be.matmul_planes_dynamic(
-            plane.T.contiguous(), x_packed, counts, w_bits=a_bits, bn=g))
+        dense_weights(w_packed, w_bits, w_counts, w_group), w_bits, run)
     # Row-major like the static path's output: the float ops downstream
     # (attention's products) may sum in another order for another layout.
     y = yt.T[:m].contiguous()
     if int_sum is not None:
         y = int_sum(y)
-    out = (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
+    with tracing.span("ops.dequantize"):
+        out = (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
     return out if x.ndim == 2 else out.reshape(*lead, -1)
+
+
+def _count_planes(counts: torch.Tensor, a_bits: int) -> None:
+    """The activation planes one dynamic call hands its kernel, and the
+    static planes of the same groups."""
+    tracing.count("trim.a_planes", counts)
+    tracing.count("trim.a_static_planes", counts.numel() * a_bits)
 
 
 def conv_accum_fits_f32(kkc: int, a_bits: int, w_bits: int) -> bool:
@@ -196,11 +216,15 @@ def loom_conv_serve(x: torch.Tensor, w_packed: torch.Tensor,
     be = resolve_backend(backend)
     w_bits = w_packed.shape[0]
     a_bits = min(a_bits, 8)  # int8 kernel ABI
-    xq, x_scale = q.quantize(x.to(torch.float32), a_bits)
-    y = be.conv_planes(xq.to(torch.int8), w_packed, kernel=kernel,
-                       stride=stride, w_bits=w_bits, conv_tile=conv_tile,
+    with tracing.span("ops.quantize"):
+        xq, x_scale = q.quantize(x.to(torch.float32), a_bits)
+        xq8 = xq.to(torch.int8)
+    y = be.conv_planes(xq8, w_packed, kernel=kernel, stride=stride,
+                       w_bits=w_bits, conv_tile=conv_tile,
                        w_counts=w_counts, w_group=w_group)
-    return (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
+    del xq8                    # held only through the kernel's call
+    with tracing.span("ops.dequantize"):
+        return (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
 
 
 def loom_conv_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
@@ -221,15 +245,23 @@ def loom_conv_serve_dynamic(x: torch.Tensor, w_packed: torch.Tensor,
     be = resolve_backend(backend)
     w_bits = w_packed.shape[0]
     a_bits = min(a_bits, 8)  # int8 kernel ABI, as in loom_conv_serve
-    xq, x_scale = q.quantize(x.to(torch.float32), a_bits)
+    with tracing.span("ops.quantize"):
+        xq, x_scale = q.quantize(x.to(torch.float32), a_bits)
     nwin = -(-x.shape[1] // stride) * -(-x.shape[2] // stride)
     gsz = min(group_size, _round_up(nwin, 8))
-    counts = dynamic.conv_window_group_counts(xq, kernel, stride, gsz, a_bits)
-    y = be.conv_planes_dynamic(xq.to(torch.int8), w_packed, counts,
-                               kernel=kernel, stride=stride, w_bits=w_bits,
-                               group_size=gsz, conv_tile=conv_tile,
-                               w_counts=w_counts, w_group=w_group)
-    return (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
+    with tracing.span("trim.counts"):
+        counts = dynamic.conv_window_group_counts(xq, kernel, stride, gsz,
+                                                  a_bits)
+    with tracing.span("ops.quantize"):      # its int8 cast, as above
+        xq8 = xq.to(torch.int8)
+    _count_planes(counts, a_bits)
+    y = be.conv_planes_dynamic(xq8, w_packed, counts, kernel=kernel,
+                               stride=stride, w_bits=w_bits, group_size=gsz,
+                               conv_tile=conv_tile, w_counts=w_counts,
+                               w_group=w_group)
+    del xq8                    # held only through the kernel's call
+    with tracing.span("ops.dequantize"):
+        return (y * (x_scale * w_scale).to(torch.float32)).to(x.dtype)
 
 
 def quantize_activations(x: torch.Tensor, *, group_size: int = 256,

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.models import layers as L
+from repro_torch.runtime import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,11 +106,13 @@ def forward(params: dict, cfg: CNNConfig, x: torch.Tensor,
             y = L.linear_apply(params[c.name], _im2col(x, c.kernel,
                                                        c.stride),
                                plan, c.name)
-        y = torch.relu(y)
-        if c.pool > 1:
-            b, h, w, ch = y.shape
-            y = y.reshape(b, h // c.pool, c.pool, w // c.pool, c.pool, ch)
-            y = torch.amax(y, dim=(2, 4))   # the SIP max comparator
+        with tracing.span("cnn.relu_pool"):
+            y = torch.relu(y)
+            if c.pool > 1:
+                b, h, w, ch = y.shape
+                y = y.reshape(b, h // c.pool, c.pool, w // c.pool, c.pool,
+                              ch)
+                y = torch.amax(y, dim=(2, 4))   # the SIP max comparator
         x = y
     x = x.reshape(x.shape[0], -1)
     for i in range(len(cfg.fcs)):

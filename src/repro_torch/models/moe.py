@@ -47,6 +47,7 @@ from repro_torch.dist import sharding
 from repro_torch.dist.parallel import lin
 from repro_torch.dist.sharding import Spec
 from repro_torch.models import layers as L
+from repro_torch.runtime import tracing
 
 # Rows of the router's product a step multiplies out at a time (float32
 # [rows, E, d] intermediates: 1024 rows of deepseek's are 537 MB).
@@ -200,11 +201,12 @@ def _expert_weight(w, dtype) -> tuple:
         return w.to(dtype), None
     if "wq" in w:
         return w["wq"].to(dtype), w["scale"]
-    packed = w["w_packed"]
-    e, bits, k8, n = packed.shape
-    planes = packed.transpose(0, 1).reshape(bits, e * k8, n)
-    wq = bitpack.unpack_weights(planes, bits).reshape(e, 8 * k8, n)
-    return wq.to(dtype), w["scale"]
+    with tracing.span("moe.unpack"):
+        packed = w["w_packed"]
+        e, bits, k8, n = packed.shape
+        planes = packed.transpose(0, 1).reshape(bits, e * k8, n)
+        wq = bitpack.unpack_weights(planes, bits).reshape(e, 8 * k8, n)
+        return wq.to(dtype), w["scale"]
 
 
 def _expert_mm(buf: torch.Tensor, p: dict, key: str) -> torch.Tensor:
@@ -237,6 +239,9 @@ def apply_train(p, cfg: MoEConfig, x: torch.Tensor, plan) -> tuple:
     xr = quant.fake_quant(x, lp.a_bits) if fake_quant else x
     probs, ids, aux = _route(router_logits(x, p["router"]["w"]), cfg)
     slot, keep = dispatch(ids, cfg, cap)
+    if s > 1 and tracing.enabled():
+        tracing.count("moe.prefill_choices", keep.numel())
+        tracing.count("moe.prefill_dropped", torch.logical_not(keep))
 
     # Scatter the tokens into [B, E * cap (+1 sink), d].
     tok = torch.repeat_interleave(xr, k, dim=1)                # [B, S*k, d]

@@ -100,7 +100,7 @@ import numpy as np
 import torch
 
 from repro_torch.api import guards
-from repro_torch.runtime import faults
+from repro_torch.runtime import faults, tracing
 from repro_torch.runtime.batching import streams
 from repro_torch.runtime.batching.kvpool import KVPool
 from repro_torch.runtime.batching.scheduler import FCFSScheduler, Request
@@ -194,7 +194,10 @@ class BatchingEngine:
         self._watchdog: concurrent.futures.ThreadPoolExecutor | None = None
         self._n_decode_steps = 0
         self._occ_sum = 0
-        self._busy_s = 0.0
+        # The serving window of tokens/s: the first step's start to the
+        # latest step's end (monotonic clock), time between steps included.
+        self._first_step_t: float | None = None
+        self._last_step_end_t = 0.0
         self._n_streamed = 0
         self._n_restarts = 0
         self._consec_restarts = 0
@@ -279,17 +282,20 @@ class BatchingEngine:
             raise
 
     def _step_inner(self) -> bool:
-        t0 = time.monotonic()
-        self._integrity_tick()
-        self._retire_cancelled()
-        self._retire_expired(t0)
-        self._admit(t0)
-        if self.active:
-            self._decode_once()
-        self._audit_tick()
-        self._busy_s += time.monotonic() - t0
-        self._feed_stats()
-        return bool(self.active) or self.scheduler.depth > 0
+        with tracing.span("engine.step"):
+            t0 = time.monotonic()
+            if self._first_step_t is None:
+                self._first_step_t = t0
+            self._integrity_tick()
+            self._retire_cancelled()
+            self._retire_expired(t0)
+            self._admit(t0)
+            if self.active:
+                self._decode_once()
+            self._audit_tick()
+            self._last_step_end_t = time.monotonic()
+            self._feed_stats()
+            return bool(self.active) or self.scheduler.depth > 0
 
     def run(self, max_steps: int | None = None) -> None:
         """Drive :meth:`step` until the queue and the batch drain."""
@@ -483,20 +489,25 @@ class BatchingEngine:
                 f"{req.gen_len} exceeds the pool's max_seq {self.max_seq}")
         tokens = torch.from_numpy(req.prompt[None, :])
         attempt = 0
-        while True:
-            try:
-                cache1 = self.session.init_cache(1, self.max_seq)
-                logits, cache1 = self.session.prefill(tokens, cache=cache1)
-                tok0 = int(torch.argmax(logits[:, 0], dim=-1)[0])
-                break
-            except _retryable() as exc:
-                if attempt >= self.prefill_retries:
-                    raise
-                attempt += 1
-                self.stats.n_retries += 1
-                self._degrade(exc)
-                time.sleep(self.backoff_s * (2 ** (attempt - 1)))
-        self.pool.scatter_prefill(req.slot, cache1)
+        with tracing.span("engine.prefill", req=req.request_id,
+                          prompt_len=s):
+            while True:
+                try:
+                    cache1 = self.session.init_cache(1, self.max_seq)
+                    logits, cache1 = self.session.prefill(tokens,
+                                                          cache=cache1)
+                    tok0 = torch.argmax(logits[:, 0], dim=-1)[0]
+                    with tracing.span("engine.to_host"):
+                        tok0 = int(tok0)
+                    break
+                except _retryable() as exc:
+                    if attempt >= self.prefill_retries:
+                        raise
+                    attempt += 1
+                    self.stats.n_retries += 1
+                    self._degrade(exc)
+                    time.sleep(self.backoff_s * (2 ** (attempt - 1)))
+            self.pool.scatter_prefill(req.slot, cache1)
         req.pos = s
         self._emit(req, tok0)
 
@@ -523,7 +534,9 @@ class BatchingEngine:
         def call():
             faults.fire("engine.step_stall", detail="decode")
             logits, _ = session.decode(tok, pos, cache)
-            return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            with tracing.span("engine.to_host"):
+                return toks.cpu().numpy()
 
         if self.step_timeout_s is None:
             return call()
@@ -839,7 +852,8 @@ class BatchingEngine:
         self.stats.note_serving(
             queue_depth=self.scheduler.depth,
             batch_occupancy=occ,
-            tokens_per_s=self._n_streamed / max(self._busy_s, 1e-9),
+            tokens_per_s=self._n_streamed / max(
+                self._last_step_end_t - self._first_step_t, 1e-9),
             mean_request_latency_s=self._lat_sum / max(1, self._lat_n),
             n_tokens_streamed=self._n_streamed,
             n_engine_restarts=self._n_restarts,

@@ -103,7 +103,9 @@ class ServeStats:
     p95_audit_lag_s: float = 0.0        # gauge: completion -> audit verdict
     queue_depth: int = 0                # requests waiting for a slot
     batch_occupancy: float = 0.0        # mean active slots per decode step
-    tokens_per_s: float = 0.0           # streamed throughput over busy time
+    # tokens streamed over the wall time from the engine's first step to
+    # its latest step's end, the time between steps included
+    tokens_per_s: float = 0.0
     mean_request_latency_s: float = 0.0  # submit -> done, completed requests
     # request-latency / queue-wait percentiles over a bounded ring buffer
     # (the last ~512 completions/admissions)
